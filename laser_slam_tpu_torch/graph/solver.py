@@ -1,0 +1,653 @@
+"""Gauss-Newton / PCG pose-graph solver on SE(3), core.
+
+Counterpart of the core of ``laser_slam_tpu/graph/solver.py``: every
+``solve`` runs ``gn_iterations`` Gauss-Newton steps over the padded
+graph, each solved by preconditioned conjugate gradients, warm-started
+from the caller's estimate (the reference's three ``isam2_.update()``
+calls per scan, incremental_estimator.cpp:151-163).
+
+Numerical notes (as in the JAX package):
+* Priors with sqrt-info above ``GAUGE_FIX_THRESHOLD`` (the reference's
+  sigma=1e-7 first-node prior) are gauge constraints: the pose is frozen
+  and snapped to the prior instead of weighted, which keeps f32
+  conditioning.  Deactivating the prior unfreezes the pose.
+* Jacobians are analytic (adjoint + second-order inverse right Jacobian).
+
+Port notes: JAX's out-of-bounds ``mode='drop'`` scatters become writes
+into one extra overflow row that is cut off; duplicate-index ``.at[].add``
+becomes ``index_add_``.  The PCG ``lax.while_loop`` runs its full
+iteration count with the state frozen once converged (no device read per
+iteration); the ``lax.cond`` between the chain and scatter matvecs reads
+one flag per linearization.  Not ported yet: the dense method, the
+Woodbury preconditioner and cache, marginal covariances and the delta
+closure solve (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from laser_slam_tpu_torch.config import SolverConfig
+from laser_slam_tpu_torch.graph.factors import FactorGraphData
+from laser_slam_tpu_torch.ops import se3
+
+# sqrt-info beyond this is treated as a hard gauge constraint.
+GAUGE_FIX_THRESHOLD = 1.0e5
+
+
+def _eye6(like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(6, dtype=like.dtype, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# Analytic linearization
+# ---------------------------------------------------------------------------
+
+def _adjoint(pose7):
+    """SE(3) adjoint [...,6,6] for the [omega, v] tangent convention:
+    Ad(T) = [[R, 0], [[t]x R, R]]."""
+    R = se3.quat_to_matrix(se3.rotation(pose7))
+    t = se3.translation(pose7)
+    tx = se3._hat(t)
+    top = torch.cat([R, torch.zeros_like(R)], dim=-1)
+    bot = torch.cat([tx @ R, R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _ad_se3(xi):
+    """Little adjoint ad(xi) [...,6,6]: [[wx, 0], [vx, wx]]."""
+    wx = se3._hat(xi[..., :3])
+    vx = se3._hat(xi[..., 3:])
+    top = torch.cat([wx, torch.zeros_like(wx)], dim=-1)
+    bot = torch.cat([vx, wx], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _jr_inv(r):
+    """Inverse right Jacobian of the SE(3) log at r, to second order:
+    Jr^{-1}(r) ~ I + ad(r)/2 + ad(r)^2/12 (exact at the optimum)."""
+    a = _ad_se3(r)
+    return _eye6(r) + 0.5 * a + (1.0 / 12.0) * (a @ a)
+
+
+def _rel_error(T_a, T_b, meas):
+    """E = meas^-1 Ta^-1 Tb, batched."""
+    return se3.compose(se3.inverse(meas), se3.compose(se3.inverse(T_a), T_b))
+
+
+def _rel_linearize_analytic(T_a, T_b, meas):
+    """Residual r = log(E) and Jacobians w.r.t. right perturbations:
+    Jb = Jr^{-1}(r), Ja = -Jl^{-1}(r) Ad(meas^-1) with Jl^{-1}(r) =
+    Jr^{-1}(-r).  Batched over the leading axis."""
+    r = se3.log(_rel_error(T_a, T_b, meas))
+    Jb = _jr_inv(r)
+    Ja = -_jr_inv(-r) @ _adjoint(se3.inverse(meas))
+    return r, Ja, Jb
+
+
+def _prior_linearize_analytic(T, meas):
+    r = se3.log(se3.compose(se3.inverse(meas), T))
+    return r, _jr_inv(r)
+
+
+def _cauchy_weight(r_whitened, robust, k):
+    """GTSAM Robust(Cauchy(k)) scalar weight per factor on the whitened
+    residual norm (laser_track.cpp:38-54)."""
+    sq = torch.sum(r_whitened * r_whitened, dim=-1)
+    w = 1.0 / (1.0 + sq / (k * k))
+    return torch.where(robust, w, torch.ones_like(w))
+
+
+class _LinearizedGraph(NamedTuple):
+    """One GN linearization point, ready for PCG."""
+    Ja: torch.Tensor        # [F,6,6]
+    Jb: torch.Tensor        # [F,6,6]
+    r_rel: torch.Tensor     # [F,6] whitened residual
+    w_rel: torch.Tensor     # [F] combined weight (activation * cauchy)
+    keys: torch.Tensor      # [F,2] int64
+    Jp: torch.Tensor        # [P,6,6]
+    r_prior: torch.Tensor   # [P,6]
+    w_prior: torch.Tensor   # [P]
+    prior_keys: torch.Tensor  # [P] int64
+    free: torch.Tensor      # [N] f32: 1 for optimizable poses, 0 frozen/invalid
+
+
+def _linearize(graph: FactorGraphData, poses, pose_mask,
+               cauchy_k) -> _LinearizedGraph:
+    keys = graph.rel_keys.long()
+    T_a = poses[keys[:, 0]]
+    T_b = poses[keys[:, 1]]
+    r, Ja, Jb = _rel_linearize_analytic(T_a, T_b, graph.rel_meas)
+    # Whiten: multiply rows by sqrt-info diag.
+    s = graph.rel_sqrt_info
+    r_w = r * s
+    Ja_w = Ja * s[:, :, None]
+    Jb_w = Jb * s[:, :, None]
+    w = graph.rel_weight * _cauchy_weight(r_w, graph.rel_robust, cauchy_k)
+    # fix_first_node factors: key_a constant (laser_track.cpp:440-444).
+    Ja_w = torch.where(graph.rel_fixed_a[:, None, None],
+                       torch.zeros_like(Ja_w), Ja_w)
+
+    pkeys = graph.prior_keys.long()
+    rp, Jp = _prior_linearize_analytic(poses[pkeys], graph.prior_meas)
+    # Gauge-fixing priors freeze their pose instead of weighting.
+    gauge = torch.any(graph.prior_sqrt_info > GAUGE_FIX_THRESHOLD, dim=-1)
+    sp = torch.clamp(graph.prior_sqrt_info, max=GAUGE_FIX_THRESHOLD)
+    rp_w = rp * sp
+    Jp_w = Jp * sp[:, :, None]
+    wp = graph.prior_weight
+
+    # JAX's .at[keys].max(flag): a sum of 0/1 flags is > 0 exactly when
+    # the max is 1, and index_add_ handles the duplicate padding keys.
+    n = poses.shape[0]
+    hits = torch.zeros(n, dtype=poses.dtype, device=poses.device)
+    hits.index_add_(0, pkeys, (gauge & (graph.prior_weight > 0)).to(
+        poses.dtype))
+    free = (pose_mask & ~(hits > 0)).to(poses.dtype)
+    return _LinearizedGraph(Ja_w, Jb_w, r_w, w, keys, Jp_w, rp_w, wp, pkeys,
+                            free)
+
+
+# ---------------------------------------------------------------------------
+# Hessian matvecs
+# ---------------------------------------------------------------------------
+
+def _hessian_matvec(lin: _LinearizedGraph, x, damping):
+    """y = (J^T W J + damping*I) x with frozen poses passed through."""
+    ka, kb = lin.keys[:, 0], lin.keys[:, 1]
+    xa = x[ka] * lin.free[ka, None]
+    xb = x[kb] * lin.free[kb, None]
+    Jx = (torch.einsum('fij,fj->fi', lin.Ja, xa) +
+          torch.einsum('fij,fj->fi', lin.Jb, xb)) * lin.w_rel[:, None]
+    y = torch.zeros_like(x)
+    y.index_add_(0, ka, torch.einsum('fji,fj->fi', lin.Ja, Jx))
+    y.index_add_(0, kb, torch.einsum('fji,fj->fi', lin.Jb, Jx))
+
+    xp = x[lin.prior_keys] * lin.free[lin.prior_keys, None]
+    Jpx = torch.einsum('pij,pj->pi', lin.Jp, xp) * lin.w_prior[:, None]
+    y.index_add_(0, lin.prior_keys, torch.einsum('pji,pj->pi', lin.Jp, Jpx))
+
+    y = y * lin.free[:, None] + damping * x
+    # Frozen/invalid poses: identity row keeps the operator SPD.
+    return y + (1.0 - lin.free)[:, None] * x
+
+
+def _chain_mask(lin: _LinearizedGraph):
+    """Factors whose coupling lands on the block-tridiagonal chain."""
+    return ((lin.keys[:, 1] == lin.keys[:, 0] + 1) &
+            (lin.free[lin.keys[:, 0]] > 0) & (lin.free[lin.keys[:, 1]] > 0))
+
+
+def _offchain_mask(lin: _LinearizedGraph):
+    """Active factors that do NOT land on the block-tridiagonal chain."""
+    touches_free = ((lin.free[lin.keys[:, 0]] > 0) |
+                    (lin.free[lin.keys[:, 1]] > 0))
+    return (lin.w_rel > 0) & ~_chain_mask(lin) & touches_free
+
+
+def _first_true_indices(flags, L: int):
+    """Indices [L] of the first L True entries of ``flags`` (in index
+    order) plus a validity mask.  Slots beyond the True count hold the
+    out-of-bounds sentinel F (JAX writes them with ``mode='drop'``; here
+    they land in an overflow row that is cut off)."""
+    F = flags.shape[0]
+    pos = torch.cumsum(flags, dim=0) - 1          # rank among True entries
+    dest = torch.where(flags & (pos < L), pos, torch.full_like(pos, L))
+    sel = torch.full((L + 1,), F, dtype=torch.int64, device=flags.device)
+    sel[dest] = torch.arange(F, device=flags.device)
+    sel = sel[:L]
+    return sel, sel < F
+
+
+def _select_offchain(lin: _LinearizedGraph, capacity: int):
+    """Indices [L] of up to ``capacity`` active off-chain factors, plus a
+    validity mask (False slots are padding)."""
+    L = min(capacity, lin.keys.shape[0])
+    return _first_true_indices(_offchain_mask(lin), L)
+
+
+def _offchain_blocks(lin: _LinearizedGraph, sel, valid):
+    """Per-selected-factor U blocks: Ua/Ub [L,6(state),6(col)] with weight
+    and free-gating folded in, plus their pose keys.  Padding slots gather
+    a clamped row and get zero blocks."""
+    sc = torch.clamp(sel, max=lin.keys.shape[0] - 1)
+    sw = torch.sqrt(lin.w_rel[sc] * valid)[:, None, None]
+    ka = lin.keys[sc, 0]
+    kb = lin.keys[sc, 1]
+    Ua = lin.Ja[sc].transpose(-1, -2) * sw * lin.free[ka][:, None, None]
+    Ub = lin.Jb[sc].transpose(-1, -2) * sw * lin.free[kb][:, None, None]
+    return Ua, Ub, ka, kb
+
+
+def _make_matvec(lin: _LinearizedGraph, damping, config):
+    """Build ``mv(x) = (H + damping I) x`` once per linearization.
+
+    'scatter': the general :func:`_hessian_matvec`.  'chain' (default):
+    H = T + U U^T exactly, T the block-tridiagonal chain part applied as
+    batched [N,6,6] contractions and two shifts, U the compact off-chain
+    blocks.  Exact when every active off-chain factor fits in
+    ``offchain_capacity``; otherwise the scatter form is used (JAX picks
+    with a ``lax.cond``; here one flag is read per linearization).
+    """
+    if getattr(config, 'matvec', 'chain') != 'chain':
+        return lambda x: _hessian_matvec(lin, x, damping)
+
+    F = lin.keys.shape[0]
+    L = min(config.offchain_capacity, F)
+    off = _offchain_mask(lin)
+    if int(torch.sum(off)) > L:
+        return lambda x: _hessian_matvec(lin, x, damping)
+    sel, valid = _first_true_indices(off, L)
+    # T excludes the selected off-chain factors entirely; their diagonal
+    # AND coupling ride in U U^T (exact, no boost).
+    w_scale = torch.ones(F + 1, dtype=lin.w_rel.dtype, device=sel.device)
+    w_scale[sel] = torch.where(valid, 0.0, 1.0).to(w_scale.dtype)
+    B, A = _build_tridiag(lin, damping, w_scale=w_scale[:F], boost=False)
+    Ua, Ub, ka, kb = _offchain_blocks(lin, sel, valid)
+    zero = torch.zeros((1, 6, 6), dtype=B.dtype, device=B.device)
+    # A_up[i] = A[i+1]^T couples pose i to pose i+1.
+    A_up = torch.cat([A[1:].transpose(-1, -2), zero])
+
+    def mv_chain(x):
+        zrow = torch.zeros((1, 6), dtype=x.dtype, device=x.device)
+        x_prev = torch.cat([zrow, x[:-1]])
+        x_next = torch.cat([x[1:], zrow])
+        y = (torch.einsum('nij,nj->ni', B, x)
+             + torch.einsum('nij,nj->ni', A, x_prev)
+             + torch.einsum('nij,nj->ni', A_up, x_next))
+        t = (torch.einsum('lsc,ls->lc', Ua, x[ka]) +
+             torch.einsum('lsc,ls->lc', Ub, x[kb]))
+        y.index_add_(0, ka, torch.einsum('lsc,lc->ls', Ua, t))
+        y.index_add_(0, kb, torch.einsum('lsc,lc->ls', Ub, t))
+        return y
+
+    return mv_chain
+
+
+def _gradient(lin: _LinearizedGraph):
+    """g = J^T W r (negated later); zero for frozen poses."""
+    wr = lin.r_rel * lin.w_rel[:, None]
+    g = torch.zeros((lin.free.shape[0], 6), dtype=wr.dtype,
+                    device=wr.device)
+    g.index_add_(0, lin.keys[:, 0], torch.einsum('fji,fj->fi', lin.Ja, wr))
+    g.index_add_(0, lin.keys[:, 1], torch.einsum('fji,fj->fi', lin.Jb, wr))
+    wrp = lin.r_prior * lin.w_prior[:, None]
+    g.index_add_(0, lin.prior_keys, torch.einsum('pji,pj->pi', lin.Jp, wrp))
+    return g * lin.free[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Preconditioners
+# ---------------------------------------------------------------------------
+
+def _cholesky6(A):
+    """Batched 6x6 Cholesky, unrolled (lower-triangular L with A = L L^T,
+    as nested lists of [...] tensors); pivots clamp at 1e-20."""
+    n = 6
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = A[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            if i == j:
+                L[i][j] = torch.sqrt(torch.clamp(s, min=1e-20))
+            else:
+                L[i][j] = s / L[j][j]
+    return L
+
+
+def _chol_inverse6(A):
+    """Batched SPD 6x6 inverse via unrolled Cholesky: A^-1 = L^-T L^-1."""
+    n = 6
+    L = _cholesky6(A)
+    Linv = [[None] * n for _ in range(n)]
+    for i in range(n):
+        Linv[i][i] = 1.0 / L[i][i]
+        for j in range(i):
+            s = 0.0
+            for k in range(j, i):
+                s = s + L[i][k] * Linv[k][j]
+            Linv[i][j] = -s / L[i][i]
+    # A^-1[i,j] = sum_k Linv[k][i] * Linv[k][j]  (k >= max(i,j))
+    rows = []
+    for i in range(n):
+        cols = []
+        for j in range(n):
+            s = 0.0
+            for k in range(max(i, j), n):
+                s = s + Linv[k][i] * Linv[k][j]
+            cols.append(s)
+        rows.append(torch.stack(cols, dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
+def _block_jacobi(lin: _LinearizedGraph, damping):
+    """Inverse 6x6 diagonal blocks of the Hessian as preconditioner."""
+    n = lin.free.shape[0]
+    w = lin.w_rel[:, None, None]
+    H = torch.zeros((n, 6, 6), dtype=lin.Ja.dtype, device=lin.Ja.device)
+    H.index_add_(0, lin.keys[:, 0],
+                 torch.einsum('fji,fjk->fik', lin.Ja, lin.Ja * w))
+    H.index_add_(0, lin.keys[:, 1],
+                 torch.einsum('fji,fjk->fik', lin.Jb, lin.Jb * w))
+    H.index_add_(0, lin.prior_keys, torch.einsum(
+        'pji,pjk->pik', lin.Jp, lin.Jp * lin.w_prior[:, None, None]))
+    H = H * lin.free[:, None, None] + _eye6(H) * (
+        damping + (1.0 - lin.free)[:, None, None])
+    return _chol_inverse6(H)
+
+
+def _build_tridiag(lin: _LinearizedGraph, damping, w_scale=None,
+                   boost=True):
+    """Diagonal blocks B [N,6,6] and sub-diagonal blocks A [N,6,6]
+    (A[i] couples pose i to pose i-1) of the Hessian's chain part.
+
+    ``w_scale`` [F] rescales each factor's weight in the build only;
+    ``boost=False`` skips the stabilizing diagonal boost (required when
+    the blocks feed an exact matvec, not a factorization)."""
+    n = lin.free.shape[0]
+    w = (lin.w_rel if w_scale is None else lin.w_rel * w_scale)[:, None,
+                                                                 None]
+    B = torch.zeros((n, 6, 6), dtype=lin.Ja.dtype, device=lin.Ja.device)
+    B.index_add_(0, lin.keys[:, 0],
+                 torch.einsum('fji,fjk->fik', lin.Ja, lin.Ja * w))
+    B.index_add_(0, lin.keys[:, 1],
+                 torch.einsum('fji,fjk->fik', lin.Jb, lin.Jb * w))
+    B.index_add_(0, lin.prior_keys, torch.einsum(
+        'pji,pjk->pik', lin.Jp, lin.Jp * lin.w_prior[:, None, None]))
+    eye = _eye6(B)
+    B = B * lin.free[:, None, None] + eye * (
+        damping + (1.0 - lin.free)[:, None, None])
+
+    # Chain coupling H[b,a] = Jb^T W Ja for factors with key_b == key_a+1;
+    # other factors go to an overflow row n that is cut off.
+    chain = _chain_mask(lin)
+    Hba = torch.einsum('fji,fjk->fik', lin.Jb, lin.Ja * w)
+    A = torch.zeros((n + 1, 6, 6), dtype=B.dtype, device=B.device)
+    A.index_add_(0, torch.where(chain, lin.keys[:, 1],
+                                torch.full_like(lin.keys[:, 1], n)),
+                 torch.where(chain[:, None, None], Hba,
+                             torch.zeros_like(Hba)))
+    A = A[:n]
+    if boost:
+        diag_mag = torch.einsum('nii->n', B) / 6.0
+        B = B + (_CR_BOOST * diag_mag)[:, None, None] * eye
+    return B, A
+
+
+# Cyclic reduction stops at this many blocks and finishes with one dense
+# root inverse; the relative diagonal boost keeps every pivot SPD in f32
+# (values of the JAX package, solver.py:424-451).
+_CR_STOP = 512
+_CR_BOOST = 1e-3
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _tridiag_factor(B, A, stop=None):
+    """Cyclic-reduction factorization of an SPD block-tridiagonal system.
+
+    B: [N,6,6] diagonal blocks; A: [N,6,6] sub-diagonal (A[0] ignored).
+    N is padded to a power of two with decoupled identity blocks.  Returns
+    ``(levels, root_inv)`` for :func:`_tridiag_apply`; ``root_inv`` is the
+    dense inverse of the final <= ``stop``-block system.
+    """
+    if stop is None:
+        stop = _CR_STOP
+    n0 = B.shape[0]
+    n = _next_pow2(n0)
+    eye = _eye6(B)
+    if n != n0:
+        pad = n - n0
+        B = torch.cat([B, eye.expand(pad, 6, 6)])
+        A = torch.cat([A, torch.zeros((pad, 6, 6), dtype=A.dtype,
+                                      device=A.device)])
+    zero = torch.zeros((1, 6, 6), dtype=B.dtype, device=B.device)
+    # C[i] couples i to i+1: C_i = A_{i+1}^T.
+    C = torch.cat([A[1:].transpose(-1, -2), zero])
+    A = torch.cat([zero, A[1:]])
+
+    levels = []
+    while B.shape[0] > stop:
+        half = B.shape[0] // 2
+        Be, Ae, Ce = B[0::2], A[0::2], C[0::2]
+        Bo, Ao, Co = B[1::2], A[1::2], C[1::2]
+        Bo_inv = _chol_inverse6(Bo)
+        BoL_inv = torch.cat([zero, Bo_inv[:half - 1]])
+        AoL = torch.cat([zero, Ao[:half - 1]])
+        CoL = torch.cat([zero, Co[:half - 1]])
+        G_left = Ae @ BoL_inv
+        G_right = Ce @ Bo_inv
+        levels.append((Bo_inv, Ao, Co, G_left, G_right))
+        B = Be - G_left @ CoL - G_right @ Ao
+        A = -G_left @ AoL
+        C = -G_right @ Co
+
+    # Dense root: the remaining m-block tridiagonal system as one [6m,6m]
+    # SPD matrix, inverted once.
+    m = B.shape[0]
+    if m == 1:
+        root_inv = _chol_inverse6(B)[0]
+    else:
+        idx = torch.arange(m, device=B.device)
+        H4 = torch.zeros((m, m, 6, 6), dtype=B.dtype, device=B.device)
+        H4[idx, idx] = B
+        H4[idx[1:], idx[:-1]] = A[1:]
+        H4[idx[:-1], idx[1:]] = A[1:].transpose(-1, -2)
+        Hd = H4.permute(0, 2, 1, 3).reshape(6 * m, 6 * m)
+        # cholesky_ex: no error check, so no device read.
+        chol = torch.linalg.cholesky_ex(Hd)[0]
+        root_inv = torch.cholesky_inverse(chol)
+    return (levels, root_inv)
+
+
+def _tridiag_apply(factors, r):
+    """Solve T x = r given a cyclic-reduction factorization; ``r`` is
+    [N,6] or [N,6,K] (K right-hand sides together)."""
+    levels, root_inv = factors
+    n0 = r.shape[0]
+    n = _next_pow2(n0)
+    if n != n0:
+        r = torch.cat([r, torch.zeros((n - n0,) + r.shape[1:],
+                                      dtype=r.dtype, device=r.device)])
+
+    ros = []
+    for Bo_inv, Ao, Co, G_left, G_right in levels:
+        re, ro = r[0::2], r[1::2]
+        ros.append(ro)
+        roL = torch.cat([torch.zeros((1,) + ro.shape[1:], dtype=r.dtype,
+                                     device=r.device), ro[:-1]])
+        r = (re - torch.einsum('nij,nj...->ni...', G_left, roL)
+             - torch.einsum('nij,nj...->ni...', G_right, ro))
+
+    # Dense root solve: [6m,6m] @ [6m,K...].
+    m6 = root_inv.shape[0]
+    r_flat = r.reshape((m6,) + r.shape[2:])
+    x = torch.tensordot(root_inv, r_flat, dims=([1], [0]))
+    x = x.reshape((m6 // 6, 6) + r.shape[2:])
+
+    for (Bo_inv, Ao, Co, _, _), ro in zip(reversed(levels), reversed(ros)):
+        # x holds the even positions; recover the odds:
+        # x_odd[k] = Bo_inv[k] (ro[k] - Ao[k] x_even[k] - Co[k] x_even[k+1])
+        x_even_next = torch.cat(
+            [x[1:], torch.zeros((1,) + x.shape[1:], dtype=x.dtype,
+                                device=x.device)])
+        rhs = (ro - torch.einsum('nij,nj...->ni...', Ao, x)
+               - torch.einsum('nij,nj...->ni...', Co, x_even_next))
+        x_odd = torch.einsum('nij,nj...->ni...', Bo_inv, rhs)
+        out = torch.empty((x.shape[0] * 2,) + x.shape[1:], dtype=x.dtype,
+                          device=x.device)
+        out[0::2] = x
+        out[1::2] = x_odd
+        x = out
+    return x[:n0]
+
+
+def _tridiag_solve(B, A, r):
+    """Solve the SPD block-tridiagonal system T x = r by cyclic reduction
+    (factor + apply in one call)."""
+    return _tridiag_apply(_tridiag_factor(B, A), r)
+
+
+def _make_preconditioner(lin: _LinearizedGraph, damping, config):
+    """Build ``apply_M(r) ~= H^-1 r`` once per solve."""
+    kind = config.preconditioner
+    if kind == 'jacobi':
+        Minv = _block_jacobi(lin, damping)
+        return lambda r: torch.einsum('nij,nj->ni', Minv, r)
+    if kind == 'tridiagonal':
+        factors = _tridiag_factor(*_build_tridiag(lin, damping))
+        return lambda r: _tridiag_apply(factors, r)
+    if kind == 'woodbury':
+        raise NotImplementedError("preconditioner='woodbury' comes with the "
+                                  'closure machinery of slice 3')
+    raise ValueError(f'unknown preconditioner {kind!r}')
+
+
+# ---------------------------------------------------------------------------
+# PCG and the Gauss-Newton loop
+# ---------------------------------------------------------------------------
+
+def _dot(u, v):
+    return torch.sum(u * v)
+
+
+def _pcg(lin: _LinearizedGraph, b, damping, iterations, tol, apply_M,
+         matvec=None, x0=None):
+    """Preconditioned CG for H x = b over [N,6] states.
+
+    Runs ``iterations`` steps; once the residual is within ``tol`` of
+    ``|b|`` the state is frozen, which is where JAX's while loop stops.
+    Returns (x, iterations that changed the state)."""
+    if matvec is None:
+        matvec = lambda v: _hessian_matvec(lin, v, damping)  # noqa: E731
+
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        x = x0
+        r = b - matvec(x0)
+    z = apply_M(r)
+    p = z
+    rz = _dot(r, z)
+    b_norm = torch.sqrt(_dot(b, b)) + 1e-30
+    it = torch.zeros((), dtype=torch.int32, device=b.device)
+    for _ in range(iterations):
+        running = torch.sqrt(_dot(r, r)) > tol * b_norm
+        Hp = matvec(p)
+        alpha = rz / torch.clamp(_dot(p, Hp), min=1e-30)
+        x_n = x + alpha * p
+        r_n = r - alpha * Hp
+        z = apply_M(r_n)
+        rz_n = _dot(r_n, z)
+        beta = rz_n / torch.clamp(rz, min=1e-30)
+        p_n = z + beta * p
+        x = torch.where(running, x_n, x)
+        r = torch.where(running, r_n, r)
+        p = torch.where(running, p_n, p)
+        rz = torch.where(running, rz_n, rz)
+        it = it + running.to(torch.int32)
+    return x, it
+
+
+class SolveResult(NamedTuple):
+    poses: torch.Tensor        # [N,7] optimized
+    error_initial: torch.Tensor
+    error_final: torch.Tensor
+    pcg_iterations: torch.Tensor
+
+
+def graph_error(graph: FactorGraphData, poses) -> torch.Tensor:
+    """Total weighted squared error (0.5 * sum r^T W r), for diagnostics."""
+    keys = graph.rel_keys.long()
+    r = se3.log(_rel_error(poses[keys[:, 0]], poses[keys[:, 1]],
+                           graph.rel_meas))
+    r_w = r * graph.rel_sqrt_info
+    sq = torch.sum(r_w * r_w, dim=-1)
+    # Cauchy loss for robust factors.
+    e_rel = torch.sum(graph.rel_weight * torch.where(
+        graph.rel_robust, torch.log1p(sq), sq))
+    rp = se3.log(se3.compose(se3.inverse(graph.prior_meas),
+                             poses[graph.prior_keys.long()]))
+    rp_w = rp * torch.clamp(graph.prior_sqrt_info, max=GAUGE_FIX_THRESHOLD)
+    e_pri = torch.sum(graph.prior_weight * torch.sum(rp_w * rp_w, dim=-1))
+    return 0.5 * (e_rel + e_pri)
+
+
+def solve(graph: FactorGraphData, poses, pose_mask,
+          config: SolverConfig) -> SolveResult:
+    """Run ``config.gn_iterations`` Gauss-Newton steps from ``poses``
+    (warm-started; the incremental deployment calls this once per scan,
+    mirroring IncrementalEstimator::estimate)."""
+    if config.method == 'dense':
+        raise NotImplementedError("method='dense' (and the window solve "
+                                  'that uses it) comes in slice 2')
+    if config.method != 'pcg':
+        raise ValueError(f'unknown solver method {config.method!r}')
+    damping = float(config.damping)
+    N = poses.shape[0]
+
+    # Gauge-fixing priors pin their pose AT the prior measurement.
+    # Non-gauge slots write the overflow row N, which is cut off (JAX
+    # drops them: padding slots share key 0 and must not clobber a snap).
+    gauge = (torch.any(graph.prior_sqrt_info > GAUGE_FIX_THRESHOLD, dim=-1)
+             & (graph.prior_weight > 0))
+    snap_idx = torch.where(gauge, graph.prior_keys.long(),
+                           torch.full_like(graph.prior_keys, N).long())
+    poses_ext = torch.cat([poses, torch.zeros((1, 7), dtype=poses.dtype,
+                                              device=poses.device)])
+    poses_ext[snap_idx] = graph.prior_meas
+    poses = poses_ext[:N]
+
+    def no_error():
+        return torch.full((), -1.0, dtype=poses.dtype, device=poses.device)
+
+    e0 = graph_error(graph, poses) if config.compute_errors else no_error()
+    # gn_tolerance compares against the RMS step per ACTIVE pose.
+    n_active = torch.clamp(torch.sum(pose_mask.to(poses.dtype)), min=1.0)
+
+    # The preconditioner is built once from the initial linearization and
+    # reused across all GN steps (staleness only costs PCG iterations).
+    lin0 = _linearize(graph, poses, pose_mask, config.cauchy_k)
+    apply_M = _make_preconditioner(lin0, damping, config)
+
+    def one_step(poses):
+        lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
+        b = -_gradient(lin)
+        mv = _make_matvec(lin, damping, config)
+        x0 = apply_M(b) if config.pcg_init == 'precond' else None
+        delta, pcg_it = _pcg(lin, b, damping, config.pcg_iterations,
+                             config.pcg_tolerance, apply_M, matvec=mv, x0=x0)
+        delta = torch.nan_to_num(delta) * lin.free[:, None]
+        new_poses = se3.normalize(se3.compose(poses, se3.exp(delta)))
+        new_poses = torch.where(pose_mask[:, None], new_poses, poses)
+        return new_poses, pcg_it, torch.linalg.norm(delta) / torch.sqrt(
+            n_active)
+
+    gn_tol = config.gn_tolerance
+    total = torch.zeros((), dtype=torch.int32, device=poses.device)
+    last_delta = torch.full((), float('inf'), dtype=poses.dtype,
+                            device=poses.device)
+    for _ in range(config.gn_iterations):
+        new_poses, it, dnorm = one_step(poses)
+        if gn_tol > 0:
+            # GN early-out: once a step's RMS falls below gn_tolerance the
+            # remaining steps leave the poses as they are.
+            run = last_delta >= gn_tol
+            poses = torch.where(run, new_poses, poses)
+            total = total + torch.where(run, it, torch.zeros_like(it))
+            last_delta = torch.where(run, dnorm, last_delta)
+        else:
+            poses, total, last_delta = new_poses, total + it, dnorm
+    e1 = graph_error(graph, poses) if config.compute_errors else no_error()
+    return SolveResult(poses=poses, error_initial=e0, error_final=e1,
+                       pcg_iterations=total)

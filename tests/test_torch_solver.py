@@ -1,0 +1,262 @@
+"""The port's Gauss-Newton/PCG solver against the JAX package's, on the
+test_solver.py graphs (built with the JAX HostGraph, handed over as
+numpy).
+
+Tolerance: poses within 1e-4 — both run the same f32 PCG, but sums and
+the dense root factorization round in another order, and PCG amplifies
+that by the condition number of the graph.  Linearization and the
+cyclic-reduction solve are compared tighter.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from laser_slam_tpu.config import SolverConfig as JSolverConfig
+from laser_slam_tpu.graph import factors as fg
+from laser_slam_tpu.graph import solver as jsv
+from laser_slam_tpu.ops import se3 as jse3
+from laser_slam_tpu_torch.config import SolverConfig
+from laser_slam_tpu_torch.graph import solver as tsv
+from laser_slam_tpu_torch.graph.factors import FactorGraphData
+
+torch.set_num_threads(2)
+SIG = np.full(6, 0.01, np.float32)
+PRIOR_SIG = np.full(6, 1e-7, np.float32)
+POSE_ATOL = 1e-4
+
+
+def build_chain(rng, n=16, noise=0.0):
+    """Ground-truth chain of poses + (noisy) odometry (test_solver.py)."""
+    xis = rng.normal(size=(n - 1, 6)).astype(np.float32) * 0.2
+    poses = [np.asarray(jse3.identity())]
+    for i in range(n - 1):
+        poses.append(np.asarray(jse3.compose(jnp.asarray(poses[-1]),
+                                             jse3.exp(jnp.asarray(xis[i])))))
+    gt = np.stack(poses)
+    g = fg.HostGraph()
+    g.add_prior(0, gt[0], PRIOR_SIG)
+    for i in range(n - 1):
+        meas = jse3.compose(jse3.inverse(jnp.asarray(gt[i])),
+                            jnp.asarray(gt[i + 1]))
+        if noise > 0:
+            meas = jse3.compose(meas, jse3.exp(jnp.asarray(
+                rng.normal(size=6).astype(np.float32) * noise)))
+        g.add_relative(i, i + 1, np.asarray(meas), SIG)
+    return g, gt
+
+
+# Every test graph is padded to one pose capacity so the JAX solve
+# compiles once per solver config, not once per graph.
+CAP = 32
+
+
+def pad_poses(poses_np, capacity=CAP):
+    out = np.zeros((capacity, 7), np.float32)
+    out[:, 0] = 1.0
+    out[:len(poses_np)] = poses_np
+    mask = np.zeros(capacity, bool)
+    mask[:len(poses_np)] = True
+    return out, mask
+
+
+def to_torch_graph(jgraph) -> FactorGraphData:
+    return FactorGraphData(*[torch.tensor(np.asarray(a)) for a in jgraph])
+
+
+def solve_both(g, poses, mask, **cfg):
+    jg = g.to_device()
+    jres = jsv.solve(jg, jnp.asarray(poses), jnp.asarray(mask),
+                     JSolverConfig(**cfg))
+    tres = tsv.solve(to_torch_graph(jg), torch.tensor(poses),
+                     torch.tensor(mask), SolverConfig(**cfg))
+    np.testing.assert_allclose(tres.poses.numpy(), np.asarray(jres.poses),
+                               atol=POSE_ATOL)
+    for name in ('error_initial', 'error_final'):
+        j, t = float(getattr(jres, name)), float(getattr(tres, name))
+        assert abs(t - j) <= 1e-3 * max(abs(j), 1.0), (name, t, j)
+    return jres, tres
+
+
+def graph_chain_exact(rng):
+    g, gt = build_chain(rng, n=8)
+    return g, *pad_poses(gt)
+
+
+def graph_chain_perturbed(rng):
+    g, gt = build_chain(rng, n=10)
+    init = gt.copy()
+    for i in range(1, 10):
+        init[i] = np.asarray(jse3.compose(jnp.asarray(gt[i]), jse3.exp(
+            jnp.asarray(rng.normal(size=6).astype(np.float32) * 0.05))))
+    return g, *pad_poses(init)
+
+
+def graph_loop_closure(rng):
+    n = 20
+    g, gt = build_chain(rng, n=n, noise=0.01)
+    T_lc = jse3.compose(jse3.inverse(jnp.asarray(gt[0])),
+                        jnp.asarray(gt[n - 1]))
+    g.add_relative(0, n - 1, np.asarray(T_lc), SIG * 0.1)
+    return g, *pad_poses(gt)
+
+
+def graph_robust_outlier(rng):
+    g, gt = build_chain(rng, n=8)
+    bad = np.asarray(jse3.exp(jnp.asarray([0, 0, 0, 50, 0, 0], jnp.float32)))
+    g.add_relative(0, 7, bad, SIG, robust=True)
+    return g, *pad_poses(gt)
+
+
+def graph_fixed_a(rng):
+    g = fg.HostGraph()
+    T0 = np.asarray(jse3.identity())
+    T1 = np.asarray(jse3.exp(jnp.asarray([0, 0, 0, 1, 0, 0], jnp.float32)))
+    g.add_prior(0, T0, PRIOR_SIG)
+    T_meas = np.asarray(jse3.exp(jnp.asarray([0, 0, 0, 2, 0, 0],
+                                             jnp.float32)))
+    g.add_relative(0, 1, T_meas, SIG, fixed_a=True)
+    return g, *pad_poses(np.stack([T0, T1]))
+
+
+GRAPHS = {'chain_exact': graph_chain_exact,
+          'chain_perturbed': graph_chain_perturbed,
+          'loop_closure': graph_loop_closure,
+          'robust_outlier': graph_robust_outlier,
+          'fixed_a': graph_fixed_a}
+
+
+# One solver budget for every graph keeps the JAX compiles to one per
+# variant (the budgets of test_solver.py differ per graph).
+BUDGET = dict(gn_iterations=3, pcg_iterations=60)
+
+
+@pytest.mark.parametrize('graph', sorted(GRAPHS))
+def test_solve_matches_jax(rng, graph):
+    g, poses, mask = GRAPHS[graph](rng)
+    solve_both(g, poses, mask, **BUDGET)
+
+
+@pytest.mark.parametrize('variant', [
+    dict(preconditioner='jacobi'), dict(matvec='scatter'),
+    dict(offchain_capacity=0), dict(gn_tolerance=1e-3),
+    dict(pcg_init='precond', compute_errors=False)],
+    ids=['jacobi', 'scatter', 'chain-overflow', 'gn-tol', 'precond-init'])
+def test_solve_variants_match_jax(rng, variant):
+    g, poses, mask = graph_loop_closure(rng)
+    solve_both(g, poses, mask, **BUDGET, **variant)
+
+
+def test_prior_removal_unfreezes(rng):
+    """estimateAndRemove: removing a track's prior lets a linking factor
+    pull it (incremental_estimator.cpp:240-258)."""
+    g = fg.HostGraph()
+    T0 = np.asarray(jse3.identity())
+    T1 = np.asarray(jse3.exp(jnp.asarray([0, 0, 0, 5, 0, 0], jnp.float32)))
+    g.add_prior(0, T0, PRIOR_SIG)
+    prior1 = g.add_prior(1, T1, PRIOR_SIG)
+    T_link = np.asarray(jse3.exp(jnp.asarray([0, 0, 0, 4, 0, 0],
+                                             jnp.float32)))
+    g.add_relative(0, 1, T_link, SIG)
+    poses, mask = pad_poses(np.stack([T0, T1]))
+    _, tres = solve_both(g, poses, mask, **BUDGET)
+    assert abs(float(tres.poses[1, 4]) - 5.0) < 1e-4
+    g.remove_prior(prior1)
+    _, tres = solve_both(g, poses, mask, **BUDGET)
+    assert abs(float(tres.poses[1, 4]) - 4.0) < 1e-3
+
+
+def test_long_chain_closure_with_cyclic_reduction():
+    """A closure across a 500-pose chain; capacity 1024 runs one level of
+    cyclic reduction above the dense 512-block root."""
+    N, capacity = 500, 1024
+    g = fg.HostGraph(rel_capacity=2048)
+    poses = np.zeros((capacity, 7), np.float32)
+    poses[:, 0] = 1
+    poses[:N, 4] = np.arange(N)
+    g.add_prior(0, poses[0], PRIOR_SIG)
+    step = np.array([1, 0, 0, 0, 1, 0, 0], np.float32)
+    for i in range(N - 1):
+        g.add_relative(i, i + 1, step, SIG)
+    g.add_relative(0, N - 1, np.array([1, 0, 0, 0, N - 2.0, 0, 0],
+                                      np.float32), SIG * 0.1)
+    mask = np.zeros(capacity, bool)
+    mask[:N] = True
+    _, tres = solve_both(g, poses, mask, gn_iterations=2, pcg_iterations=16)
+    assert float(tres.error_final) < 15.0
+
+
+def test_tridiag_solve_matches_jax_and_dense(rng):
+    """Cyclic reduction (forced levels) vs JAX and a float64 dense solve,
+    including non-power-of-two N and several right-hand sides."""
+    N = 13
+    X = rng.normal(size=(N, 8, 6)).astype(np.float32)
+    D = np.einsum('nki,nkj->nij', X, X) + 3 * np.eye(6, dtype=np.float32)
+    A = rng.normal(size=(N, 6, 6)).astype(np.float32) * 0.3
+    A[0] = 0
+    T = np.zeros((N * 6, N * 6))
+    for i in range(N):
+        T[i * 6:(i + 1) * 6, i * 6:(i + 1) * 6] = D[i]
+        if i > 0:
+            T[i * 6:(i + 1) * 6, (i - 1) * 6:i * 6] = A[i]
+            T[(i - 1) * 6:i * 6, i * 6:(i + 1) * 6] = A[i].T
+    r = rng.normal(size=(N, 6, 3)).astype(np.float32)
+    want = np.linalg.solve(T, r.reshape(N * 6, 3)).reshape(N, 6, 3)
+    for stop in (2, 512):
+        jf = jax.jit(jsv._tridiag_factor, static_argnames='stop')(
+            jnp.asarray(D), jnp.asarray(A), stop=stop)
+        tf = tsv._tridiag_factor(torch.tensor(D), torch.tensor(A), stop=stop)
+        x_t = tsv._tridiag_apply(tf, torch.tensor(r)).numpy()
+        x_j = np.asarray(jax.jit(jsv._tridiag_apply)(jf, jnp.asarray(r)))
+        np.testing.assert_allclose(x_t, want, atol=1e-4)
+        np.testing.assert_allclose(x_t, x_j, atol=1e-5)
+    x = tsv._tridiag_solve(torch.tensor(D), torch.tensor(A),
+                           torch.tensor(r[..., 0])).numpy()
+    np.testing.assert_allclose(x, want[..., 0], atol=1e-4)
+
+
+def test_linearization_and_helpers_match_jax(rng):
+    def rand_pose():
+        return jse3.exp(jnp.asarray(rng.normal(size=6), jnp.float32))
+    Ta = jnp.stack([rand_pose() for _ in range(8)])
+    Tb = jnp.stack([rand_pose() for _ in range(8)])
+    meas = jse3.compose(jse3.inverse(Ta), Tb)
+    meas = jse3.compose(meas, jse3.exp(jnp.asarray(
+        rng.normal(size=(8, 6)) * 0.05, jnp.float32)))
+    j = jax.jit(jsv._rel_linearize_analytic)(Ta, Tb, meas)
+    t = tsv._rel_linearize_analytic(*[torch.tensor(np.asarray(a))
+                                      for a in (Ta, Tb, meas)])
+    for a, b in zip(t, j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    jp = jax.jit(jsv._prior_linearize_analytic)(Ta, meas)
+    tp = tsv._prior_linearize_analytic(torch.tensor(np.asarray(Ta)),
+                                       torch.tensor(np.asarray(meas)))
+    for a, b in zip(tp, jp):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    H = np.einsum('nki,nkj->nij', *[rng.normal(size=(5, 9, 6))] * 2
+                  ).astype(np.float32) + np.eye(6, dtype=np.float32)
+    np.testing.assert_allclose(
+        tsv._chol_inverse6(torch.tensor(H)).numpy(),
+        np.asarray(jax.jit(jsv._chol_inverse6)(jnp.asarray(H))), rtol=1e-4,
+        atol=1e-5)
+    flags = rng.uniform(size=40) > 0.6
+    for L in (3, 40):
+        js, jv = jsv._first_true_indices(jnp.asarray(flags), L)
+        ts, tv = tsv._first_true_indices(torch.tensor(flags), L)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_dense_and_woodbury_wait_for_later_slices(rng):
+    g, gt = build_chain(rng, n=4)
+    poses, mask = pad_poses(gt)
+    graph = to_torch_graph(g.to_device())
+    for cfg, slice_name in ((dict(method='dense'), 'slice 2'),
+                            (dict(preconditioner='woodbury'), 'slice 3')):
+        with pytest.raises(NotImplementedError, match=slice_name):
+            tsv.solve(graph, torch.tensor(poses), torch.tensor(mask),
+                      dataclasses.replace(SolverConfig(), **cfg))
