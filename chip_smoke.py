@@ -10,8 +10,9 @@ result line):
 
 1. Device: the card's name, and its name and power limit as nvidia-smi
    reports them.
-2. Build: compile the CUDA kernels of ``laser_slam_tpu_torch/csrc/nn.cu``
-   with nvcc (seconds printed).
+2. Build: compile ``laser_slam_tpu_torch/csrc/nn.cu`` and
+   ``csrc/nn_variants.cu`` with nvcc, one process each, started together
+   (seconds printed).
 3. K1 (``nn_indices``) against its plain torch version at the main path's
    ICP shape (8192 queries x 81920 reference points), an awkward shape
    and a SENTINEL-parked reference: equal indices (a mismatch must be an
@@ -28,11 +29,27 @@ result line):
 6. K1 inside ICP: one ``icp_point_to_plane`` at the slice's shapes with
    ``pallas_prune=False`` (the flat-kernel matcher); K1 must have launched
    and the pose must agree with the K2 run within 1e-4.
+7. The shootout's kernels (E1-E6, ``ops/nn_variants.py``): each held to
+   its plain version at the shootout's shape (8192 x 65536, seed 3), on
+   the same scene with 64 reference points copied inside their tile
+   (tied rows whose payloads are averaged), and at an awkward shape
+   (1000 x 3001, every third reference row at the SENTINEL) by the
+   float64 checks of ``laser_slam_tpu_torch/ops/nn_variants.py`` (a d2
+   planted a tenth too large must fail them); then the shootout itself
+   (``experiments/nn_shootout.run``), timed by CUDA events beside the
+   library calls, where each new kernel must have launched.
 
-The kernel counters are reset right before phase 5 (K2) and phase 6 (K1),
-the two main-path runs, and read right after; launches made to compare a
-kernel with its plain version are not counted.  The second-to-last line
-is the kernels' JSON record; the last line is the result record.
+The kernel counters are reset right before phase 5 (K2), phase 6 (K1)
+and the shootout run of phase 7, the main-path runs, and read right
+after; launches made to compare a kernel with its plain version are not
+counted.  Each kernel's bound is the larger of its bytes (inputs read
+once, outputs written once) over 3.35 TB/s and its operations over the
+card's rate for their type: f32 lane instructions over SMs x 128 lanes x
+the card's max SM clock (67 TFLOP/s counts an FMA as 2), bf16 tensor-core
+FLOPs over 989 TFLOP/s.  The pruned kernels count the pairs of the tiles
+they scan in this run: E6 counts its own, and K2's walk is replayed in
+plain torch (``nn_kernels.pruned_visits``).  The second-to-last line is
+the kernels' JSON record; the last line is the result record.
 """
 
 import dataclasses
@@ -52,6 +69,17 @@ SUBMAP_SCANS = 5
 CUTOFF = 3.0
 D2_RTOL = 1e-6
 POSE_ATOL = 1e-4
+SHOOT_Q, SHOOT_R = 8192, 65536
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+# f32 lane instructions per (query, reference) pair: the arithmetic, the
+# compare, and the selects that keep the running minimum (value and index,
+# or the tile minimum alone for the payload kernels, whose rare payload
+# updates are not counted).
+INSTR_EXACT = 11        # 3 sub, 3 mul, 2 add, compare, 2 selects (K1, K2)
+INSTR_MM = 6            # 3 FMA, compare, 2 selects (E5)
+INSTR_ARGMIN = 3        # compare, 2 selects (E1 bf16, product on tensor cores)
+INSTR_PAYLOAD = 5       # 3 FMA, compare, 1 select (E4, E6)
 
 
 def log(msg):
@@ -123,7 +151,9 @@ def main():
     from laser_slam_tpu_torch.config import slice1_config
     from laser_slam_tpu_torch.ops import cloud as pc
     from laser_slam_tpu_torch.ops import cuda_build, icp as icp_mod, se3
+    from laser_slam_tpu_torch.experiments import nn_shootout as sh
     from laser_slam_tpu_torch.ops import nn_kernels as nk
+    from laser_slam_tpu_torch.ops import nn_variants as nv
     from laser_slam_tpu_torch.pipeline import online, replay
     dev = torch.device('cuda')
 
@@ -136,12 +166,36 @@ def main():
     log(f'device: {name} ({torch.cuda.device_count()} visible), torch '
         f'{torch.__version__}, CUDA {torch.version.cuda}')
     log(f'nvidia-smi: {smi}')
+    sm_clock = float(subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]) * 1e6
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    f32_issue = n_sm * 128 * sm_clock
+    log(f'f32 issue rate: {n_sm} SMs x 128 lanes x {sm_clock / 1e9:.3f} '
+        f'GHz = {f32_issue / 1e12:.2f} T instructions/s')
+
+    def bound(pairs, instr, nbytes, tensor_flops=0.0):
+        """(bound_ms, bound_by): the larger of bytes over HBM and
+        operations over their unit's peak."""
+        t_ops = max(pairs * instr / f32_issue,
+                    tensor_flops / BF16_TENSOR_FLOPS)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return (1e3 * max(t_ops, t_bytes),
+                'operations' if t_ops >= t_bytes else 'bytes')
+
+    def nn_bytes(nq, nr, payload=0):
+        return 4 * (3 * nq + 3 * nr + 2 * nq + payload * (nr + nq))
 
     # 2. Build ---------------------------------------------------------
     t0 = time.perf_counter()
+    cuda_build.build(['nn.cu', 'nn_variants.cu'])
     nk._kernels()
-    log(f'build: nn.cu in {cuda_build.build_seconds["nn.cu"]:.2f} s nvcc, '
-        f'{time.perf_counter() - t0:.2f} s with loading')
+    nv._kernels()
+    log(f'build: nn.cu {cuda_build.build_seconds["nn.cu"]:.2f} s, '
+        f'nn_variants.cu {cuda_build.build_seconds["nn_variants.cu"]:.2f} '
+        f's of nvcc in parallel, {time.perf_counter() - t0:.2f} s with '
+        'loading')
 
     # Scenes at the main path's shapes: a submap of 5 scans and a reading.
     t0 = time.perf_counter()
@@ -185,7 +239,14 @@ def main():
     log(f'  time at {READING} x {SUBMAP_SCANS * N_POINTS}: kernel '
         f'{k1_ms:.4f} ms, plain '
         f'{k1_plain_ms:.4f} ms')
-    kernels['K1'] = dict(max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain_ms)
+    n_sub = SUBMAP_SCANS * N_POINTS
+    lib_exact = sh.EXACT_LIBRARY_CALL
+    k1_lib_ms = cuda_ms(lambda: sh.exact_library_call(queries, submap), 2)
+    log(f'  library call ({lib_exact}): {k1_lib_ms:.4f} ms')
+    k1_bound = bound(READING * n_sub, INSTR_EXACT, nn_bytes(READING, n_sub))
+    kernels['K1'] = dict(max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain_ms,
+                         bound_ms=k1_bound[0], bound_by=k1_bound[1],
+                         library_ms=k1_lib_ms, library=lib_exact)
 
     # 4. K2 vs plain and K1 --------------------------------------------
     log(f'K2 nn_indices_pruned vs plain and K1 (cutoff {CUTOFF} m):')
@@ -225,7 +286,25 @@ def main():
     log(f'  time at {READING} x {SUBMAP_SCANS * N_POINTS} (room, with its '
         'tables): kernel '
         f'{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms')
-    kernels['K2'] = dict(max_abs_err=err2, ms=k2_ms, plain_ms=k2_plain_ms)
+    # K2's work depends on the data: count the pairs of the tiles its walk
+    # scans (the replay takes the kernel's decisions), and check that the
+    # walk reaches the kernel's distances.
+    visits, walk_d2 = nk.pruned_visits(queries, pref, CUTOFF)
+    room_d2 = nk.nn_indices_pruned(queries, pref, CUTOFF)[0]
+    inside = room_d2 <= CUTOFF ** 2
+    if not torch.equal(walk_d2[inside], room_d2[inside]):
+        raise AssertionError('K2: the replayed walk misses the kernel\'s '
+                             'distances')
+    qb, rb = nk._tile(READING, nk._QB), n_sub // pref.tile_lo.shape[0]
+    k2_pairs = int(visits.sum()) * qb * rb
+    k2_bound = bound(k2_pairs, INSTR_EXACT, nn_bytes(READING, n_sub))
+    log(f'  K2 scans {int(visits.sum())} of {visits.numel()} x '
+        f'{pref.tile_lo.shape[0]} tile pairs: '
+        f'{k2_pairs / (READING * n_sub):.4f} of all pairs')
+    kernels['K2'] = dict(max_abs_err=err2, ms=k2_ms, plain_ms=k2_plain_ms,
+                         bound_ms=k2_bound[0], bound_by=k2_bound[1],
+                         library_ms=k1_lib_ms,
+                         library=lib_exact + ' (the cutoff is a where)')
 
     # 5. The slice -----------------------------------------------------
     cfg = slice1_config(scan_capacity=N_POINTS, reading_capacity=READING)
@@ -307,7 +386,139 @@ def main():
         raise AssertionError('ICP: flat and pruned matchers disagree')
     kernels['K1']['launches'] = k1_launches
 
-    # 7. Records -------------------------------------------------------
+    # 7. The shootout's kernels (E1-E6) --------------------------------
+    log(f'shootout kernels vs plain at {SHOOT_Q} x {SHOOT_R} and 1000 x '
+        '3001 (parked reference):')
+    full = tuple(torch.tensor(a, device=dev)
+                 for a in sh.make_scene(SHOOT_Q, SHOOT_R, seed=3))
+    odd = [torch.tensor(a, device=dev) for a in sh.make_scene(1000, 3001,
+                                                              seed=4)]
+    odd[1][::3] = pc.SENTINEL
+    odd[2][:, :3] = odd[1]
+    # Exact copies of 64 reference points inside their 2048-wide tile,
+    # with their own normals, and the first 64 queries next to them: the
+    # payload kernels must average the tied rows.
+    dup = [a.clone() for a in full]
+    dup[1][1000:1064] = dup[1][:64]
+    dup[2][1000:1064, :3] = dup[1][:64]
+    dup[2][1000:1064, 3:] = -dup[2][:64, 3:]
+    dup[0][:64] = dup[1][:64] + 0.01
+    errs = {k: 0.0 for k in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6')}
+    tol_share = {k: 0.0 for k in ('E1', 'E4', 'E5', 'E6')}
+    for label, (q, r, pay) in ((f'{SHOOT_Q} x {SHOOT_R}', full),
+                               ('duplicates', tuple(dup)),
+                               ('1000 x 3001 parked', tuple(odd))):
+        for key, prec in (('E5', 'highest'), ('E1', 'bf16')):
+            c = nv.check_mm_indices(q, r, *nv.nn_indices_mm(q, r, prec),
+                                    *nv.nn_indices_mm_plain(q, r, prec),
+                                    precision=prec)
+            errs[key] = max(errs[key], c['max_abs_err'])
+            tol_share[key] = max(tol_share[key], c['err_over_tol'])
+            log(f'  {key} {prec} {label}: ok {c}')
+        for key, fn, plain in (
+                ('E4', nv.nn_payload, nv.nn_payload_plain),
+                ('E6', nv.nn_payload_pruned, nv.nn_payload_pruned_plain)):
+            c = nv.check_payload(q, r, pay, *fn(q, r, pay),
+                                 *plain(q, r, pay))
+            if label == 'duplicates' and c['duplicates'] < 64:
+                raise AssertionError(f'{key}: the duplicate groups were '
+                                     'not found')
+            errs[key] = max(errs[key], c['max_abs_err'])
+            tol_share[key] = max(tol_share[key], c['err_over_tol'])
+            log(f'  {key} {label}: ok {c}')
+        want = nk.nn_indices_plain(q, r)
+        c = nv.check_exact_indices(q, r, *nv.nn_vpu(q, r), *want)
+        errs['E2'] = max(errs['E2'], c['max_abs_err'])
+        log(f'  E2 {label}: ok {c}')
+        for qb, rb in sh.SWEEP[:-1]:
+            c = nv.check_exact_indices(q, r, *nv.nn_indices_tiled(
+                q, r, qb, rb), *want)
+            errs['E3'] = max(errs['E3'], c['max_abs_err'])
+        log(f'  E3 {label}: ok at {len(sh.SWEEP) - 1} tile shapes')
+    log(f'  largest d2 error as a share of its limit: {tol_share}')
+    # A kernel whose d2 were a tenth too large must fail the checks.
+    q, r, pay = full
+    d2_i, idx_i = nv.nn_indices_mm(q, r)
+    d2_p, pay_p = nv.nn_payload(q, r, pay)
+    for key, check in (
+            ('E5', lambda: nv.check_mm_indices(
+                q, r, 1.1 * d2_i, idx_i, *nv.nn_indices_mm_plain(q, r))),
+            ('E4', lambda: nv.check_payload(
+                q, r, pay, 1.1 * d2_p, pay_p,
+                *nv.nn_payload_plain(q, r, pay)))):
+        try:
+            check()
+        except AssertionError as exc:
+            log(f'  {key} with d2 x 1.1 planted: rejected ({exc})')
+        else:
+            raise AssertionError(f'{key}: the check passed d2 x 1.1')
+    try:
+        nv.nn_indices_tiled(*full[:2], *sh.SWEEP[-1])
+        raise AssertionError('E3: the single 65536-point tile was not '
+                             'refused')
+    except nv.TileTooLarge as exc:
+        log(f'  E3 {sh.SWEEP[-1]}: refused as expected ({exc})')
+
+    log(f'the shootout at {SHOOT_Q} x {SHOOT_R} (nn_shootout.run):')
+    torch.cuda.synchronize()
+    nv.reset_launches()
+    rows = {r['name']: r for r in sh.run(*full, reps=10, log=log)}
+    torch.cuda.synchronize()
+    launches = dict(E1=nv.nn_indices_mm.launches_bf16,
+                    E5=nv.nn_indices_mm.launches,
+                    E4=nv.nn_payload.launches,
+                    E6=nv.nn_payload_pruned.launches,
+                    E2=nv.nn_vpu.launches, E3=nv.nn_indices_tiled.launches)
+    log(f'  launches in the shootout: {launches}')
+    for key, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f'shootout: {key} never launched')
+    sweep = [r for r in rows.values()
+             if r['kernel'] == 'E3' and r['ms'] is not None]
+    best3 = min(sweep, key=lambda r: r['ms'])
+    q, r, pay = full
+    plain = dict(
+        E1=lambda: nv.nn_indices_mm_plain(q, r, 'bf16'),
+        E5=lambda: nv.nn_indices_mm_plain(q, r),
+        E4=lambda: nv.nn_payload_plain(q, r, pay),
+        E6=lambda: nv.nn_payload_pruned_plain(q, r, pay),
+        E2=lambda: nk.nn_indices_plain(q, r))
+    plain_ms = {k: cuda_ms(fn, 3) for k, fn in plain.items()}
+    plain_ms['E3'] = plain_ms['E2']
+    pairs = SHOOT_Q * SHOOT_R
+    exact_b = nn_bytes(SHOOT_Q, SHOOT_R)
+    pay_b = nn_bytes(SHOOT_Q, SHOOT_R, payload=pay.shape[1])
+    share = rows['pruned']['visited_share']
+    bounds = dict(
+        E1=bound(pairs, INSTR_ARGMIN, exact_b, tensor_flops=8.0 * pairs),
+        E5=bound(pairs, INSTR_MM, exact_b),
+        E4=bound(pairs, INSTR_PAYLOAD, pay_b),
+        E6=bound(share * pairs, INSTR_PAYLOAD, pay_b),
+        E2=bound(pairs, INSTR_EXACT, exact_b),
+        E3=bound(pairs, INSTR_EXACT, exact_b))
+    shoot_row = dict(E1=rows['indices-bf16'], E5=rows['indices-hi'],
+                     E4=rows['payload'], E6=rows['pruned'], E2=rows['vpu'],
+                     E3=best3)
+    variants = 'laser_slam_tpu_torch/csrc/nn_variants.cu'
+    names = dict(
+        E1=('E1 nn_indices_mm bf16',
+            'experiments/pallas_nn_variants.py:75'),
+        E2=('E2 nn_vpu', 'experiments/pallas_nn_variants.py:144'),
+        E3=(f'E3 nn_indices_tiled (fastest of the sweep: {best3["qb"]}x'
+            f'{best3["rb"]})', 'experiments/pallas_tile_sweep.py:51'),
+        E4=('E4 nn_payload', 'experiments/pallas_payload_variants.py:64'),
+        E5=('E5 nn_indices_mm highest',
+            'experiments/pallas_payload_variants.py:167'),
+        E6=('E6 nn_payload_pruned',
+            'experiments/pallas_payload_variants.py:322'))
+    for key in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6'):
+        row = shoot_row[key]
+        log(f'  {key}: {row["ms"]:.4f} ms, plain {plain_ms[key]:.4f} ms, '
+            f'bound {bounds[key][0]:.4f} ms ({bounds[key][1]}), library '
+            f'{row["library_ms"]} ms, launches {launches[key]}')
+    log(f'  E6 visited {share:.4f} of its reference tiles')
+
+    # 8. Records -------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'
     record = {'kernels': [
         dict(name='K1 nn_indices', route='cuda', source=source,
@@ -316,7 +527,15 @@ def main():
         dict(name='K2 nn_indices_pruned', route='cuda', source=source,
              replaces='laser_slam_tpu/ops/pallas_nn.py:262',
              **kernels['K2']),
-    ]}
+    ] + [
+        dict(name=names[key][0], route='cuda', source=variants,
+             replaces=names[key][1], launches=launches[key],
+             max_abs_err=errs[key], ms=shoot_row[key]['ms'],
+             plain_ms=plain_ms[key], bound_ms=bounds[key][0],
+             bound_by=bounds[key][1],
+             library_ms=shoot_row[key]['library_ms'],
+             library=shoot_row[key]['library'])
+        for key in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6')]}
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {

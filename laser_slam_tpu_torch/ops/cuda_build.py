@@ -23,8 +23,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
-# Seconds spent in nvcc per library name during this process (0.0 when a
-# previous build was reused).
+# Seconds from the start of a build() call until nvcc finished each
+# source, per source name (0.0 when a previous build was reused).
 build_seconds: dict = {}
 
 
@@ -41,24 +41,44 @@ def _nvcc() -> str:
     return found
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` if needed and return the loaded library."""
+def _library_path(source: str) -> tuple:
+    """(source path, library path) of ``csrc/<source>``."""
     src = os.path.join(CSRC_DIR, source)
     with open(src, 'rb') as f:
         digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
-    out = os.path.join(BUILD_DIR, f'lib{stem}_{digest.hexdigest()[:16]}.so')
-    if os.path.exists(out):
-        build_seconds[source] = 0.0
-    else:
+    return src, os.path.join(BUILD_DIR,
+                             f'lib{stem}_{digest.hexdigest()[:16]}.so')
+
+
+def build(sources) -> None:
+    """Compile every ``csrc/<source>`` whose library is missing, one nvcc
+    process per source, all started together."""
+    jobs = []
+    t0 = time.perf_counter()
+    for source in sources:
+        src, out = _library_path(source)
+        if os.path.exists(out):
+            build_seconds.setdefault(source, 0.0)
+            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f'{out}.{os.getpid()}.tmp'
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
-                              capture_output=True, text=True)
+        jobs.append((source, src, out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, '-o', tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for source, src, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {src}:\n{proc.stdout}\n'
-                               f'{proc.stderr}')
+            failed.append(f'nvcc failed on {src}:\n{stdout}\n{stderr}')
+            continue
         os.replace(tmp, out)
         build_seconds[source] = time.perf_counter() - t0
-    return ctypes.CDLL(out)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` if needed and return the loaded library."""
+    build([source])
+    return ctypes.CDLL(_library_path(source)[1])

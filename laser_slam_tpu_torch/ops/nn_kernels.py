@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from laser_slam_tpu_torch.ops.neighbors import nn_brute
+from laser_slam_tpu_torch.ops.neighbors import nn_brute, query_chunks, sqdist
 
 # Tile sizes of the JAX package (pallas_nn._QB/_RB).  K2's tables keep
 # them: the reference tile is the unit of pruning and of the sorted index.
@@ -291,3 +291,41 @@ def nn_indices_pruned(queries: torch.Tensor, pref: PrunedRef,
 
 
 nn_indices_pruned.launches = 0
+
+
+def pruned_visits(queries: torch.Tensor, pref: PrunedRef,
+                  cutoff: float = 3.0):
+    """K2's walk replayed in plain torch: per query tile, the number of
+    reference tiles the kernel scans ([nQ] int64), and the best d2 the
+    walk reaches ([Q] f32, original query order).
+
+    The replay follows ``nn_pruned_kernel`` step by step: it stops at the
+    first bound >= cutoff^2 and skips a tile whose bound is >= the
+    largest running best of its query tile.  The bests are the same
+    coordinate-wise f32 distances as the kernel's, so the replay takes
+    the kernel's decisions.  A measurement aid: no path of the port calls
+    it."""
+    qperm, q_sorted, order, lb, qb, rb = pruned_tables(queries, pref,
+                                                       cutoff)
+    nQ, nR = order.shape
+    R = pref.points.shape[0]
+    tile_min = torch.empty((q_sorted.shape[0], nR), dtype=torch.float32,
+                           device=queries.device)
+    for s, e in query_chunks(q_sorted.shape[0], R):
+        tile_min[s:e] = torch.amin(sqdist(q_sorted[s:e], pref.points)
+                                   .reshape(e - s, nR, rb), dim=2)
+    tile_min = tile_min.reshape(nQ, qb, nR)
+    best = torch.full((nQ, qb), float('inf'), device=queries.device)
+    visits = torch.zeros(nQ, dtype=torch.int64, device=queries.device)
+    blocks = torch.arange(nQ, device=queries.device)
+    cutoff2 = float(cutoff) ** 2
+    for j in range(nR):
+        bound = lb[:, j]
+        scan = (bound < cutoff2) & (bound < torch.amax(best, dim=1))
+        step = tile_min[blocks, :, order[:, j].long()]
+        best = torch.where(scan[:, None], torch.minimum(best, step), best)
+        visits += scan
+    d2 = torch.empty(queries.shape[0], dtype=torch.float32,
+                     device=queries.device)
+    d2[qperm] = best.reshape(-1)
+    return visits, d2

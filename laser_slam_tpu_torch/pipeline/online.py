@@ -78,6 +78,17 @@ class StepInfo(NamedTuple):
     solve_error: torch.Tensor
 
 
+def resolve_device(device) -> torch.device:
+    """The entry points' device: the card unless the caller names another.
+    Asking for CUDA on a machine without a card raises; there is no
+    silent CPU run."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: the port runs on the card by '
+                           "default; pass device='cpu' to run on the CPU")
+    return device
+
+
 def _eye_rows(n: int, device) -> torch.Tensor:
     rows = torch.zeros((n, 7), dtype=torch.float32, device=device)
     rows[:, 0] = 1.0
@@ -86,7 +97,8 @@ def _eye_rows(n: int, device) -> torch.Tensor:
 
 def init_state(config: EstimatorConfig, pose_capacity: int = 4096,
                factor_capacity: int = 8192, prior_capacity: int = 8,
-               n_tracks: int = 1, device='cpu') -> OnlineState:
+               n_tracks: int = 1, device='cuda') -> OnlineState:
+    device = resolve_device(device)
     lt = config.laser_track
     # Submap = second-last scan + nscan_in_sub_map-1 earlier scans
     # (laser_track.cpp:476-486) -> the ring holds nscan_in_sub_map scans.
@@ -160,11 +172,12 @@ def grow_state(state: OnlineState, pose_capacity: Optional[int] = None,
         prior_weight=_pad_rows(state.prior_weight, R))
 
 
-def state_from_numpy(d: dict, device='cpu') -> OnlineState:
+def state_from_numpy(d: dict, device='cuda') -> OnlineState:
     """An :class:`OnlineState` on ``device`` from numpy arrays keyed by the
     JAX ``OnlineState`` field names (e.g. ``{k: np.asarray(v)}`` over a JAX
     runner's state).  ``rng_key`` is ignored: the port's randomness lives
     in the runner's ``torch.Generator``."""
+    device = resolve_device(device)
     return OnlineState(**{
         name: torch.as_tensor(np.array(d[name]), device=device)
         for name in OnlineState._fields})
@@ -441,12 +454,13 @@ class OnlineRunner:
     def __init__(self, config: EstimatorConfig, pose_capacity: int = 4096,
                  factor_capacity: int = 8192,
                  minimum_distance_to_add_pose: float = 0.0, seed: int = 0,
-                 device='cpu'):
+                 device='cuda'):
         """``seed`` seeds the runner's ``torch.Generator`` (the JAX
-        runner's ``rng_key``).  The odometry-free mode
+        runner's ``rng_key``).  ``device`` is the card unless the caller
+        names another (``'cpu'`` for the CPU).  The odometry-free mode
         (``use_odometry_information=False``) comes in slice 2."""
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.state = init_state(config, pose_capacity, factor_capacity,
                                 device=self.device)
         self.generator = torch.Generator(device=self.device)

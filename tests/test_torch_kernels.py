@@ -6,16 +6,23 @@ GPU machine (which has no jax), with the repo's conftest left out:
     python3 -m pytest --noconftest -p no:cacheprovider -q \
         tests/test_torch_kernels.py
 
-There the ``gpu`` test builds csrc/nn.cu and holds K1 and K2 to their
-plain versions; here it skips.  Tolerances: indices equal except where
-float64 shows an exact f32 tie; d2 within 1e-6 relative.
+There the ``gpu`` tests build csrc/nn.cu and csrc/nn_variants.cu and
+hold K1, K2 and the shootout's kernels (E1-E6) to their plain versions;
+here they skip.  Tolerances: K1, K2, E2/E3 — indices equal except where
+float64 shows an exact f32 tie, d2 within 1e-6 relative; the matmul-form
+kernels (E1, E4, E5, E6) — the float64 checks of ``ops/nn_variants.py``:
+each d2 within ``nn_variants.score_tolerance`` (4 f32 units of roundoff of
+the query's term sum against its winner) of the float64 d2 of a row it
+may have picked.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from laser_slam_tpu_torch.experiments import nn_shootout as sh
 from laser_slam_tpu_torch.ops import nn_kernels as nk
+from laser_slam_tpu_torch.ops import nn_variants as nv
 from laser_slam_tpu_torch.ops.neighbors import knn_brute, nn_brute
 
 torch.set_num_threads(2)
@@ -100,6 +107,26 @@ def test_wrappers_refuse_other_devices_and_dtypes():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('cutoff', [1.0, 3.0])
+def test_replayed_k2_walk_skips_tiles_and_reaches_the_exact_nn(cutoff):
+    """The plain replay of K2's walk (the work the card's bound counts)
+    scans fewer tiles than there are, and still reaches the exact d2 of
+    every query with a point within the cutoff."""
+    q, ref, _ = sh.make_scene(2048, 32768, seed=4)
+    q, ref = torch.tensor(q), torch.tensor(ref)
+    q[::7] += 2.0                     # some queries beyond a 1 m cutoff
+    pref = nk.build_pruned_ref(ref, rb=512)
+    visits, d2 = nk.pruned_visits(q, pref, cutoff)
+    n_tiles = pref.tile_lo.shape[0]
+    assert visits.shape == (8,) and n_tiles == 64
+    assert 1 <= int(visits.min()) and int(visits.sum()) < 8 * n_tiles
+    want = nk.nn_indices_pruned_plain(q, pref, cutoff)[0]
+    inside = want <= cutoff ** 2
+    assert int(inside.sum()) > 100
+    assert torch.equal(d2[inside], want[inside])
+    assert bool(torch.all(d2[~inside] > cutoff ** 2))
+
+
 def test_kernels_match_plain_on_card():
     """K1 and K2 built from csrc/nn.cu against their plain versions, each
     launch counted once."""
@@ -124,3 +151,83 @@ def test_kernels_match_plain_on_card():
                    d2.cpu().numpy()[inside], idx.cpu().numpy()[inside],
                    pd2.cpu().numpy()[inside], pidx.cpu().numpy()[inside])
     assert np.all(d2.cpu().numpy()[~inside] > 1.0)
+
+
+def _card_scenes():
+    """The shootout's scene at a mid size, and an awkward shape (3001 is
+    prime: one-point E4/E6 tiles) with every third reference row parked."""
+    q, ref, pay = sh.make_scene(3000, 20480, seed=5)
+    q2, ref2, pay2 = sh.make_scene(1000, 3001, seed=6)
+    ref2[::3] = 1.0e6
+    pay2[:, :3] = ref2
+    # Copies of 64 points inside their 2048-wide tile, queried nearby.
+    ref[1000:1064] = ref[:64]
+    pay[1000:1064] = np.concatenate([ref[:64], -pay[:64, 3:]], axis=1)
+    q[:64] = ref[:64] + 0.01
+    return [tuple(torch.tensor(a, device='cuda') for a in s)
+            for s in ((q, ref, pay), (q2, ref2, pay2))]
+
+
+@pytest.mark.gpu
+def test_shootout_kernels_match_plain_on_card():
+    """E1/E5, E4, E6 and E2/E3 built from csrc/nn_variants.cu against their
+    plain versions, each launch counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    for q, ref, pay in _card_scenes():
+        for precision in nv.PRECISIONS:
+            before = (nv.nn_indices_mm.launches
+                      + nv.nn_indices_mm.launches_bf16)
+            d2, idx = nv.nn_indices_mm(q, ref, precision)
+            assert (nv.nn_indices_mm.launches
+                    + nv.nn_indices_mm.launches_bf16) == before + 1
+            nv.check_mm_indices(q, ref, d2, idx,
+                                *nv.nn_indices_mm_plain(q, ref, precision),
+                                precision=precision)
+        before = nv.nn_payload.launches
+        d2, out = nv.nn_payload(q, ref, pay)
+        assert nv.nn_payload.launches == before + 1
+        c = nv.check_payload(q, ref, pay, d2, out,
+                             *nv.nn_payload_plain(q, ref, pay))
+        if q.shape[0] == 3000:
+            assert c['duplicates'] >= 64
+            mean = 0.5 * (pay[:64] + pay[1000:1064])
+            assert float(torch.max(torch.abs(out[:64] - mean))) < 1e-5
+        d2, out, visits = nv.nn_payload_pruned(q, ref, pay,
+                                               return_visits=True)
+        nv.check_payload(q, ref, pay, d2, out,
+                         *nv.nn_payload_pruned_plain(q, ref, pay))
+        assert 1 <= int(visits.min()) and int(visits.max()) <= (
+            ref.shape[0] // nv.pruned_tables(q, ref, pay).rb)
+        want = nk.nn_indices_plain(q, ref)
+        nv.check_exact_indices(q, ref, *nv.nn_vpu(q, ref), *want)
+        for qb, rb in ((128, 1024), (512, 4096), (8192, 8192)):
+            nv.check_exact_indices(q, ref, *nv.nn_indices_tiled(q, ref, qb,
+                                                                rb), *want)
+
+
+@pytest.mark.gpu
+def test_tile_beyond_shared_memory_is_refused_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, _ = _card_scenes()[1]
+    with pytest.raises(nv.TileTooLarge):
+        nv.nn_indices_tiled(q, ref, 8192, 65536)
+
+
+@pytest.mark.gpu
+def test_empty_query_sets_count_no_launch_on_card():
+    """A wrapper that launches nothing for Q == 0 leaves its counter."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    ref = torch.tensor(scene(7, 4096, 1)[1], device='cuda')
+    none = torch.zeros((0, 3), device='cuda')
+    nv.reset_launches()
+    nv.nn_vpu(none, ref)
+    nv.nn_indices_tiled(none, ref, 128, 1024)
+    nv.nn_indices_mm(none, ref)
+    nv.nn_indices_mm(none, ref, 'bf16')
+    nv.nn_payload(none, ref, torch.zeros((4096, 6), device='cuda'))
+    assert (nv.nn_vpu.launches, nv.nn_indices_tiled.launches,
+            nv.nn_indices_mm.launches, nv.nn_indices_mm.launches_bf16,
+            nv.nn_payload.launches) == (0, 0, 0, 0, 0)

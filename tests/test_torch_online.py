@@ -83,7 +83,7 @@ def jax_run():
 
 def test_slice_matches_jax_runner(jax_run):
     frames, _, w_T, jtraj = jax_run
-    runner = ton.OnlineRunner(small_config(), **CAPS)
+    runner = ton.OnlineRunner(small_config(), device='cpu', **CAPS)
     for f in frames:
         assert runner.process_scan(f.time_ns, f.points, f.odom_pose7)
     assert bool(runner.state.last_icp_valid)
@@ -101,7 +101,7 @@ def test_slice_matches_jax_runner(jax_run):
 def test_state_from_numpy_then_one_step(jax_run):
     frames, states, _, _ = jax_run
     cfg = small_config()
-    state = ton.state_from_numpy(states[4])
+    state = ton.state_from_numpy(states[4], device='cpu')
     assert set(ton.state_to_numpy(state)) == set(states[4])
     for name, value in ton.state_to_numpy(state).items():
         np.testing.assert_array_equal(value, states[4][name])
@@ -142,7 +142,7 @@ def test_growth_sampling_closure_branches_and_online_solve(jax_run):
     cfg = small_config()
     trajs, caps_after = [], []
     for caps in (dict(pose_capacity=2, factor_capacity=2), CAPS):
-        runner = ton.OnlineRunner(cfg, **caps)
+        runner = ton.OnlineRunner(cfg, device='cpu', **caps)
         for f in frames:
             runner.process_scan(f.time_ns, f.points, f.odom_pose7)
         trajs.append(np.stack(list(runner.trajectory().values())))
@@ -156,7 +156,7 @@ def test_growth_sampling_closure_branches_and_online_solve(jax_run):
             cfg.laser_track.icp, reading_sampling_ratio=0.5)))
     runs = []
     for _ in range(2):
-        runner = ton.OnlineRunner(sampled, seed=3, **CAPS)
+        runner = ton.OnlineRunner(sampled, seed=3, device='cpu', **CAPS)
         for f in frames:
             runner.process_scan(f.time_ns, f.points, f.odom_pose7)
         runs.append(np.stack(list(runner.trajectory().values())))
@@ -175,7 +175,7 @@ def test_growth_sampling_closure_branches_and_online_solve(jax_run):
     assert not bool(state.rel_robust[n_rel])
     assert float(state.prior_weight[0]) == 0.0
 
-    state = ton.state_from_numpy(jax_run[1][5])
+    state = ton.state_from_numpy(jax_run[1][5], device='cpu')
     before = state.traj_poses.clone()
     state, err = ton.online_solve(state, cfg)
     assert np.isfinite(float(err))
@@ -195,7 +195,7 @@ def test_port_stream_matches_jax_stream():
 
 
 def test_runner_gating_and_later_slices():
-    runner = ton.OnlineRunner(small_config(),
+    runner = ton.OnlineRunner(small_config(), device='cpu',
                               minimum_distance_to_add_pose=1.0, **CAPS)
     pts = np.random.default_rng(0).normal(size=(256, 3)).astype(np.float32)
     odom = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)
@@ -209,7 +209,27 @@ def test_runner_gating_and_later_slices():
         small_config(), solver=dataclasses.replace(small_config().solver,
                                                    window=8))
     with pytest.raises(NotImplementedError, match='slice 2'):
-        ton.OnlineRunner(windowed, **CAPS).process_scan(0, pts * 10, odom)
+        ton.OnlineRunner(windowed, device='cpu', **CAPS).process_scan(
+            0, pts * 10, odom)
+
+
+def test_entry_points_default_to_the_card():
+    """A caller who names no device gets the card; where there is none,
+    an error, not a CPU run."""
+    import inspect
+    for fn in (ton.init_state, ton.state_from_numpy, ton.OnlineRunner):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    if torch.cuda.is_available():
+        runner = ton.OnlineRunner(small_config(), **CAPS)
+        assert runner.state.traj_poses.device.type == 'cuda'
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ton.OnlineRunner(small_config(), **CAPS)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ton.init_state(small_config(), 4, 4)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ton.state_from_numpy({})
+    assert ton.resolve_device('cpu') == torch.device('cpu')
 
 
 def test_port_imports_no_jax():
@@ -220,10 +240,13 @@ def test_port_imports_no_jax():
         'import laser_slam_tpu_torch\n'
         'from laser_slam_tpu_torch.pipeline import online, replay\n'
         'from laser_slam_tpu_torch.ops import nn_kernels, cuda_build\n'
+        'from laser_slam_tpu_torch.ops import nn_variants\n'
+        'from laser_slam_tpu_torch.experiments import nn_shootout\n'
         "runpy.run_path({smoke!r}, run_name='chip_smoke')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'yaml' or m == 'laser_slam_tpu'"
-        " or m.startswith('laser_slam_tpu.')]\n"
+        " or m.startswith('laser_slam_tpu.') or m == 'experiments'"
+        " or m.startswith('experiments.')]\n"
         'assert not bad, bad\n').format(
             repo=REPO, smoke=os.path.join(REPO, 'chip_smoke.py'))
     subprocess.run([sys.executable, '-c', code], check=True, timeout=120,
@@ -231,8 +254,8 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_never_import_jax():
-    pattern = re.compile(r'^\s*(import|from)\s+(jax|laser_slam_tpu)(\.|\s|$)',
-                         re.M)
+    pattern = re.compile(r'^\s*(import|from)\s+'
+                         r'(jax|laser_slam_tpu|experiments)(\.|\s|$)', re.M)
     files = [os.path.join(REPO, 'chip_smoke.py')]
     for root, _, names in os.walk(os.path.join(REPO, 'laser_slam_tpu_torch')):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
