@@ -14,21 +14,30 @@ result line):
    ``csrc/nn_variants.cu`` with nvcc, one process each, started together
    (seconds printed).
 3. K1 (``nn_indices``) against its plain torch version at the main path's
-   ICP shape (8192 queries x 81920 reference points), an awkward shape
-   and a SENTINEL-parked reference: equal indices (a mismatch must be an
-   exact f32 tie, checked in float64) and d2 within 1e-6 relative.
-   Both times by CUDA events.
+   ICP shape (8192 queries x 81920 reference points), with exact copies
+   of 64 reference points in another reference tile, at an awkward shape
+   (1000 x 3001) and on a SENTINEL-parked reference: d2 bit-equal and
+   indices equal (ties to the lowest index, the copies included).  Both
+   times by CUDA events.
 4. K2 (``nn_indices_pruned``) against its plain version and K1 within the
-   3 m cutoff, on the synthetic room and on a clustered scene.
+   3 m cutoff, on the synthetic room and on a clustered scene: d2
+   bit-equal, an index that differs only at an exact f32 tie, and d2 >
+   cutoff^2 beyond it.  Timed with its torch tables, and alone
+   (``nn_kernels._launch_pruned`` on tables built once); the share of
+   pairs it scans, counted by the kernel, beside the share of the
+   Pallas walk that its bound counts.
 5. The slice: ``OnlineRunner(slice1_config(), device='cuda')`` over 64
    synthetic scans of 16384 points (2 laps of a 15 m circle, seed 7, the
    stream's default noise) with a loop closure every 10 scans of lap 2.
    K2 must have launched, the trajectory must be finite and within the
    ground-truth bounds of tests/test_parity.py (max < 0.35 m, final
-   < 0.15 m).
+   < 0.15 m).  ``torch.profiler`` records scans 12-15: kernel launches,
+   device time, the device's busy share and K2's share of its time.
 6. K1 inside ICP: one ``icp_point_to_plane`` at the slice's shapes with
    ``pallas_prune=False`` (the flat-kernel matcher); K1 must have launched
-   and the pose must agree with the K2 run within 1e-4.
+   and the pose must agree with the K2 run within 1e-4.  ICP ms a call
+   (one a scan) with either matcher, host clock around synchronized
+   calls.
 7. The shootout's kernels (E1-E6, ``ops/nn_variants.py``): each held to
    its plain version at the shootout's shape (8192 x 65536, seed 3), on
    the same scene with 64 reference points copied inside their tile
@@ -47,9 +56,12 @@ once, outputs written once) over 3.35 TB/s and its operations over the
 card's rate for their type: f32 lane instructions over SMs x 128 lanes x
 the card's max SM clock (67 TFLOP/s counts an FMA as 2), bf16 tensor-core
 FLOPs over 989 TFLOP/s.  The pruned kernels count the pairs of the tiles
-they scan in this run: E6 counts its own, and K2's walk is replayed in
-plain torch (``nn_kernels.pruned_visits``).  The second-to-last line is
-the kernels' JSON record; the last line is the result record.
+scanned in this run: E6 counts its own; K2's bound counts those of the
+Pallas walk, replayed in plain torch (``nn_kernels.pruned_visits``),
+since the tiles K2 itself scans depend on block timing (its own share,
+counted by the kernel, stands beside it as ``scanned_share``).  The
+second-to-last line is the kernels' JSON record; the last line is the
+result record.
 """
 
 import dataclasses
@@ -61,14 +73,15 @@ import time
 import traceback
 
 import numpy as np
+import torch
 
 N_SCANS = 64
 N_POINTS = 16384
 READING = 8192
 SUBMAP_SCANS = 5
 CUTOFF = 3.0
-D2_RTOL = 1e-6
 POSE_ATOL = 1e-4
+PROFILE_SCANS = range(12, 16)
 SHOOT_Q, SHOOT_R = 8192, 65536
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
@@ -101,35 +114,53 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def check_nn(name, q, ref, d2_k, idx_k, d2_p, idx_p, rows=None):
-    """Kernel vs plain: idx equal except exact f32 ties (checked in float64
-    against the plain winner), d2 within D2_RTOL.  Returns max |d2 diff|."""
-    d2_k, idx_k = d2_k.cpu().numpy(), idx_k.cpu().numpy().astype(np.int64)
-    d2_p, idx_p = d2_p.cpu().numpy(), idx_p.cpu().numpy().astype(np.int64)
+def pair_d2(q, ref, idx):
+    """f32 d2 of each query to ref[idx], rounded as neighbors.sqdist."""
+    d = q - ref[idx.long()]
+    return (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+
+
+def host_ms(fn, reps):
+    """Mean host milliseconds to issue one call (no synchronize between
+    calls): a call whose card time is no more than this is host-bound."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * issued / reps
+
+
+def check_nn(name, q, ref, d2_k, idx_k, d2_p, idx_p, rows=None,
+             ties=False):
+    """Kernel vs plain: d2 bit-equal; indices equal or, with ``ties``,
+    differing only where the kernel's index is at the same f32 d2 (an
+    exact tie).  ``rows``: a bool mask of the queries to compare.  Returns
+    max |d2 diff|."""
     if rows is not None:
-        d2_k, idx_k, d2_p, idx_p = d2_k[rows], idx_k[rows], d2_p[rows], \
-            idx_p[rows]
-    if not (np.all(np.isfinite(d2_k)) and np.all(np.isfinite(d2_p))):
+        q, d2_k, idx_k, d2_p, idx_p = (a[rows] for a in (q, d2_k, idx_k,
+                                                          d2_p, idx_p))
+    if not (bool(torch.all(torch.isfinite(d2_k)))
+            and bool(torch.all(torch.isfinite(d2_p)))):
         raise AssertionError(f'{name}: non-finite distances')
-    err = np.abs(d2_k.astype(np.float64) - d2_p)
-    bad = err > D2_RTOL * np.maximum(np.abs(d2_p), 1e-30)
-    if bad.any():
-        raise AssertionError(f'{name}: {int(bad.sum())} d2 beyond '
-                             f'{D2_RTOL} relative, max abs {err.max()}')
-    diff = np.flatnonzero(idx_k != idx_p)
-    if diff.size:
-        qn = q.cpu().numpy().astype(np.float64)
-        rn = ref.cpu().numpy().astype(np.float64)
-        qi = diff if rows is None else np.flatnonzero(rows)[diff]
-        dk = ((qn[qi] - rn[idx_k[diff]]) ** 2).sum(1)
-        dp = ((qn[qi] - rn[idx_p[diff]]) ** 2).sum(1)
-        if not np.allclose(dk, dp, rtol=1e-6, atol=0.0):
-            raise AssertionError(f'{name}: {diff.size} index mismatches '
-                                 'that are not ties')
-    log(f'  {name}: ok (d2 within {D2_RTOL} relative, max |d2 err| '
-        f'{float(err.max()) if err.size else 0.0}; {diff.size} index '
-        'choices differ, all exact ties)')
-    return float(err.max()) if err.size else 0.0
+    err = float(torch.max(torch.abs(d2_k.double() - d2_p.double()))) \
+        if d2_k.numel() else 0.0
+    if not torch.equal(d2_k, d2_p):
+        raise AssertionError(f'{name}: {int(torch.sum(d2_k != d2_p))} d2 '
+                             f'not bit-equal, max abs {err}')
+    diff = idx_k != idx_p
+    n_diff = int(torch.sum(diff))
+    if n_diff and not ties:
+        raise AssertionError(f'{name}: {n_diff} indices differ')
+    if n_diff and not torch.equal(pair_d2(q[diff], ref, idx_k[diff]),
+                                  d2_k[diff]):
+        raise AssertionError(f'{name}: {n_diff} index mismatches that are '
+                             'not exact ties')
+    log(f'  {name}: ok (d2 bit-equal; {n_diff} index choices differ'
+        + (', all exact f32 ties)' if ties else ')'))
+    return err
 
 
 def measured_closure(frames, traj, i, j, se3, torch):
@@ -143,8 +174,44 @@ def measured_closure(frames, traj, i, j, se3, torch):
     return se3.compose(T_a, se3.compose(rel, se3.inverse(T_b))).numpy()
 
 
+def device_rows(prof):
+    """The profiler's averages of work that ran on the card."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_launches(prof):
+    return sum(e.count for e in device_rows(prof))
+
+
+def profile_summary(prof, wall_s):
+    """Kernel launches, device time, busy share and the NN kernels' share
+    of the device time in a profiled window of ``wall_s`` seconds."""
+    rows = device_rows(prof)
+    t = {e.key: getattr(e, 'self_device_time_total',
+                        getattr(e, 'self_cuda_time_total', 0)) / 1e3
+         for e in rows}
+    total = sum(t.values())
+    if total <= 0:
+        log('  profiler: no device time recorded (not measured)')
+        return
+    launches = device_launches(prof)
+    k2 = sum(v for k, v in t.items() if 'nn_items_kernel<true' in k)
+    unpack = sum(v for k, v in t.items() if 'nn_unpack_kernel' in k)
+    n = len(PROFILE_SCANS)
+    log(f'  profiler over scans {PROFILE_SCANS.start}-'
+        f'{PROFILE_SCANS.stop - 1}: {launches} device launches '
+        f'({launches / n:.0f} a scan), {total:.3f} ms of device time in '
+        f'{1000 * wall_s:.3f} ms of wall time (profiler on): busy '
+        f'{100 * total / (1000 * wall_s):.2f}%; K2 items '
+        f'{100 * k2 / total:.2f}% of device time ({k2 / n:.3f} ms a scan), '
+        f'with its unpack {100 * (k2 + unpack) / total:.2f}%')
+    for key, v in sorted(t.items(), key=lambda kv: -kv[1])[:5]:
+        log(f'    {v:9.3f} ms  {key[:90]}')
+
+
 def main():
-    import torch
     if not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: chip_smoke.py runs on a GPU')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -222,6 +289,19 @@ def main():
     torch.cuda.synchronize()
     err1 = check_nn(f'{READING} x {SUBMAP_SCANS * N_POINTS}', queries,
                     submap, d2_k, idx_k, d2_p, idx_p)
+    # Exact copies of 64 points in reference tile 12 (another work item),
+    # queried at the points themselves (d2 = 0 at both copies): the first
+    # copy must win, whichever item merges first.
+    copies = submap.clone()
+    copies[50000:50064] = copies[100:164]
+    c_queries = queries.clone()
+    c_queries[:64] = copies[100:164]
+    d2_k, idx_k = nk.nn_indices(c_queries, copies)
+    check_nn('copies across reference tiles', c_queries, copies, d2_k,
+             idx_k, *nk.nn_indices_plain(c_queries, copies))
+    if not torch.equal(idx_k[:64].cpu(),
+                       torch.arange(100, 164, dtype=torch.int32)):
+        raise AssertionError('K1: a later copy won')
     g = torch.Generator(device='cpu').manual_seed(1)
     q_odd = (torch.randn(1000, 3, generator=g) * 5).to(dev)
     r_odd = (torch.randn(3001, 3, generator=g) * 5).to(dev)
@@ -274,34 +354,58 @@ def main():
                           <= CUTOFF ** 2)):
             raise AssertionError(f'{label}: beyond-cutoff query reported '
                                  'within the cutoff')
+        rows = torch.from_numpy(inside).to(dev)
         err2 = max(err2, check_nn(label, q, pref.points, d2_k, idx_k, d2_p,
-                                  idx_p, rows=inside))
-        orig = pref.perm.long()[idx_k.long()]
+                                  idx_p, rows=rows, ties=True))
+        orig = pref.perm[idx_k.long()]
         check_nn(f'{label} vs K1', q, ref, d2_k, orig, d2_1, idx_1,
-                 rows=inside)
+                 rows=rows, ties=True)
     pref = nk.build_pruned_ref(submap)
     k2_ms = cuda_ms(lambda: nk.nn_indices_pruned(queries, pref, CUTOFF), 20)
     k2_plain_ms = cuda_ms(
         lambda: nk.nn_indices_pruned_plain(queries, pref, CUTOFF), 5)
-    log(f'  time at {READING} x {SUBMAP_SCANS * N_POINTS} (room, with its '
-        'tables): kernel '
-        f'{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms')
-    # K2's work depends on the data: count the pairs of the tiles its walk
-    # scans (the replay takes the kernel's decisions), and check that the
-    # walk reaches the kernel's distances.
+    tables = nk.pruned_tables(queries, pref, CUTOFF)
+    k2_kernel_ms = cuda_ms(lambda: nk._launch_pruned(tables, pref, CUTOFF),
+                           20)
+    k2_host = host_ms(lambda: nk.nn_indices_pruned(queries, pref, CUTOFF),
+                      20)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as one:
+        nk.nn_indices_pruned(queries, pref, CUTOFF)
+        torch.cuda.synchronize()
+    log(f'  time at {READING} x {SUBMAP_SCANS * N_POINTS} (room): with its '
+        f'tables {k2_ms:.4f} ms ({device_launches(one)} device launches a '
+        f'call, which the host issues in {k2_host:.4f} ms), kernel alone '
+        f'(tables built once) {k2_kernel_ms:.4f} ms, plain '
+        f'{k2_plain_ms:.4f} ms')
+    # K2's work depends on the data: its bound counts the pairs of the
+    # tiles the Pallas walk scans (replayed in torch), and the walk must
+    # reach the kernel's distances.  The kernel itself scans the tiles
+    # that the bests merged so far do not prune, which varies with block
+    # timing: it counts them.
+    qb, rb = tables[4], tables[5]
+    shares = []
+    for _ in range(5):
+        scanned = torch.zeros(READING // qb, dtype=torch.int32, device=dev)
+        nk._launch_pruned(tables, pref, CUTOFF, scanned=scanned)
+        shares.append(int(scanned.sum()) * qb / (READING * n_sub))
     visits, walk_d2 = nk.pruned_visits(queries, pref, CUTOFF)
     room_d2 = nk.nn_indices_pruned(queries, pref, CUTOFF)[0]
     inside = room_d2 <= CUTOFF ** 2
     if not torch.equal(walk_d2[inside], room_d2[inside]):
         raise AssertionError('K2: the replayed walk misses the kernel\'s '
                              'distances')
-    qb, rb = nk._tile(READING, nk._QB), n_sub // pref.tile_lo.shape[0]
     k2_pairs = int(visits.sum()) * qb * rb
+    walk_share = k2_pairs / (READING * n_sub)
     k2_bound = bound(k2_pairs, INSTR_EXACT, nn_bytes(READING, n_sub))
-    log(f'  K2 scans {int(visits.sum())} of {visits.numel()} x '
-        f'{pref.tile_lo.shape[0]} tile pairs: '
-        f'{k2_pairs / (READING * n_sub):.4f} of all pairs')
-    kernels['K2'] = dict(max_abs_err=err2, ms=k2_ms, plain_ms=k2_plain_ms,
+    log(f'  the Pallas walk scans {int(visits.sum())} of {visits.numel()} x '
+        f'{pref.tile_lo.shape[0]} tile pairs: {walk_share:.4f} of all pairs '
+        '(the bound counts these)')
+    log(f'  K2 scanned (counted by the kernel, 5 calls): '
+        f'{", ".join(f"{x:.4f}" for x in shares)} of all pairs')
+    kernels['K2'] = dict(max_abs_err=err2, ms=k2_ms, kernel_ms=k2_kernel_ms,
+                         scanned_share=float(np.mean(shares)),
+                         walk_share=walk_share, plain_ms=k2_plain_ms,
                          bound_ms=k2_bound[0], bound_by=k2_bound[1],
                          library_ms=k1_lib_ms,
                          library=lib_exact + ' (the cutoff is a where)')
@@ -317,12 +421,19 @@ def main():
     nk.nn_indices.launches = 0
     nk.nn_indices_pruned.launches = 0
     scan_s = []
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
     t_all = time.perf_counter()
     for idx, f in enumerate(frames):
+        if idx == PROFILE_SCANS.start:
+            prof.__enter__()
         t0 = time.perf_counter()
         runner.process_scan(f.time_ns, f.points, f.odom_pose7)
         torch.cuda.synchronize()
         scan_s.append(time.perf_counter() - t0)
+        if idx == PROFILE_SCANS.stop - 1:
+            prof.__exit__(None, None, None)
         if idx in closure_at:
             a, b = closure_at[idx]
             runner.add_loop_closure(a, b, measured_closure(
@@ -337,14 +448,16 @@ def main():
     if not np.all(np.isfinite(est)):
         raise AssertionError('slice: non-finite trajectory')
     ate = np.linalg.norm(est[:, 4:] - gt[:, 4:], axis=1)
-    warm = scan_s[8:]
+    warm = [t for k, t in enumerate(scan_s) if k >= 8
+            and k not in PROFILE_SCANS]
     log(f'  {len(traj)} poses, {len(closure_at)} closures, K2 launches '
         f'{k2_launches}, K1 launches {k1_slice}, wall {wall:.2f} s')
     log(f'  ATE vs ground truth: mean {ate.mean():.6f} m, max '
         f'{ate.max():.6f} m, final {ate[-1]:.6f} m')
-    log(f'  scans/s after 8 warm-up scans: {len(warm) / sum(warm):.4f} '
-        f'({1000 * np.mean(warm):.3f} ms/scan mean, '
-        f'{1000 * np.max(warm):.3f} ms max)')
+    log(f'  scans/s after 8 warm-up scans (the profiled ones left out): '
+        f'{len(warm) / sum(warm):.4f} ({1000 * np.mean(warm):.3f} ms/scan '
+        f'mean, {1000 * np.max(warm):.3f} ms max)')
+    profile_summary(prof, sum(scan_s[k] for k in PROFILE_SCANS))
     if k2_launches <= 0:
         raise AssertionError('slice: K2 never launched')
     if not (ate.max() < 0.35 and ate[-1] < 0.15):
@@ -378,6 +491,14 @@ def main():
     k1_launches = nk.nn_indices.launches
     res_pruned = icp_mod.icp(reading, reference, normals, guess, icp_cfg)
     dT = float(torch.max(torch.abs(res_flat.T - res_pruned.T)))
+    for label, c in (('K2 matcher', icp_cfg), ('K1 matcher', flat_cfg)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            icp_mod.icp(reading, reference, normals, guess, c)
+        torch.cuda.synchronize()
+        log(f'  ICP at the slice\'s shapes, {label}: '
+            f'{1000 * (time.perf_counter() - t0) / 3:.3f} ms a call')
     log(f'  K1 launches {k1_launches}, valid {bool(res_flat.valid)}, '
         f'max |T_K1 - T_K2| {dT:.3e} (tolerance {POSE_ATOL})')
     if k1_launches <= 0:

@@ -9,6 +9,14 @@ in ``csrc/nn.cu`` (see its header for the design and what bounds them):
   Morton-sorted, AABB-pruned, radius-bounded exact 1-NN that ICP uses by
   default (``IcpConfig.pallas_prune``).
 
+Both run one work item per (query tile, reference tile) on the card and
+merge the items' results exactly: each query's result is a 64-bit key
+``(f32 bits of d2) << 32 | idx`` that the items lower with ``atomicMin``
+into a scratch array the wrapper fills with :data:`_INIT_KEY` (d2 = +inf,
+idx = 0) before the launch; a second kernel splits the keys into (d2,
+idx).  The least key is the least d2 with ties to the lowest index,
+whatever order the items run in.
+
 Each wrapper takes its plain torch version (a chunked coordinate-wise
 brute force with ``min``, which returns the first index) when the tensors
 lie on the CPU.  For CUDA tensors it launches its kernel, adds one to its
@@ -36,6 +44,11 @@ from laser_slam_tpu_torch.ops.neighbors import nn_brute, query_chunks, sqdist
 # them: the reference tile is the unit of pruning and of the sorted index.
 _QB = 256
 _RB = 4096
+# K1's work item on the card (csrc/nn.cu NN_QT x NN_K1_RT).
+_K1_QT = 256
+_K1_RT = 4096
+# The merge key of (d2 = +inf, idx = 0): (0x7f800000 << 32) | 0.
+_INIT_KEY = 0x7F800000 << 32
 
 
 def _tile(n: int, preferred: int) -> int:
@@ -55,10 +68,10 @@ def _kernels() -> ctypes.CDLL:
         from laser_slam_tpu_torch.ops.cuda_build import load_library
         lib = load_library('nn.cu')
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lsl_nn_indices.argtypes = [p, p, i, i, p, p, i, p]
+        lib.lsl_nn_indices.argtypes = [p, p, i, i, p, p, p, i, p]
         lib.lsl_nn_indices.restype = i
-        lib.lsl_nn_indices_pruned.argtypes = [p, p, p, p, i, i, i, i, f, p,
-                                              p, i, p]
+        lib.lsl_nn_indices_pruned.argtypes = [p, p, p, p, p, i, i, i, i, f,
+                                              p, p, p, p, i, p]
         lib.lsl_nn_indices_pruned.restype = i
         _lib = lib
     return _lib
@@ -75,6 +88,12 @@ def _check_cuda(name: str, *tensors) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f'{name}: tensors must be contiguous')
     return device
+
+
+def _merge_keys(n: int, device: torch.device) -> torch.Tensor:
+    """The kernels' scratch: n merge keys and the item counter after
+    them, all :data:`_INIT_KEY` (filled on the current stream)."""
+    return torch.full((n + 1,), _INIT_KEY, dtype=torch.int64, device=device)
 
 
 def _check_launch(name: str, err: int) -> None:
@@ -121,9 +140,10 @@ def nn_indices(queries: torch.Tensor, ref_points: torch.Tensor):
         return d2, idx
     if R == 0:
         raise ValueError('nn_indices: empty reference')
+    keys = _merge_keys(Q, device)
     err = _kernels().lsl_nn_indices(
-        queries.data_ptr(), ref_points.data_ptr(), Q, R, d2.data_ptr(),
-        idx.data_ptr(), device.index,
+        queries.data_ptr(), ref_points.data_ptr(), Q, R, keys.data_ptr(),
+        d2.data_ptr(), idx.data_ptr(), device.index,
         torch.cuda.current_stream(device).cuda_stream)
     _check_launch('nn_indices', err)
     nn_indices.launches += 1
@@ -257,36 +277,53 @@ def nn_indices_pruned(queries: torch.Tensor, pref: PrunedRef,
     Returns (d2 [Q] f32, idx [Q] i32) in the ORIGINAL query order; idx
     indexes the SORTED reference (``pref.points``) — gather payloads from
     arrays permuted by ``pref.perm``.  Exact for every query with a
-    reference point within ``cutoff``; for the others d2 > cutoff^2 (the
-    plain version reports inf, the kernel inf or the distance to a point
-    of a visited tile), which ICP discards.  CPU tensors run
-    :func:`nn_indices_pruned_plain`; CUDA tensors launch K2.
+    reference point within ``cutoff`` (d2 bit-equal to the plain version,
+    idx a point at that d2); for the others d2 > cutoff^2 (the plain
+    version reports inf, the kernel inf or the distance to a point of a
+    tile it scanned), which ICP discards.  CPU tensors run
+    :func:`nn_indices_pruned_plain`; CUDA tensors build the tables
+    (:func:`pruned_tables`) and launch K2 (:func:`_launch_pruned`).
     """
     _check_points('nn_indices_pruned', queries=queries,
                   ref_points=pref.points)
     if queries.device.type == 'cpu' and pref.points.device.type == 'cpu':
         return nn_indices_pruned_plain(queries, pref, cutoff)
     device = _check_cuda('nn_indices_pruned', queries, pref.points)
-    Q = queries.shape[0]
-    if Q == 0:
+    if queries.shape[0] == 0:
         return (torch.empty(0, dtype=torch.float32, device=device),
                 torch.empty(0, dtype=torch.int32, device=device))
-    qperm, q_sorted, order, lb, qb, rb = pruned_tables(queries, pref,
-                                                       cutoff)
-    nQ, nR = order.shape
-    d2_s = torch.empty(Q, dtype=torch.float32, device=device)
-    idx_s = torch.empty(Q, dtype=torch.int32, device=device)
+    return _launch_pruned(pruned_tables(queries, pref, cutoff), pref,
+                          cutoff)
+
+
+def _launch_pruned(tables, pref: PrunedRef, cutoff: float,
+                   scanned: torch.Tensor | None = None):
+    """Launch K2 on the tables of :func:`pruned_tables` and unsort its
+    results on the card: (d2 [Q], idx [Q]) in the original query order.
+
+    ``scanned``, an [nQ] int32 tensor of zeros, receives the number of
+    reference points the kernel scanned for each query tile (which tiles
+    it scans depends on block timing; the results do not)."""
+    qperm, q_sorted, order, lb, qb, rb = tables
+    extra = () if scanned is None else (scanned,)
+    device = _check_cuda('nn_indices_pruned', q_sorted, pref.points, order,
+                         lb, qperm, *extra)
+    Q = q_sorted.shape[0]
+    nR = order.shape[1]
+    if scanned is not None and (scanned.dtype != torch.int32
+                                or scanned.shape != (order.shape[0],)):
+        raise ValueError('nn_indices_pruned: scanned must be int32 [nQ]')
+    keys = _merge_keys(Q, device)
+    d2 = torch.empty(Q, dtype=torch.float32, device=device)
+    idx = torch.empty(Q, dtype=torch.int32, device=device)
     err = _kernels().lsl_nn_indices_pruned(
         q_sorted.data_ptr(), pref.points.data_ptr(), order.data_ptr(),
-        lb.data_ptr(), nQ, qb, rb, nR, float(cutoff) ** 2, d2_s.data_ptr(),
-        idx_s.data_ptr(), device.index,
+        lb.data_ptr(), qperm.data_ptr(), Q, qb, rb, nR, float(cutoff) ** 2,
+        keys.data_ptr(), None if scanned is None else scanned.data_ptr(),
+        d2.data_ptr(), idx.data_ptr(), device.index,
         torch.cuda.current_stream(device).cuda_stream)
     _check_launch('nn_indices_pruned', err)
     nn_indices_pruned.launches += 1
-    d2 = torch.empty_like(d2_s)
-    idx = torch.empty_like(idx_s)
-    d2[qperm] = d2_s
-    idx[qperm] = idx_s
     return d2, idx
 
 
@@ -295,16 +332,19 @@ nn_indices_pruned.launches = 0
 
 def pruned_visits(queries: torch.Tensor, pref: PrunedRef,
                   cutoff: float = 3.0):
-    """K2's walk replayed in plain torch: per query tile, the number of
-    reference tiles the kernel scans ([nQ] int64), and the best d2 the
-    walk reaches ([Q] f32, original query order).
+    """The Pallas kernel's walk replayed in plain torch: per query tile,
+    the number of reference tiles that ``_nn_pruned_kernel`` scans ([nQ]
+    int64), and the best d2 the walk reaches ([Q] f32, original query
+    order).
 
-    The replay follows ``nn_pruned_kernel`` step by step: it stops at the
-    first bound >= cutoff^2 and skips a tile whose bound is >= the
-    largest running best of its query tile.  The bests are the same
-    coordinate-wise f32 distances as the kernel's, so the replay takes
-    the kernel's decisions.  A measurement aid: no path of the port calls
-    it."""
+    The replay follows the Pallas grid step by step (pallas_nn.py:273-
+    274): each query tile walks its row of the tables in order, stops at
+    the first bound >= cutoff^2 and skips a tile whose bound is >= the
+    largest running best of the query tile.  This fixed walk is the work
+    that K2's bound counts.  K2 on the card scans other tiles, in parallel
+    and pruned by the bests merged so far (``_launch_pruned``'s
+    ``scanned``), so its share varies from call to call.  A measurement
+    aid: no path of the port calls it."""
     qperm, q_sorted, order, lb, qb, rb = pruned_tables(queries, pref,
                                                        cutoff)
     nQ, nR = order.shape

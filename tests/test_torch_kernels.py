@@ -8,8 +8,11 @@ GPU machine (which has no jax), with the repo's conftest left out:
 
 There the ``gpu`` tests build csrc/nn.cu and csrc/nn_variants.cu and
 hold K1, K2 and the shootout's kernels (E1-E6) to their plain versions;
-here they skip.  Tolerances: K1, K2, E2/E3 — indices equal except where
-float64 shows an exact f32 tie, d2 within 1e-6 relative; the matmul-form
+here they skip.  Tolerances: K1 — d2 bit-equal and indices equal to its
+plain version (ties go to the lowest index); K2 — within the cutoff d2
+bit-equal and an index at that exact d2, beyond it d2 > cutoff^2; E2/E3
+— indices equal except where float64 shows an exact f32 tie, d2 within
+1e-6 relative; the matmul-form
 kernels (E1, E4, E5, E6) — the float64 checks of ``ops/nn_variants.py``:
 each d2 within ``nn_variants.score_tolerance`` (4 f32 units of roundoff of
 the query's term sum against its winner) of the float64 d2 of a row it
@@ -109,7 +112,7 @@ def test_wrappers_refuse_other_devices_and_dtypes():
 @pytest.mark.gpu
 @pytest.mark.parametrize('cutoff', [1.0, 3.0])
 def test_replayed_k2_walk_skips_tiles_and_reaches_the_exact_nn(cutoff):
-    """The plain replay of K2's walk (the work the card's bound counts)
+    """The plain replay of the Pallas walk (the work K2's bound counts)
     scans fewer tiles than there are, and still reaches the exact d2 of
     every query with a point within the cutoff."""
     q, ref, _ = sh.make_scene(2048, 32768, seed=4)
@@ -127,6 +130,7 @@ def test_replayed_k2_walk_skips_tiles_and_reaches_the_exact_nn(cutoff):
     assert bool(torch.all(d2[~inside] > cutoff ** 2))
 
 
+@pytest.mark.gpu
 def test_kernels_match_plain_on_card():
     """K1 and K2 built from csrc/nn.cu against their plain versions, each
     launch counted once."""
@@ -151,6 +155,103 @@ def test_kernels_match_plain_on_card():
                    d2.cpu().numpy()[inside], idx.cpu().numpy()[inside],
                    pd2.cpu().numpy()[inside], pidx.cpu().numpy()[inside])
     assert np.all(d2.cpu().numpy()[~inside] > 1.0)
+
+
+def _pair_d2(q, ref, idx):
+    """f32 d2 of each query to ref[idx], rounded as neighbors.sqdist."""
+    d = q - ref[idx.long()]
+    return (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+
+
+def _k2_holds(q, pref, cutoff, d2, idx):
+    """K2's contract against its plain version: within the cutoff d2
+    bit-equal and idx a point at that exact d2; beyond it d2 > cutoff^2."""
+    pd2 = nk.nn_indices_pruned_plain(q, pref, cutoff)[0]
+    inside = pd2 <= cutoff ** 2
+    assert torch.equal(d2[inside], pd2[inside])
+    assert torch.equal(_pair_d2(q, pref.points, idx)[inside], d2[inside])
+    assert bool(torch.all(d2[~inside] > cutoff ** 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_ref', [7, 3001, 81920])
+@pytest.mark.parametrize('n_q', [1, 250, 8192])
+def test_kernels_exact_at_awkward_shapes_on_card(n_q, n_ref):
+    """K1 equals its plain version exactly (bit-equal d2, equal idx) and
+    K2 keeps its contract at one query, a ragged query tile, the main
+    path's 8192 queries, and references shorter than a tile, of prime
+    length, and of the main path's 81920 points."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref = scene(8, n_ref, n_q)
+    qc, rc = torch.tensor(q, device='cuda'), torch.tensor(ref, device='cuda')
+    d2, idx = nk.nn_indices(qc, rc)
+    pd2, pidx = nk.nn_indices_plain(qc, rc)
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    pref = nk.build_pruned_ref(rc)
+    for cutoff in (1.0, 3.0):
+        _k2_holds(qc, pref, cutoff, *nk.nn_indices_pruned(qc, pref, cutoff))
+
+
+@pytest.mark.gpu
+def test_k1_copies_across_reference_tiles_go_to_the_lowest_index_on_card():
+    """Exact copies of 64 points in another 4096-point reference tile (and
+    another work item): K1 returns the first copy, as the plain version,
+    whichever item merges first."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref = scene(9, 81920, 8192)
+    ref[50000:50064] = ref[100:164]
+    q[:64] = ref[100:164] + 0.01
+    qc, rc = torch.tensor(q, device='cuda'), torch.tensor(ref, device='cuda')
+    for _ in range(3):
+        d2, idx = nk.nn_indices(qc, rc)
+        pd2, pidx = nk.nn_indices_plain(qc, rc)
+        assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+        assert torch.equal(idx[:64].cpu(),
+                           torch.arange(100, 164, dtype=torch.int32))
+
+
+@pytest.mark.gpu
+def test_kernels_never_pick_a_parked_reference_on_card():
+    """A reference with every third row at the SENTINEL: K1 equals its
+    plain version and no parked row wins in K1 or K2."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref = scene(10, 3001, 1000)
+    ref[::3] = 1.0e6
+    qc, rc = torch.tensor(q, device='cuda'), torch.tensor(ref, device='cuda')
+    d2, idx = nk.nn_indices(qc, rc)
+    pd2, pidx = nk.nn_indices_plain(qc, rc)
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    assert not bool(torch.any(idx % 3 == 0))
+    pref = nk.build_pruned_ref(rc)
+    d2, idx = nk.nn_indices_pruned(qc, pref, 3.0)
+    _k2_holds(qc, pref, 3.0, d2, idx)
+    inside = d2 <= 9.0
+    parked = pref.perm.long()[idx.long()] % 3 == 0
+    assert not bool(torch.any(parked & inside))
+
+
+@pytest.mark.gpu
+def test_k2_counts_the_points_it_scans_on_card():
+    """``_launch_pruned`` with ``scanned``: each query tile scans whole
+    tiles, at least one within the cutoff, and the launch gives the same
+    results as the wrapper."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, _ = sh.make_scene(8192, 81920, seed=11)
+    qc, rc = torch.tensor(q, device='cuda'), torch.tensor(ref, device='cuda')
+    pref = nk.build_pruned_ref(rc)
+    tables = nk.pruned_tables(qc, pref, 3.0)
+    qb, rb = tables[4], tables[5]
+    scanned = torch.zeros(8192 // qb, dtype=torch.int32, device='cuda')
+    before = nk.nn_indices_pruned.launches
+    d2, idx = nk._launch_pruned(tables, pref, 3.0, scanned=scanned)
+    assert nk.nn_indices_pruned.launches == before + 1
+    _k2_holds(qc, pref, 3.0, d2, idx)
+    assert bool(torch.all(scanned % rb == 0))
+    assert 1 <= int(scanned.min()) and int(scanned.max()) <= 81920
 
 
 def _card_scenes():

@@ -2,11 +2,14 @@
 mode), on the test_pallas_nn.py inputs.
 
 On the CPU the wrappers run their plain torch versions.  What the CUDA
-kernels add is the visit rule of K2 over the pruning tables; that rule
-is checked here through a torch model of the kernel's loop, which must
-reproduce the Pallas kernel's answers (inside the cutoff and out).
-The kernels themselves are compared with their plain versions on the
-card in test_torch_kernels.py.
+kernels add is their schedule: one work item per (query tile, reference
+tile), merged exactly through packed (d2, idx) keys, and K2's skip rule
+against the bests merged so far.  That schedule is checked here through
+a torch model (``schedule_model``), which must reproduce the Pallas
+kernels' answers in any item order.  ``kernel_model`` models the Pallas
+walk itself, whose scanned tiles set K2's bound.  The kernels are
+compared with their plain versions on the card in
+test_torch_kernels.py.
 
 Tolerances: indices equal, except where float64 shows an exact f32 tie;
 d2 within 1e-6 relative (both compute (q-r)^2 coordinate-wise in f32).
@@ -120,10 +123,12 @@ def jax_tables(q, jpref, cutoff):
 
 
 def kernel_model(q_sorted, ref_sorted, order, lb, qb, rb, cutoff2):
-    """Torch model of csrc/nn.cu's nn_pruned_kernel: per query tile, walk
-    the tiles of its row; stop at the first bound >= cutoff2, skip a tile
-    whose bound is >= the tile's largest running best; strict '<' keeps
-    the first (lowest index, earliest visited) minimum."""
+    """Torch model of the Pallas ``_nn_pruned_kernel`` walk, the fixed
+    walk that K2's bound counts (``nn_kernels.pruned_visits``): per query
+    tile, walk the tiles of its row in order; stop at the first bound >=
+    cutoff2, skip a tile whose bound is >= the tile's largest running
+    best; strict '<' keeps the first (lowest index, earliest visited)
+    minimum."""
     Q = q_sorted.shape[0]
     d2 = torch.full((Q,), float('inf'))
     idx = torch.zeros(Q, dtype=torch.int32)
@@ -203,3 +208,167 @@ def test_nn_indices_pruned_plain_matches_pallas(rng, scene, rb, cutoff):
     # Beyond the cutoff: plain says inf, the kernel only > cutoff^2.
     assert np.all(np.isinf(td2[~inside]))
     assert np.all(jd2[~inside] > cutoff ** 2)
+
+
+def pack_keys(d2, idx):
+    """csrc/nn.cu's merge key: (f32 bits of d2) << 32 | idx."""
+    return (d2.view(torch.int32).to(torch.int64) << 32) | idx.to(torch.int64)
+
+
+def unpack_keys(keys):
+    return ((keys >> 32).to(torch.int32).view(torch.float32),
+            (keys & 0xFFFFFFFF).to(torch.int32))
+
+
+def schedule_model(q, ref, qt, rt, tables=None, cutoff2=None, sequence=None,
+                   lag=0):
+    """Torch model of csrc/nn.cu's nn_items_kernel.
+
+    Items (query tile i of ``qt`` queries, rank j) are numbered rank-major,
+    item = j * nQt + i, and run in ``sequence`` (default: that order).
+    K1 (``tables`` None): item (i, j) scans reference rows [j*rt,
+    (j+1)*rt), the last tile ragged.  K2 (``tables`` = (order, lb) of
+    ``pruned_tables``): item (i, j) skips when lb[i, j] >= cutoff2 or when
+    lb[i, j] >= the largest merged d2 over the tile's queries, read as the
+    keys stood ``lag`` items earlier (items still in flight on the card
+    have not merged yet), and otherwise scans tile order[i, j].  Each item
+    lowers its queries' keys (d2 bits << 32 | idx) with a min, as the
+    kernel's atomicMin; the first index of a tile's minimum is what the
+    kernel's strict '<' keeps within its spans.  Returns (d2, idx, number
+    of items scanned)."""
+    Q, R = q.shape[0], ref.shape[0]
+    n_qt = -(-Q // qt)
+    n_rank = -(-R // rt) if tables is None else tables[0].shape[1]
+    keys = torch.full((Q,), nk._INIT_KEY, dtype=torch.int64)
+    seen = [keys.clone()]
+    scanned = 0
+    for item in (range(n_qt * n_rank) if sequence is None else sequence):
+        i, j = item % n_qt, item // n_qt
+        rows = slice(i * qt, min((i + 1) * qt, Q))
+        if tables is None:
+            first, n = j * rt, min(rt, R - j * rt)
+        else:
+            order, lb = tables
+            bound = float(lb[i, j])
+            merged = unpack_keys(seen[max(0, len(seen) - 1 - lag)][rows])[0]
+            first, n = int(order[i, j]) * rt, rt
+            if not (bound < cutoff2 and bound < float(merged.max())):
+                n = 0
+        if n:
+            m, a = torch.min(sqdist(q[rows], ref[first:first + n]), dim=1)
+            keys[rows] = torch.minimum(
+                keys[rows], pack_keys(m, a.to(torch.int32) + first))
+            scanned += 1
+        seen.append(keys.clone())
+    return (*unpack_keys(keys), scanned)
+
+
+def copies_scene(rng):
+    """Exact copies of 32 reference points 2000 rows later (another
+    reference tile at 512-point tiles), queried 1 cm away: the nearest
+    point is tied between the two copies."""
+    q, ref = random_scene(rng, 3001, 250)
+    ref[2000:2032] = ref[10:42]
+    q[:32] = ref[10:42] + 0.01
+    return q, ref
+
+
+def ball_scene(rng):
+    """256 queries in a 0.3 m ball inside a 4 m cube of reference points:
+    many reference tiles lie within a 3 m cutoff, but beyond the queries'
+    nearest points, so only the merged bests can skip them."""
+    ref = rng.uniform(0.0, 4.0, size=(4096, 3)).astype(np.float32)
+    d = rng.normal(size=(256, 3))
+    d *= 0.3 * rng.uniform(size=(256, 1)) / np.linalg.norm(d, axis=1,
+                                                           keepdims=True)
+    return (2.0 + d).astype(np.float32), ref
+
+
+SCENES = {'random': lambda rng: random_scene(rng, 4096, 512),
+          'clustered': clustered_scene,
+          'parked': parked_scene,
+          'copies': copies_scene,
+          'ball': ball_scene}
+
+
+def item_sequences(n_items, seed=0):
+    """Rank-major, reversed, and a seeded shuffle of the items."""
+    shuffled = np.random.default_rng(seed).permutation(n_items).tolist()
+    return {'rank-major': None, 'reversed': list(range(n_items))[::-1],
+            'shuffled': shuffled}
+
+
+@pytest.mark.parametrize('rt', [nk._K1_RT, 512])
+@pytest.mark.parametrize('scene', sorted(SCENES))
+def test_k1_schedule_model_matches_pallas_in_any_item_order(rng, scene, rt):
+    """K1's items merged through packed keys give the Pallas kernel's
+    answer, and the plain version's bit for bit, whatever order the items
+    run in; exact copies in different reference tiles go to the lowest
+    index."""
+    q, ref = SCENES[scene](rng)
+    jd2, jidx = pallas_nn.nn_indices(jnp.asarray(q), jnp.asarray(ref),
+                                     interpret=True)
+    tq, tref = torch.tensor(q), torch.tensor(ref)
+    pd2, pidx = nk.nn_indices_plain(tq, tref)
+    n_items = -(-q.shape[0] // nk._K1_QT) * -(-ref.shape[0] // rt)
+    for sequence in item_sequences(n_items).values():
+        d2, idx, scanned = schedule_model(tq, tref, nk._K1_QT, rt,
+                                          sequence=sequence)
+        assert scanned == n_items
+        assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+        assert_same_nn(q, ref, d2.numpy(), idx.numpy(), np.asarray(jd2),
+                       np.asarray(jidx))
+        if scene == 'copies':
+            want = np.arange(10, 42)
+            np.testing.assert_array_equal(idx.numpy()[:32], want)
+            np.testing.assert_array_equal(np.asarray(jidx)[:32], want)
+
+
+@pytest.mark.parametrize('scene,rb,cutoff', [('random', None, 1.0),
+                                             ('random', 512, 1.0),
+                                             ('clustered', 256, 3.0),
+                                             ('parked', None, 3.0),
+                                             ('copies', 256, 1.0),
+                                             ('ball', 128, 3.0)])
+def test_k2_schedule_model_matches_pallas_in_any_item_order(rng, scene, rb,
+                                                           cutoff):
+    """K2's items, skipped against the merged bests (current, or stale by
+    any number of items in flight), give the Pallas kernel's d2 for every
+    query within the cutoff, bit-equal to the plain version, with an index
+    at that exact d2; beyond the cutoff they report d2 > cutoff^2."""
+    q, ref = SCENES[scene](rng)
+    jpref = pallas_nn.build_pruned_ref(jnp.asarray(ref), rb=rb)
+    tpref = nk.build_pruned_ref(torch.tensor(ref), rb=rb)
+    jd2, jidx = pallas_nn.nn_indices_pruned(jnp.asarray(q), jpref,
+                                            cutoff=cutoff, interpret=True)
+    jd2, jidx = np.asarray(jd2), np.asarray(jidx)
+    qperm, q_sorted, order, lb, qb, rb_ = nk.pruned_tables(
+        torch.tensor(q), tpref, cutoff)
+    pd2 = nk.nn_indices_pruned_plain(torch.tensor(q), tpref, cutoff)[0]
+    inside = (pd2 <= cutoff ** 2).numpy()
+    assert inside.sum() > 50
+    n_items = order.numel()
+    runs = [(s, 0) for s in item_sequences(n_items).values()]
+    runs.append((None, n_items))            # every item in flight at once
+    scanned = {}
+    for sequence, lag in runs:
+        d2_s, idx_s, scanned[sequence is None, lag] = schedule_model(q_sorted, tpref.points, qb, rb_,
+                                     tables=(order, lb), cutoff2=cutoff ** 2,
+                                     sequence=sequence, lag=lag)
+        d2 = torch.empty_like(d2_s)
+        idx = torch.empty_like(idx_s)
+        d2[qperm], idx[qperm] = d2_s, idx_s
+        assert torch.equal(d2[inside], pd2[inside])
+        hit = sqdist(torch.tensor(q), tpref.points)[
+            torch.arange(q.shape[0]), idx.long()]
+        assert torch.equal(hit[inside], d2[inside])
+        assert bool(torch.all(d2[~inside] > cutoff ** 2))
+        assert_same_nn(q[inside], tpref.points.numpy(), d2.numpy()[inside],
+                       idx.numpy()[inside], jd2[inside], jidx[inside])
+        assert np.all(jd2[~inside] > cutoff ** 2)
+    # Bests merged earlier only prune more: in rank-major order with
+    # nothing in flight, no more items scan than with every item in
+    # flight (which skips by the cutoff alone), and in the ball, fewer.
+    assert scanned[True, 0] <= scanned[True, n_items]
+    if scene == 'ball':
+        assert scanned[True, 0] < scanned[True, n_items]
