@@ -47,11 +47,36 @@ result line):
    planted a tenth too large must fail them); then the shootout itself
    (``experiments/nn_shootout.run``), timed by CUDA events beside the
    library calls, where each new kernel must have launched.
+8. The production path (slice 2: projective range-image ICP, image-PCA
+   normals, the dense window solve, packed uint16 ingest) through
+   ``OnlineRunner(production_config(...), device='cuda')``; it has no
+   hand-written kernel (the JAX package computes it outside Pallas).
+   (a) Accuracy at 16k density: 64 beam scans of 64 x 256 (2 laps of a
+   20 m circle, seed 11 as bench.py) with closures (i - 32, i) every 10
+   scans of lap 2, in ``production_config(16384, 16384, 512, 256)``, fed
+   packed words; the same frames through the slice-1 exact path (K2,
+   kNN normals, full-graph PCG) with the production noise models as the
+   witness, as test_parity's oracle.  Production's mean error to ground
+   truth must be at most max(2.5 x the witness's, 5 cm) and its poses
+   within 10 cm and 1 deg of the witness (tests/test_parity.py's rules);
+   xyz ingest within 3 cm a pose of packed ingest; process_scans in
+   chunks of 8 within 1 cm and 0.1 deg of per-scan calls (not bit-equal
+   on the card: the solver's float ``index_add_`` is atomic there, and
+   two per-scan runs differ as much).  K1 and K2 must not launch in the
+   production runs.
+   (b) Speed at KITTI density: the first 53 scans of bench.py's 116-scan
+   64 x 2048 stream (131072 beams a scan, seed 12) in
+   ``production_config(131072, 32768, 1024, 1024)``, packed: scans/s over
+   40 scans after 8 warm-up scans (host clock, ended by a synchronize),
+   ``torch.profiler`` over 4 more (launches a scan, busy share, top
+   device ops), and each stage alone on the state left behind (upload,
+   decode and pack, filters and normals, range-image build, ICP, window
+   solve; synchronized ms a call).  ATE max < 0.35 m and final < 0.15 m.
 
-The kernel counters are reset right before phase 5 (K2), phase 6 (K1)
-and the shootout run of phase 7, the main-path runs, and read right
-after; launches made to compare a kernel with its plain version are not
-counted.  Each kernel's bound is the larger of its bytes (inputs read
+The kernel counters are reset right before phase 5 (K2), phase 6 (K1),
+the shootout run of phase 7 and the production runs of phase 8, the
+main-path runs, and read right after; launches made to compare a kernel
+with its plain version are not counted.  Each kernel's bound is the larger of its bytes (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the
 card's rate for their type: f32 lane instructions over SMs x 128 lanes x
 the card's max SM clock (67 TFLOP/s counts an FMA as 2), bf16 tensor-core
@@ -65,6 +90,7 @@ result record.
 """
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -93,6 +119,12 @@ INSTR_EXACT = 11        # 3 sub, 3 mul, 2 add, compare, 2 selects (K1, K2)
 INSTR_MM = 6            # 3 FMA, compare, 2 selects (E5)
 INSTR_ARGMIN = 3        # compare, 2 selects (E1 bf16, product on tensor cores)
 INSTR_PAYLOAD = 5       # 3 FMA, compare, 1 select (E4, E6)
+# Phase 8, the production path.  (a) 64 scans over 2 laps (3.9 m a step);
+# (b) the first 53 scans of bench.py's 116-scan KITTI-density stream:
+# 8 warm-up, 40 timed, 4 profiled and one for the stage split.
+PROD_SCANS = 64
+CHUNK_ATOL_M, CHUNK_ATOL_DEG = 0.01, 0.1
+KITTI_STREAM, KITTI_WARM, KITTI_TIMED, KITTI_PROFILE = 116, 8, 40, 4
 
 
 def log(msg):
@@ -185,9 +217,12 @@ def device_launches(prof):
     return sum(e.count for e in device_rows(prof))
 
 
-def profile_summary(prof, wall_s):
-    """Kernel launches, device time, busy share and the NN kernels' share
-    of the device time in a profiled window of ``wall_s`` seconds."""
+def profile_summary(prof, wall_s, scans, focus=(), top=5):
+    """Kernel launches, device time and the device's busy share in a
+    profiled window of ``wall_s`` seconds over the scans ``scans`` (a
+    range), the share of device time of each ``focus`` entry (a label and
+    the kernel-name substrings it sums) and the ``top`` device ops.
+    Returns the numbers, or None when the profiler saw no device time."""
     rows = device_rows(prof)
     t = {e.key: getattr(e, 'self_device_time_total',
                         getattr(e, 'self_cuda_time_total', 0)) / 1e3
@@ -195,20 +230,265 @@ def profile_summary(prof, wall_s):
     total = sum(t.values())
     if total <= 0:
         log('  profiler: no device time recorded (not measured)')
-        return
+        return None
     launches = device_launches(prof)
-    k2 = sum(v for k, v in t.items() if 'nn_items_kernel<true' in k)
-    unpack = sum(v for k, v in t.items() if 'nn_unpack_kernel' in k)
-    n = len(PROFILE_SCANS)
-    log(f'  profiler over scans {PROFILE_SCANS.start}-'
-        f'{PROFILE_SCANS.stop - 1}: {launches} device launches '
-        f'({launches / n:.0f} a scan), {total:.3f} ms of device time in '
-        f'{1000 * wall_s:.3f} ms of wall time (profiler on): busy '
-        f'{100 * total / (1000 * wall_s):.2f}%; K2 items '
-        f'{100 * k2 / total:.2f}% of device time ({k2 / n:.3f} ms a scan), '
-        f'with its unpack {100 * (k2 + unpack) / total:.2f}%')
-    for key, v in sorted(t.items(), key=lambda kv: -kv[1])[:5]:
-        log(f'    {v:9.3f} ms  {key[:90]}')
+    n = len(scans)
+    busy = 100 * total / (1000 * wall_s)
+    log(f'  profiler over scans {scans.start}-{scans.stop - 1}: {launches} '
+        f'device launches ({launches / n:.0f} a scan), {total:.3f} ms of '
+        f'device time in {1000 * wall_s:.3f} ms of wall time (profiler '
+        f'on): busy {busy:.2f}%')
+    for label, keys in focus:
+        v = sum(x for k, x in t.items() if any(s in k for s in keys))
+        log(f'  {label}: {100 * v / total:.2f}% of device time '
+            f'({v / n:.3f} ms a scan)')
+    for key, v in sorted(t.items(), key=lambda kv: -kv[1])[:top]:
+        log(f'    {v:9.3f} ms  {100 * v / total:5.2f}%  {key[:90]}')
+    return dict(launches_per_scan=launches / n, busy_pct=busy,
+                device_ms_per_scan=total / n)
+
+
+def sync_ms(fn, reps):
+    """Mean wall milliseconds of one call, synchronized before and after:
+    the host's issue and the card's work together."""
+    fn()
+    torch.cuda.synchronize()
+    spent = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+    return 1e3 * float(np.mean(spent))
+
+
+def pose_gaps(a, b):
+    """(max translation gap m, max rotation gap deg) between two [n,7]
+    trajectories, in float64 (tests/test_torch_production.py)."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    dt = np.linalg.norm(a[:, 4:] - b[:, 4:], axis=1).max()
+    wa, va, wb, vb = a[:, 0], a[:, 1:4], b[:, 0], b[:, 1:4]
+    w = wa * wb + np.sum(va * vb, axis=1)
+    v = wa[:, None] * vb - wb[:, None] * va - np.cross(va, vb)
+    dr = np.degrees(2 * np.arctan2(np.linalg.norm(v, axis=1), np.abs(w)))
+    return float(dt), float(dr.max())
+
+
+def run_stream(cfg, frames, closures, packed_az=None, chunk=None,
+               witness=False):
+    """One fresh runner on the card over ``frames`` with the loop closures
+    ``closures`` ({scan index: (a, b)}); xyz points, or the uint16 range
+    words with ``packed_az`` azimuth columns; per scan, or with
+    ``chunk``, through process_scans in runs that end at the closures.
+    Returns the trajectory [n,7] in frame order and the wall seconds."""
+    from laser_slam_tpu_torch.ops import se3
+    from laser_slam_tpu_torch.pipeline import online, velodyne_sim as vs
+    runner = online.OnlineRunner(cfg, pose_capacity=128, factor_capacity=512,
+                                 device='cuda')
+    if packed_az is not None:
+        runner.enable_packed_ingest(vs.HDL64_ELEV_DEG, packed_az)
+
+    def item(f):
+        return (f.time_ns, f.range_words if packed_az is not None
+                else f.points, f.odom_pose7)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = 0
+    for end in sorted(closures) + [len(frames) - 1]:
+        if chunk is None:
+            for f in frames[start:end + 1]:
+                runner.process_scan(*item(f))
+        else:
+            runner.process_scans([item(f) for f in frames[start:end + 1]],
+                                 chunk_size=chunk)
+        if end in closures:
+            a, b = closures[end]
+            runner.add_loop_closure(a, b, measured_closure(
+                frames, runner.trajectory(), a, b, se3, torch))
+        start = end + 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    traj = runner.trajectory()
+    est = np.stack([traj[f.time_ns] for f in frames])
+    if not np.all(np.isfinite(est)):
+        raise AssertionError('non-finite trajectory')
+    return est, wall
+
+
+def production_phase(nk):
+    """Phase 8: the production online path (slice 2) through OnlineRunner:
+    (a) accuracy at 16k density against the exact slice-1 path and
+    ground truth, (b) speed and the stage split at KITTI density."""
+    from laser_slam_tpu_torch.config import production_config, slice1_config
+    from laser_slam_tpu_torch.ops import icp as icp_mod, range_image as ri
+    from laser_slam_tpu_torch.ops import se3, spherical
+    from laser_slam_tpu_torch.pipeline import online, velodyne_sim as vs
+    dev = torch.device('cuda')
+    out = {}
+
+    # (a) Accuracy at 16k density.
+    t0 = time.perf_counter()
+    frames = list(vs.BeamStream(
+        n_scans=PROD_SCANS, n_beams=64, n_azimuth=256, trajectory='circle',
+        radius_m=20.0, world_size_m=80.0, range_noise_m=0.01,
+        odom_noise=0.005, seed=11, laps=2, packed=True))
+    half = PROD_SCANS // 2
+    closures = {i: (i - half, i) for i in range(half + 10, PROD_SCANS, 10)}
+    gt = np.stack([f.gt_pose7 for f in frames])
+    log(f'production (a): {PROD_SCANS} beam scans of 64 x 256 (2 laps of a '
+        f'20 m circle, seed 11) made in {time.perf_counter() - t0:.1f} s, '
+        f'closures at {sorted(closures)}')
+    cfg16 = production_config(16384, 16384, 512, 256)
+    nk.nn_indices.launches = 0
+    nk.nn_indices_pruned.launches = 0
+    packed, wall = run_stream(cfg16, frames, closures, packed_az=256)
+    nn_in_production = (nk.nn_indices.launches
+                        + nk.nn_indices_pruned.launches)
+    xyz, wall_xyz = run_stream(cfg16, frames, closures)
+    chunked, wall_chunk = run_stream(cfg16, frames, closures, packed_az=256,
+                                     chunk=8)
+    # The witness weighs its factors with the production noise models, as
+    # test_parity's oracle does: the slice-1 defaults trust odometry as
+    # much as ICP, which this stream's odometry noise does not bear.
+    exact = slice1_config(scan_capacity=16384, reading_capacity=READING)
+    exact = dataclasses.replace(exact, laser_track=dataclasses.replace(
+        exact.laser_track,
+        odometry_noise_model=cfg16.laser_track.odometry_noise_model,
+        icp_noise_model=cfg16.laser_track.icp_noise_model))
+    nk.nn_indices_pruned.launches = 0
+    witness, wall_w = run_stream(exact, frames, closures)
+    k2_witness = nk.nn_indices_pruned.launches
+    ate = {k: np.linalg.norm(v[:, 4:] - gt[:, 4:], axis=1)
+           for k, v in (('packed', packed), ('xyz', xyz),
+                        ('witness', witness))}
+    for k, v in ate.items():
+        log(f'  ATE {k}: mean {v.mean():.6f} m, max {v.max():.6f} m, final '
+            f'{v[-1]:.6f} m')
+    log(f'  wall: packed {wall:.2f} s, xyz {wall_xyz:.2f} s, packed in '
+        f'chunks of 8 {wall_chunk:.2f} s, exact witness {wall_w:.2f} s '
+        f'(K2 launches {k2_witness}); K1/K2 launches in the production '
+        f'run {nn_in_production}')
+    dt_w, dr_w = pose_gaps(packed, witness)
+    dt_x = float(np.linalg.norm(packed[:, 4:] - xyz[:, 4:], axis=1).max())
+    dt_c, dr_c = pose_gaps(packed, chunked)
+    log(f'  production vs the exact witness: {dt_w:.6f} m, {dr_w:.4f} deg '
+        '(limits 0.10 m, 1 deg)')
+    log(f'  packed vs xyz ingest: {dt_x:.6f} m a pose at most (limit 0.03 m)')
+    log(f'  process_scans(chunk_size=8) vs per scan: {dt_c:.3e} m, '
+        f'{dr_c:.3e} deg (bit-equal: {bool(np.array_equal(packed, chunked))}'
+        f'; limits {CHUNK_ATOL_M} m, {CHUNK_ATOL_DEG} deg)')
+    limit = max(2.5 * ate['witness'].mean(), 0.05)
+    if not ate['packed'].mean() <= limit:
+        raise AssertionError(f'production (a): mean ATE {ate["packed"].mean()}'
+                             f' above {limit}')
+    if not (dt_w <= 0.10 and dr_w <= 1.0):
+        raise AssertionError('production (a): too far from the witness')
+    if not dt_x <= 0.03:
+        raise AssertionError('production (a): packed and xyz ingest differ')
+    if not (dt_c <= CHUNK_ATOL_M and dr_c <= CHUNK_ATOL_DEG):
+        raise AssertionError('production (a): chunked ingest differs')
+    if nn_in_production or not k2_witness:
+        raise AssertionError('production (a): the matchers ran where they '
+                             'should not, or not where they should')
+    out.update(ate_16k_mean_m=float(ate['packed'].mean()),
+               ate_16k_witness_mean_m=float(ate['witness'].mean()),
+               witness_gap_m=dt_w, witness_gap_deg=dr_w)
+
+    # (b) Speed at KITTI density.
+    n_frames = KITTI_WARM + KITTI_TIMED + KITTI_PROFILE + 1
+    t0 = time.perf_counter()
+    frames = list(itertools.islice(vs.BeamStream(
+        n_scans=KITTI_STREAM, n_beams=64, n_azimuth=2048,
+        trajectory='circle', radius_m=20.0, world_size_m=80.0,
+        range_noise_m=0.01, odom_noise=0.005, seed=12, packed=True),
+        n_frames))
+    log(f'production (b): the first {n_frames} of {KITTI_STREAM} beam scans '
+        f'of 64 x 2048 = 131072 beams (a 20 m circle, seed 12) made in '
+        f'{time.perf_counter() - t0:.1f} s')
+    cfg = production_config(131072, 32768, 1024, 1024)
+    runner = online.OnlineRunner(cfg, pose_capacity=128, factor_capacity=512,
+                                 device='cuda')
+    runner.enable_packed_ingest(vs.HDL64_ELEV_DEG, 2048)
+    feed = frames[:-1]
+    for f in feed[:KITTI_WARM]:
+        runner.process_scan(f.time_ns, f.range_words, f.odom_pose7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in feed[KITTI_WARM:KITTI_WARM + KITTI_TIMED]:
+        runner.process_scan(f.time_ns, f.range_words, f.odom_pose7)
+    torch.cuda.synchronize()
+    rate = KITTI_TIMED / (time.perf_counter() - t0)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        for f in feed[KITTI_WARM + KITTI_TIMED:]:
+            runner.process_scan(f.time_ns, f.range_words, f.odom_pose7)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    traj = runner.trajectory()
+    est = np.stack([traj[f.time_ns] for f in feed])
+    gt = np.stack([f.gt_pose7 for f in feed])
+    if not np.all(np.isfinite(est)):
+        raise AssertionError('production (b): non-finite trajectory')
+    ate = np.linalg.norm(est[:, 4:] - gt[:, 4:], axis=1)
+    log(f'  scans/s over {KITTI_TIMED} scans after {KITTI_WARM} warm-up '
+        f'scans: {rate:.4f} ({1000 / rate:.3f} ms a scan)')
+    log(f'  ATE vs ground truth over {len(feed)} scans: mean '
+        f'{ate.mean():.6f} m, max {ate.max():.6f} m, final {ate[-1]:.6f} m')
+    scans = range(KITTI_WARM + KITTI_TIMED, len(feed))
+    prof_out = profile_summary(prof, prof_wall, scans, top=12)
+
+    # The stage split: each stage alone on the state the run left, fed
+    # the next scan (synchronized wall ms of one call, mean of 5).
+    state = runner.state
+    nxt = frames[-1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    table = runner._beam_table
+    stage = {}
+    stage['upload'] = sync_ms(
+        lambda: spherical.words_to_device(nxt.range_words, dev), 5)
+    words = spherical.words_to_device(nxt.range_words, dev)
+    stage['decode_and_pack'] = sync_ms(
+        lambda: spherical.decode_and_pack(words, table), 5)
+    points, n_valid = spherical.decode_and_pack(words, table)
+    stage['filters_and_normals'] = sync_ms(
+        lambda: online.ingest(points, n_valid, cfg, gen), 5)
+    scan, _ = online.ingest(points, n_valid, cfg, gen)
+    icp_cfg = cfg.laser_track.icp
+    reference, ref_normals = online.submap(state)
+    reading = online.reading_of(scan, cfg, gen)
+    last = int(state.track_last_key[0])
+    guess = se3.compose(se3.inverse(state.pose_meas[last]), se3.normalize(
+        torch.tensor(nxt.odom_pose7, device=dev)))
+    stage['range_image_build'] = sync_ms(lambda: ri.build_range_image(
+        reference, ref_normals, rows=icp_cfg.range_image_rows,
+        cols=icp_cfg.range_image_cols, elev_min=icp_cfg.range_image_elev_min,
+        elev_max=icp_cfg.range_image_elev_max,
+        window=icp_cfg.range_image_window), 5)
+    stage['icp'] = sync_ms(lambda: icp_mod.icp_point_to_plane(
+        reading, reference, ref_normals, guess, icp_cfg), 5)
+    res = icp_mod.icp_point_to_plane(reading, reference, ref_normals, guess,
+                                     icp_cfg)
+    i = state.n_poses - 1
+    stage['window_solve'] = sync_ms(lambda: online._window_solve(
+        state._replace(traj_poses=state.traj_poses.clone()), i, cfg), 5)
+    log(f'  stage split (ms a call, synchronized, mean of 5; the ICP '
+        f'includes the range-image build and ran '
+        f'{int(res.iterations)} iterations): '
+        + ', '.join(f'{k} {v:.3f}' for k, v in stage.items()))
+    if not (ate.max() < 0.35 and ate[-1] < 0.15):
+        raise AssertionError(f'production (b): ATE out of bounds (max '
+                             f'{ate.max()}, final {ate[-1]})')
+    out.update(kitti_scans_per_s=rate, kitti_ate_max_m=float(ate.max()),
+               kitti_ate_final_m=float(ate[-1]),
+               stage_ms={k: round(v, 4) for k, v in stage.items()})
+    if prof_out is not None:
+        out.update(prof_out)
+    log('  production: ' + json.dumps(out))
 
 
 def main():
@@ -457,7 +737,11 @@ def main():
     log(f'  scans/s after 8 warm-up scans (the profiled ones left out): '
         f'{len(warm) / sum(warm):.4f} ({1000 * np.mean(warm):.3f} ms/scan '
         f'mean, {1000 * np.max(warm):.3f} ms max)')
-    profile_summary(prof, sum(scan_s[k] for k in PROFILE_SCANS))
+    profile_summary(prof, sum(scan_s[k] for k in PROFILE_SCANS),
+                    PROFILE_SCANS, focus=(
+                        ('K2 items', ('nn_items_kernel<true',)),
+                        ('K2 items with its unpack',
+                         ('nn_items_kernel<true', 'nn_unpack_kernel'))))
     if k2_launches <= 0:
         raise AssertionError('slice: K2 never launched')
     if not (ate.max() < 0.35 and ate[-1] < 0.15):
@@ -639,7 +923,10 @@ def main():
             f'{row["library_ms"]} ms, launches {launches[key]}')
     log(f'  E6 visited {share:.4f} of its reference tiles')
 
-    # 8. Records -------------------------------------------------------
+    # 8. The production path (slice 2) ---------------------------------
+    production_phase(nk)
+
+    # 9. Records -------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'
     record = {'kernels': [
         dict(name='K1 nn_indices', route='cuda', source=source,

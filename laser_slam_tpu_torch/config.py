@@ -12,12 +12,14 @@ allocates fixed-size device buffers and grows them by doubling.
 
 :func:`slice1_config` is the configuration the port's first slice runs
 end to end: the reference-equivalent online path with the exact-NN
-kernels as the ICP matcher.
+kernels as the ICP matcher.  :func:`production_config` is the second
+slice's: the projective matcher, image-PCA normals and the window solve.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -536,3 +538,51 @@ def slice1_config(scan_capacity: int = 16384, reading_capacity: int = 8192,
                             preconditioner='tridiagonal', matvec='chain',
                             gn_iterations=3, pcg_iterations=128,
                             pcg_tolerance=1e-10))
+
+
+# HDL-64E-class elevation span (velodyne_sim.HDL64_ELEV_DEG: +2.0 deg
+# down to -24.8 deg), widened by 0.01 rad on each side.
+HDL64_ELEV_MIN = math.radians(-24.8) - 0.01
+HDL64_ELEV_MAX = math.radians(2.0) + 0.01
+
+
+def production_config(scan_capacity: int = 131072,
+                      store_capacity: int = 32768,
+                      range_image_cols: int = 1024,
+                      normal_image_cols: int = 1024,
+                      reading_capacity: int = 8192,
+                      reading_sampling_ratio: float = 0.5,
+                      window: int = 64, coarse_capacity: int = 0,
+                      gn_steps_per_match: int = 1) -> EstimatorConfig:
+    """The production online path: the configuration ``bench.py`` runs
+    end to end on beam-model scans (its ``beam_cfg``).
+
+    Projective range-image matcher (64 rows, HDL-64 elevation span),
+    image-PCA normals over a 32-row image, an 8192-point reading sampled
+    at 0.5, and the 64-pose window solved densely (3 GN steps with a
+    1e-4 early-out).  At the defaults it is the KITTI-density cell:
+    131072-beam scans stored at 32768 points, 1024-column images;
+    ``production_config(16384, 16384, 512, 256)`` is the 16k cell.  Tests
+    pass small capacities and ``reading_sampling_ratio=1.0`` (no draw).
+    """
+    return EstimatorConfig(
+        laser_track=LaserTrackConfig(
+            nscan_in_sub_map=5,
+            odometry_noise_model=(0.02,) * 3 + (0.05,) * 3,
+            icp_noise_model=(0.005,) * 6,
+            input_filters=InputFilterConfig(scan_capacity=scan_capacity,
+                                            store_capacity=store_capacity),
+            icp=IcpConfig(matcher='projective',
+                          reading_capacity=reading_capacity,
+                          reading_sampling_ratio=reading_sampling_ratio,
+                          normal_method='image_pca',
+                          normal_image_rows=32,
+                          normal_image_cols=normal_image_cols,
+                          range_image_rows=64,
+                          range_image_cols=range_image_cols,
+                          range_image_elev_min=HDL64_ELEV_MIN,
+                          range_image_elev_max=HDL64_ELEV_MAX,
+                          coarse_capacity=coarse_capacity,
+                          gn_steps_per_match=gn_steps_per_match)),
+        solver=SolverConfig(gn_iterations=3, gn_tolerance=1e-4,
+                            pcg_iterations=32, window=window))

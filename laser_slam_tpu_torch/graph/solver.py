@@ -18,9 +18,11 @@ into one extra overflow row that is cut off; duplicate-index ``.at[].add``
 becomes ``index_add_``.  The PCG ``lax.while_loop`` runs its full
 iteration count with the state frozen once converged (no device read per
 iteration); the ``lax.cond`` between the chain and scatter matvecs reads
-one flag per linearization.  Not ported yet: the dense method, the
-Woodbury preconditioner and cache, marginal covariances and the delta
-closure solve (ROADMAP queue 1).
+one flag per linearization.  The GN early-out (``gn_tolerance``) masks
+the later steps' results instead of skipping them, so every step runs.
+The dense method factors with ``cholesky_ex`` (no error check, no device
+read).  Not ported yet: the Woodbury preconditioner and cache, marginal
+covariances and the delta closure solve (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -513,6 +515,45 @@ def _make_preconditioner(lin: _LinearizedGraph, damping, config):
 
 
 # ---------------------------------------------------------------------------
+# Dense direct method (small pose tables / window subproblems)
+# ---------------------------------------------------------------------------
+
+def _dense_factor(lin: _LinearizedGraph, damping):
+    """Dense [6N,6N] normal equations, Cholesky-factored (lower).  Same
+    semantics as :func:`_hessian_matvec`: free gating, identity rows for
+    frozen poses, damping.  ``cholesky_ex`` reports failure in ``info``
+    without a device read; a matrix that is not positive definite then
+    gives an all-NaN factor, which the caller zeroes, as with the JAX
+    package's ``cho_factor``."""
+    n = lin.free.shape[0]
+    w = lin.w_rel[:, None, None]
+    k0, k1 = lin.keys[:, 0], lin.keys[:, 1]
+    Ha = torch.einsum('fji,fjk->fik', lin.Ja, lin.Ja * w)
+    Hb = torch.einsum('fji,fjk->fik', lin.Jb, lin.Jb * w)
+    Hab = torch.einsum('fji,fjk->fik', lin.Ja, lin.Jb * w)
+    Hp = torch.einsum('pji,pjk->pik', lin.Jp,
+                      lin.Jp * lin.w_prior[:, None, None])
+    H4 = torch.zeros((n, n, 6, 6), dtype=Ha.dtype, device=Ha.device)
+    pk = lin.prior_keys
+    for (ia, ib), blocks in (((k0, k0), Ha), ((k1, k1), Hb),
+                             ((k0, k1), Hab),
+                             ((k1, k0), Hab.transpose(-1, -2)),
+                             ((pk, pk), Hp)):
+        H4.index_put_((ia, ib), blocks, accumulate=True)
+    f = lin.free
+    H4 = H4 * f[:, None, None, None] * f[None, :, None, None]
+    H = H4.permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
+    H = H + torch.diag(torch.repeat_interleave(damping + (1.0 - f), 6))
+    L, info = torch.linalg.cholesky_ex(H)
+    return torch.where(info == 0, L, torch.full_like(L, float('nan')))
+
+
+def _dense_apply(chol, b):
+    n6 = b.shape[0] * b.shape[1]
+    return torch.cholesky_solve(b.reshape(n6, 1), chol).reshape(b.shape)
+
+
+# ---------------------------------------------------------------------------
 # PCG and the Gauss-Newton loop
 # ---------------------------------------------------------------------------
 
@@ -588,10 +629,7 @@ def solve(graph: FactorGraphData, poses, pose_mask,
     """Run ``config.gn_iterations`` Gauss-Newton steps from ``poses``
     (warm-started; the incremental deployment calls this once per scan,
     mirroring IncrementalEstimator::estimate)."""
-    if config.method == 'dense':
-        raise NotImplementedError("method='dense' (and the window solve "
-                                  'that uses it) comes in slice 2')
-    if config.method != 'pcg':
+    if config.method not in ('pcg', 'dense'):
         raise ValueError(f'unknown solver method {config.method!r}')
     damping = float(config.damping)
     N = poses.shape[0]
@@ -615,23 +653,37 @@ def solve(graph: FactorGraphData, poses, pose_mask,
     # gn_tolerance compares against the RMS step per ACTIVE pose.
     n_active = torch.clamp(torch.sum(pose_mask.to(poses.dtype)), min=1.0)
 
-    # The preconditioner is built once from the initial linearization and
-    # reused across all GN steps (staleness only costs PCG iterations).
-    lin0 = _linearize(graph, poses, pose_mask, config.cauchy_k)
-    apply_M = _make_preconditioner(lin0, damping, config)
-
-    def one_step(poses):
-        lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
-        b = -_gradient(lin)
-        mv = _make_matvec(lin, damping, config)
-        x0 = apply_M(b) if config.pcg_init == 'precond' else None
-        delta, pcg_it = _pcg(lin, b, damping, config.pcg_iterations,
-                             config.pcg_tolerance, apply_M, matvec=mv, x0=x0)
+    def finish(poses, lin, delta, it):
         delta = torch.nan_to_num(delta) * lin.free[:, None]
         new_poses = se3.normalize(se3.compose(poses, se3.exp(delta)))
         new_poses = torch.where(pose_mask[:, None], new_poses, poses)
-        return new_poses, pcg_it, torch.linalg.norm(delta) / torch.sqrt(
-            n_active)
+        return new_poses, it, torch.linalg.norm(delta) / torch.sqrt(n_active)
+
+    if config.method == 'dense':
+        # The [6N,6N] normal equations are factored again at every GN
+        # step (the exact Newton direction).
+        def one_step(poses):
+            lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
+            b = -_gradient(lin)
+            delta = _dense_apply(_dense_factor(lin, damping), b)
+            return finish(poses, lin, delta, torch.ones(
+                (), dtype=torch.int32, device=poses.device))
+    else:
+        # The preconditioner is built once from the initial linearization
+        # and reused across all GN steps (staleness only costs PCG
+        # iterations).
+        lin0 = _linearize(graph, poses, pose_mask, config.cauchy_k)
+        apply_M = _make_preconditioner(lin0, damping, config)
+
+        def one_step(poses):
+            lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
+            b = -_gradient(lin)
+            mv = _make_matvec(lin, damping, config)
+            x0 = apply_M(b) if config.pcg_init == 'precond' else None
+            delta, pcg_it = _pcg(lin, b, damping, config.pcg_iterations,
+                                 config.pcg_tolerance, apply_M, matvec=mv,
+                                 x0=x0)
+            return finish(poses, lin, delta, pcg_it)
 
     gn_tol = config.gn_tolerance
     total = torch.zeros((), dtype=torch.int32, device=poses.device)

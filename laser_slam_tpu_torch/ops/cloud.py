@@ -5,9 +5,6 @@ Counterpart of ``laser_slam_tpu/ops/cloud.py``.  A cloud is a
 masked out and parked at a far sentinel position so they never win a
 nearest-neighbour query.  Filters only flip mask bits (and compact), so
 every consumer sees fixed shapes.
-
-Not ported yet: ``concatenate``, ``empty_cloud``, the box, cylindrical,
-ground and voxel filters and ``apply_filter_chain`` (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -82,25 +79,49 @@ def transform(pose7, cloud: Cloud) -> Cloud:
                  cloud.mask)
 
 
+def empty_cloud(capacity: int, device=None) -> Cloud:
+    return Cloud(torch.full((capacity, 3), SENTINEL, dtype=torch.float32,
+                            device=device),
+                 torch.zeros((capacity,), dtype=torch.bool, device=device))
+
+
+def concatenate(clouds, capacity: Optional[int] = None) -> Cloud:
+    """Concatenate clouds along the point axis, optionally compacted to
+    ``capacity``."""
+    out = Cloud(torch.cat([c.points for c in clouds], dim=-2),
+                torch.cat([c.mask for c in clouds], dim=-1))
+    if capacity is not None and capacity != out.capacity:
+        out = compact(out, capacity)
+    return out
+
+
 def _pack_scatter(cloud: Cloud, capacity: int) -> Cloud:
     """Order-preserving pack of valid points to the front of a
     ``capacity``-sized cloud via cumsum + scatter.
 
     JAX drops out-of-bounds scatter rows (``mode='drop'``); torch would
     raise, so invalid points and valid points packed beyond ``capacity``
-    are sent to one extra overflow row that is cut off afterwards (same
-    tail-drop semantics as sorting then truncating).  Unbatched: [N,3].
-    """
+    are sent to one extra overflow row per cloud that is cut off
+    afterwards (same tail-drop semantics as sorting then truncating).
+    Leading batch dimensions are packed independently."""
     mask = cloud.mask
+    batch = tuple(mask.shape[:-1])
+    n = mask.shape[-1]
+    mask = mask.reshape(-1, n)
     dest = torch.cumsum(mask, dim=-1) - 1              # packed position
     dest = torch.where(mask & (dest < capacity), dest,
                        torch.full_like(dest, capacity))
+    rows = torch.arange(mask.shape[0], device=dest.device)[:, None]
+    dest = (dest + rows * (capacity + 1)).reshape(-1)
     dev, dt = cloud.points.device, cloud.points.dtype
-    out_pts = torch.full((capacity + 1, 3), SENTINEL, dtype=dt, device=dev)
-    out_msk = torch.zeros((capacity + 1,), dtype=torch.bool, device=dev)
-    out_pts[dest] = cloud.points
-    out_msk[dest] = mask
-    return Cloud(out_pts[:capacity], out_msk[:capacity])
+    m = mask.shape[0]
+    out_pts = torch.full((m, capacity + 1, 3), SENTINEL, dtype=dt,
+                         device=dev)
+    out_msk = torch.zeros((m, capacity + 1), dtype=torch.bool, device=dev)
+    out_pts.view(-1, 3)[dest] = cloud.points.reshape(-1, 3)
+    out_msk.view(-1)[dest] = mask.reshape(-1)
+    return Cloud(out_pts[:, :capacity].reshape(batch + (capacity, 3)),
+                 out_msk[:, :capacity].reshape(batch + (capacity,)))
 
 
 def compact(cloud: Cloud, capacity: int) -> Cloud:
@@ -155,6 +176,111 @@ def random_sampling_filter(cloud: Cloud, prob: float,
     keep = torch.rand(cloud.mask.shape, generator=generator,
                       device=cloud.mask.device) < prob
     return park_invalid(Cloud(cloud.points, cloud.mask & keep))
+
+
+def box_filter(cloud: Cloud, center, half_extent) -> Cloud:
+    """Keep points inside an axis-aligned box."""
+    center = torch.as_tensor(center, dtype=cloud.points.dtype,
+                             device=cloud.points.device)
+    half_extent = torch.as_tensor(half_extent, dtype=cloud.points.dtype,
+                                  device=cloud.points.device)
+    inside = torch.all(torch.abs(cloud.points - center) <= half_extent,
+                       dim=-1)
+    return park_invalid(Cloud(cloud.points, cloud.mask & inside))
+
+
+def cylindrical_filter(cloud: Cloud, center, radius_m: float,
+                       height_m: float, remove_inside: bool) -> Cloud:
+    """Keep (or, with ``remove_inside``, remove) points inside a vertical
+    cylinder around ``center`` (applyCylindricalFilter,
+    laser_slam_ros/common.hpp:194-223)."""
+    center = torch.as_tensor(center, dtype=cloud.points.dtype,
+                             device=cloud.points.device)
+    d = cloud.points[..., :2] - center[:2]
+    d2 = torch.sum(d * d, dim=-1)
+    dz = torch.abs(cloud.points[..., 2] - center[2])
+    inside = (d2 <= radius_m * radius_m) & (dz <= height_m / 2.0)
+    keep = ~inside if remove_inside else inside
+    return park_invalid(Cloud(cloud.points, cloud.mask & keep))
+
+
+def ground_filter(cloud: Cloud, robot_height_m, ground_clearance_m) -> Cloud:
+    """Remove points below robot_height - clearance
+    (laser_slam_worker.cpp:221-233)."""
+    keep = cloud.points[..., 2] > (robot_height_m - ground_clearance_m)
+    return park_invalid(Cloud(cloud.points, cloud.mask & keep))
+
+
+def voxel_filter(cloud: Cloud, voxel_size_m: float,
+                 min_points_per_voxel: int = 1,
+                 hash_capacity: Optional[int] = None) -> Cloud:
+    """Voxel-grid downsample: keep the first valid point hashed into each
+    voxel, and drop voxels with fewer than ``min_points_per_voxel``
+    points (PCL VoxelGrid, laser_slam_worker.cpp:70-72,439-440, with a
+    first-point representative as in the JAX package)."""
+    n = cloud.capacity
+    if hash_capacity is None:
+        hash_capacity = max(2 * n, 1024)
+    cell = torch.floor(cloud.points / voxel_size_m).to(torch.int32)
+    h = _hash_cells(cell, hash_capacity)
+    h = torch.where(cloud.mask, h, torch.full_like(h, hash_capacity))
+    counts = torch.zeros(hash_capacity + 1, dtype=torch.int64,
+                         device=h.device)
+    counts.index_add_(0, h, torch.ones_like(h))
+    idx = torch.arange(n, device=h.device)
+    first = torch.full((hash_capacity + 1,), n, dtype=torch.int64,
+                       device=h.device)
+    first.scatter_reduce_(0, h, idx, reduce='amin')
+    keep = ((first[h] == idx) & (counts[h] >= min_points_per_voxel)
+            & cloud.mask)
+    return park_invalid(Cloud(cloud.points, keep))
+
+
+def _hash_cells(cell_ijk: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Spatial hash of integer cells [...,3] -> [0, capacity) (int64).
+
+    The JAX package multiplies in wrapping int32 and takes an unsigned
+    modulo.  torch has no uint32 ``%``, so the products are formed in
+    int64, cut to their low 32 bits after the XOR, and reduced there:
+    the same bits, hence the same bucket, for negative cells too."""
+    c = cell_ijk.to(torch.int64)
+    h = ((c[..., 0] * 73856093) ^ (c[..., 1] * 19349663)
+         ^ (c[..., 2] * 83492791)) & 0xFFFFFFFF
+    return h % capacity
+
+
+def apply_filter_chain(cloud: Cloud, chain,
+                       generator: Optional[torch.Generator] = None) -> Cloud:
+    """Apply an ordered filter chain (the canonical tuple of
+    ``config._canonical_chain``; laser_track.cpp:24-30,146).  Only
+    'random_sampling' draws, from ``generator``."""
+    for name, raw in chain:
+        p = dict(raw)
+        if name == 'range':
+            cloud = range_filter(cloud, p.get('min_distance_m', 0.0),
+                                 p.get('max_distance_m', math.inf))
+        elif name == 'random_sampling':
+            if generator is None:
+                raise ValueError("filter chain contains 'random_sampling' "
+                                 'but no generator was provided')
+            cloud = random_sampling_filter(cloud, float(p['prob']),
+                                           generator)
+        elif name == 'box':
+            cloud = box_filter(cloud, p['center'], p['half_extent'])
+        elif name == 'cylindrical':
+            cloud = cylindrical_filter(
+                cloud, p.get('center', (0.0, 0.0, 0.0)),
+                float(p['radius_m']), float(p.get('height_m', 1e6)),
+                bool(p.get('remove_inside', False)))
+        elif name == 'ground':
+            cloud = ground_filter(cloud, float(p['robot_height_m']),
+                                  float(p.get('ground_clearance_m', 0.0)))
+        elif name == 'voxel':
+            cloud = voxel_filter(cloud, float(p['voxel_size_m']),
+                                 int(p.get('min_points_per_voxel', 1)))
+        else:
+            raise ValueError(f'unknown input filter type {name!r}')
+    return cloud
 
 
 # ---------------------------------------------------------------------------

@@ -97,20 +97,18 @@ def _gauss_newton_step(p_world, q, n, w, damping=1e-6):
 def icp_point_to_plane(reading: Cloud, reference: Cloud,
                        ref_normals: torch.Tensor,
                        initial_guess: torch.Tensor,
-                       config: IcpConfig) -> IcpResult:
+                       config: IcpConfig,
+                       prebuilt_image=None) -> IcpResult:
     """Align ``reading`` to ``reference`` starting from ``initial_guess``.
 
     ``ref_normals`` are per-reference-point unit normals in the reference
     frame.  The matcher comes from ``config.matcher``: 'pallas' runs the
     CUDA kernels of ``ops/nn_kernels.py`` (K2 with ``pallas_prune``, K1
-    without), 'brute' the plain torch search; 'projective' waits for the
-    range image (slice 2).
+    without), 'brute' the plain torch search, 'projective' the range
+    image of ``ops/range_image.py`` (``prebuilt_image`` supplies one
+    built beforehand, for many readings against one reference).
     """
-    if config.matcher == 'projective':
-        raise NotImplementedError(
-            "matcher='projective' needs the range image, which the port "
-            "adds in slice 2; use 'pallas' or 'brute'")
-    if config.matcher not in ('brute', 'pallas'):
+    if config.matcher not in ('brute', 'pallas', 'projective'):
         raise ValueError(f'unknown ICP matcher {config.matcher!r}; expected '
                          "'brute', 'pallas' or 'projective'")
     max_corr2 = config.max_correspondence_dist_m ** 2
@@ -128,7 +126,23 @@ def icp_point_to_plane(reading: Cloud, reference: Cloud,
     ref_ext_normals = ext(ref_normals, (1, 3))
     ref_ext_mask = ext(reference.mask, (1,))
 
-    if config.matcher == 'pallas':
+    if config.matcher == 'projective':
+        from laser_slam_tpu_torch.ops import range_image as ri
+        image = prebuilt_image
+        if image is None:
+            image = ri.build_range_image(
+                reference, ref_normals, rows=config.range_image_rows,
+                cols=config.range_image_cols,
+                elev_min=config.range_image_elev_min,
+                elev_max=config.range_image_elev_max,
+                window=config.range_image_window)
+
+        def match_payload(p_world, msk):
+            # Empty windows come back with d2 = inf, which the radius
+            # test drops; the reading mask passes through unchanged.
+            q, n, d2 = ri.nn_projective(p_world, image)
+            return q, n, d2, msk
+    elif config.matcher == 'pallas':
         from laser_slam_tpu_torch.ops import nn_kernels
         if config.pallas_prune:
             # Morton-sorted AABB-pruned kernel (K2): exact within the

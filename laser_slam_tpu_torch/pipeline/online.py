@@ -2,29 +2,40 @@
 
 Counterpart of the core of ``laser_slam_tpu/pipeline/online.py``: the
 per-scan pipeline (input filters -> normals -> scan-to-submap ICP ->
-factor append -> full-graph Gauss-Newton solve -> ring push) over a state
-of fixed-capacity device tensors, fed one scan at a time by
-:class:`OnlineRunner` (scanCallback -> processPoseAndLaserScan ->
-estimate, laser_slam_worker.cpp:96-253, laser_track.cpp:122-231,
-incremental_estimator.cpp:151-163).
+factor append -> incremental Gauss-Newton solve, full-graph or over a
+sliding window -> ring push) over a state of fixed-capacity device
+tensors, fed one scan at a time or in chunks by :class:`OnlineRunner`
+(scanCallback -> processPoseAndLaserScan -> estimate,
+laser_slam_worker.cpp:96-253, laser_track.cpp:122-231,
+incremental_estimator.cpp:151-163).  Scans arrive as xyz points or as
+the sensor's packed uint16 range words (:func:`online_step_ranges`).
 
 Port notes:
 * The JAX step donates its state; :func:`online_step` and the loop-
   closure functions write the state's buffers in place and return it.
 * Counters (``n_poses``, ``n_rel``, ``n_prior``) stay 0-d device tensors
   and rows are written through them, so a scan needs no device read.
+  The window solve slices the pose table and the factor buffers with
+  index tensors built from them, not with host integers.
   The first-scan ``lax.cond`` becomes a host bool: the runner knows
   whether the track has been seen.
 * ``rng_key`` becomes a ``torch.Generator`` held by the runner; the state
-  carries no RNG (the slice configuration makes no draw).
-* Not ported yet (ROADMAP queue 1): the window solve, chunked and packed
-  ingest, the scan archive, refined/cached closures, place recognition,
-  device maps, multi-robot linking and the benchmarker timers.
+  carries no RNG.
+* :func:`online_chunk` is a loop over :func:`online_step` on inputs
+  uploaded once a chunk (JAX's ``lax.scan``); it computes the same as
+  the per-scan calls, draws included.
+* Not ported yet (ROADMAP queue 1, slice 3 and later): the scan
+  archive, refined/cached closures, place recognition, device maps,
+  multi-robot linking and the benchmarker timers.  The JAX runner's
+  background growth precompile hides XLA recompiles and has no
+  counterpart here.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -35,6 +46,7 @@ from laser_slam_tpu_torch.graph import solver as sv
 from laser_slam_tpu_torch.ops import cloud as pc
 from laser_slam_tpu_torch.ops import icp as icp_mod
 from laser_slam_tpu_torch.ops import se3
+from laser_slam_tpu_torch.ops import spherical
 from laser_slam_tpu_torch.ops.range_image import compute_normals
 
 
@@ -213,19 +225,161 @@ def _put(buf: torch.Tensor, row: torch.Tensor, value) -> None:
     buf.index_copy_(0, rows, value.expand(buf.shape[1:])[None])
 
 
+# The window's frozen predecessors and its slots for out-of-window poses
+# that loop-closure factors reach (values of the JAX package).
+WINDOW_MARGIN, WINDOW_ANCHORS = 8, 8
+
+
+def _window_solve(state: OnlineState, i: torch.Tensor,
+                  config: EstimatorConfig):
+    """Solve the sliding window as a compact dense subproblem.
+
+    Gathers the last ``window + WINDOW_MARGIN`` poses into a small table
+    (plus ``WINDOW_ANCHORS`` rows holding out-of-window poses that
+    loop-closure factors reference, each a frozen anchor), remaps the
+    newest ``2 * window + 2`` factors' keys into it, solves it with the
+    dense method and writes the window back.  The slices start at device
+    counters (``base``, ``start_f``) and are gathers over ``start +
+    arange``, so nothing is read back.  Returns (traj_poses, final
+    error); ``state.traj_poses`` is written in place."""
+    W = config.solver.window
+    ANCHORS = WINDOW_ANCHORS
+    traj = state.traj_poses
+    dev = traj.device
+    C = traj.shape[0]
+    F = state.rel_meas.shape[0]
+    Mw = min(W + WINDOW_MARGIN, C)
+    i = i.long()
+    base = torch.clamp(i + 1 - Mw, 0, C - Mw)
+    Fw = min(2 * W + 2, F)
+    start_f = torch.clamp(state.n_rel.long() - Fw, 0, F - Fw)
+    fidx = start_f + torch.arange(Fw, device=dev)
+    rel_keys = state.rel_keys[fidx].long()
+    rel_weight = state.rel_weight[fidx]
+
+    keys_l = rel_keys - base
+    Mt = Mw + ANCHORS
+    # Factors whose key_a predates the table (closures into the past)
+    # anchor against a gathered copy of that pose; key_b is recent for
+    # chronologically appended factors.  Factors with both keys out of
+    # the table are dropped (all-frozen, they contribute nothing).
+    b_in = (keys_l[:, 1] >= 0) & (keys_l[:, 1] < Mw)
+    need = (keys_l[:, 0] < 0) & b_in & (rel_weight > 0)
+    slot = torch.cumsum(need.long(), dim=0) - 1
+    ok = need & (slot < ANCHORS)
+    key_a_l = torch.where(ok, Mw + slot, keys_l[:, 0])
+    drop = (need & ~ok) | ~b_in | ((keys_l[:, 0] < 0) & ~need)
+    weight = torch.where(drop, torch.zeros_like(rel_weight), rel_weight)
+    anchors = _eye_rows(ANCHORS + 1, dev)          # last row: overflow
+    anchors[torch.where(ok, slot, torch.full_like(slot, ANCHORS))] = \
+        traj[torch.clamp(rel_keys[:, 0], 0, C - 1)]
+    key_a_l = torch.clamp(key_a_l, 0, Mt - 1)
+    key_b_l = torch.clamp(keys_l[:, 1], 0, Mt - 1)
+
+    pk_l = state.prior_keys.long() - base
+    p_in = (pk_l >= 0) & (pk_l < Mw)
+    graph_w = FactorGraphData(
+        rel_meas=state.rel_meas[fidx],
+        rel_keys=torch.stack([key_a_l, key_b_l], dim=1),
+        rel_sqrt_info=state.rel_sqrt_info[fidx],
+        rel_robust=state.rel_robust[fidx],
+        rel_fixed_a=torch.zeros((Fw,), dtype=torch.bool, device=dev),
+        rel_weight=weight,
+        prior_meas=state.prior_meas,
+        prior_keys=torch.clamp(pk_l, 0, Mt - 1),
+        prior_sqrt_info=state.prior_sqrt_info,
+        prior_weight=torch.where(p_in, state.prior_weight,
+                                 torch.zeros_like(state.prior_weight)))
+
+    g_idx = base + torch.arange(Mw, device=dev)
+    poses_tab = torch.cat([traj[g_idx], anchors[:ANCHORS]])
+    mask_w = (g_idx < i + 1) & (g_idx >= i + 1 - W)
+    mask_tab = torch.cat([mask_w, torch.zeros((ANCHORS,), dtype=torch.bool,
+                                              device=dev)])
+    scfg = dataclasses.replace(config.solver, method='dense')
+    result = sv.solve(graph_w, poses_tab, mask_tab, scfg)
+    new_window = torch.where(mask_w[:, None], result.poses[:Mw],
+                             poses_tab[:Mw])
+    traj.index_copy_(0, g_idx, new_window)
+    return traj, result.error_final
+
+
+def ingest(points: torch.Tensor, n_valid, config: EstimatorConfig,
+           generator: Optional[torch.Generator] = None):
+    """The step's first stage: input filters, the store decimation and
+    per-point normals (laser_track.cpp:146).  Returns (scan, normals)."""
+    lt = config.laser_track
+    f = lt.input_filters
+    mask = torch.arange(points.shape[0], device=points.device) < n_valid
+    scan = pc.park_invalid(pc.Cloud(points, mask))
+    if f.chain:
+        # The configured ordered chain (laser_track.cpp:24-30).
+        scan = pc.apply_filter_chain(scan, f.chain, generator)
+    else:
+        scan = pc.range_filter(scan, f.min_distance_m, f.max_distance_m)
+        if f.random_sampling_ratio < 1.0:
+            scan = pc.random_sampling_filter(scan, f.random_sampling_ratio,
+                                             generator)
+    store_cap = f.store_capacity or f.scan_capacity
+    if store_cap < scan.points.shape[0]:
+        # Even stride over the packed valid points (a plain compact would
+        # keep only the first beams of a ring-major scan).
+        scan = pc.compact_decimate(scan, store_cap)
+    return scan, compute_normals(scan, lt.icp)
+
+
+def submap(state: OnlineState, track_id: int = 0):
+    """The track's ring of scans in the frame of its newest scan
+    (laser_track.cpp:466-519): (cloud [K*N], normals [K*N, 3])."""
+    prev_traj = state.traj_poses[state.track_last_key[track_id].long()]
+    ring_keys = state.ring_keys[track_id].long()
+    ring_rel = torch.where(
+        (ring_keys >= 0)[:, None],
+        se3.compose(se3.inverse(prev_traj),
+                    state.traj_poses[torch.clamp(ring_keys, min=0)]),
+        se3.identity(device=prev_traj.device))
+    ring_points = state.ring_points[track_id]
+    ring_mask = state.ring_mask[track_id]
+    pts = se3.apply(ring_rel[:, None, :], ring_points)
+    nrm = se3.quat_rotate(ring_rel[:, None, :4], state.ring_normals[track_id])
+    K, N, _ = ring_points.shape
+    cloud = pc.Cloud(
+        torch.where(ring_mask[..., None], pts,
+                    torch.full_like(pts, pc.SENTINEL)).reshape(K * N, 3),
+        ring_mask.reshape(K * N))
+    return cloud, nrm.reshape(K * N, 3)
+
+
+def reading_of(scan: pc.Cloud, config: EstimatorConfig,
+               generator: Optional[torch.Generator] = None) -> pc.Cloud:
+    """The ICP reading: the scan sampled at ``reading_sampling_ratio`` and
+    decimated evenly to ``reading_capacity`` (a prefix of a ring-major
+    beam scan would keep only its top rings)."""
+    icp_cfg = config.laser_track.icp
+    if icp_cfg.reading_sampling_ratio < 1.0:
+        scan = pc.random_sampling_filter(
+            scan, icp_cfg.reading_sampling_ratio, generator)
+    return pc.compact_decimate(scan, icp_cfg.reading_capacity)
+
+
 def online_step(state: OnlineState, points: torch.Tensor,
-                n_valid: int, odom_pose7: torch.Tensor,
+                n_valid, odom_pose7: torch.Tensor,
                 config: EstimatorConfig, first_scan: bool,
                 track_id: int = 0,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                odometry_free: bool = False
                 ) -> Tuple[OnlineState, StepInfo]:
-    """Integrate one scan of one track.  ``points`` padded to capacity.
+    """Integrate one scan of one track.  ``points`` padded to capacity,
+    the first ``n_valid`` (a host int or a 0-d device tensor) valid.
 
     ``first_scan`` (host bool) selects the prior branch for a track's
     first scan — the JAX step's ``lax.cond(prev_key < 0, ...)``.
     ``generator`` feeds the random-sampling filters when their ratio is
-    below 1.  The JAX step's odometry-free mode comes in slice 2, forced
-    priors (multi-robot) in slice 3.
+    below 1.  ``odometry_free``: ignore ``odom_pose7`` after the first
+    scan and propagate by constant velocity — the relative motion between
+    the last two solved poses is replayed as the pseudo-odometry
+    measurement (laser_slam_worker.cpp:135-162).  Forced priors
+    (multi-robot) come in slice 3.
     """
     lt = config.laser_track
     dev = points.device
@@ -233,27 +387,8 @@ def online_step(state: OnlineState, points: torch.Tensor,
     if lt.force_priors:
         raise NotImplementedError('force_priors (multi-robot placement) '
                                   'comes with slice 3')
-    if config.solver.window > 0:
-        raise NotImplementedError('SolverConfig.window > 0 (the window '
-                                  'solve) comes in slice 2')
 
-    # --- ingest: filters + normals (laser_track.cpp:146) ---------------
-    f = lt.input_filters
-    if f.chain:
-        raise NotImplementedError('InputFilterConfig.chain (the configurable '
-                                  'filter chain) comes in slice 2')
-    mask = torch.arange(points.shape[0], device=dev) < n_valid
-    scan = pc.park_invalid(pc.Cloud(points, mask))
-    scan = pc.range_filter(scan, f.min_distance_m, f.max_distance_m)
-    if f.random_sampling_ratio < 1.0:
-        scan = pc.random_sampling_filter(scan, f.random_sampling_ratio,
-                                         generator)
-    store_cap = f.store_capacity or f.scan_capacity
-    if store_cap < scan.points.shape[0]:
-        # Even stride over the packed valid points (a plain compact would
-        # keep only the first beams of a ring-major scan).
-        scan = pc.compact_decimate(scan, store_cap)
-    normals = compute_normals(scan, lt.icp)
+    scan, normals = ingest(points, n_valid, config, generator)
 
     i = state.n_poses
     odom = se3.normalize(odom_pose7)
@@ -274,40 +409,29 @@ def online_step(state: OnlineState, points: torch.Tensor,
         prev_key = state.track_last_key[track_id].long()
         prev_meas = state.pose_meas[prev_key]
         prev_traj = state.traj_poses[prev_key]
-        ring_keys = state.ring_keys[track_id].long()
-        ident = se3.identity(device=dev)
-        rel = se3.compose(se3.inverse(prev_meas), odom)
+        if odometry_free:
+            # Constant velocity: replay the last solved relative motion
+            # (identity until two poses exist).
+            ring_keys = state.ring_keys[track_id].long()
+            prev2_key = (ring_keys[-2] if ring_keys.shape[0] >= 2
+                         else torch.full((), -1, dtype=torch.int64,
+                                         device=dev))
+            prev2 = state.traj_poses[torch.clamp(prev2_key, min=0)]
+            rel = torch.where(
+                prev2_key >= 0,
+                se3.normalize(se3.compose(se3.inverse(prev2), prev_traj)),
+                se3.identity(device=dev))
+            odom_eff = se3.normalize(se3.compose(prev_meas, rel))
+        else:
+            rel = se3.compose(se3.inverse(prev_meas), odom)
+            odom_eff = odom
         propagated = se3.normalize(se3.compose(prev_traj, rel))
 
-        # Scan-to-submap ICP in the previous scan's frame
-        # (laser_track.cpp:466-519).
-        T_a_w = se3.inverse(prev_traj)
-        ring_rel = torch.where(
-            (ring_keys >= 0)[:, None],
-            se3.compose(T_a_w, state.traj_poses[torch.clamp(ring_keys,
-                                                            min=0)]),
-            ident)
-        ring_points = state.ring_points[track_id]
-        ring_mask = state.ring_mask[track_id]
-        pts = se3.apply(ring_rel[:, None, :], ring_points)
-        nrm = se3.quat_rotate(ring_rel[:, None, :4],
-                              state.ring_normals[track_id])
-        K, N, _ = ring_points.shape
-        submap = pc.Cloud(
-            torch.where(ring_mask[..., None], pts,
-                        torch.full_like(pts, pc.SENTINEL)).reshape(K * N, 3),
-            ring_mask.reshape(K * N))
-        submap_normals = nrm.reshape(K * N, 3)
-
-        reading = scan
-        if lt.icp.reading_sampling_ratio < 1.0:
-            reading = pc.random_sampling_filter(
-                reading, lt.icp.reading_sampling_ratio, generator)
-        # Even decimation to the reading budget (see compact_decimate).
-        reading = pc.compact_decimate(reading, lt.icp.reading_capacity)
-
+        # Scan-to-submap ICP in the previous scan's frame.
+        reference, ref_normals = submap(state, track_id)
         icp_res = icp_mod.icp_point_to_plane(
-            reading, submap, submap_normals, rel, lt.icp)
+            reading_of(scan, config, generator), reference, ref_normals,
+            rel, lt.icp)
 
         # Factors (laser_track.cpp:211-222).
         n_rel = state.n_rel
@@ -327,16 +451,24 @@ def online_step(state: OnlineState, points: torch.Tensor,
         _put(state.rel_weight, n_rel1, torch.where(
             icp_res.valid, 1.0 if lt.use_icp_factors else 0.0, 0.0))
         _put(state.traj_poses, i, propagated)
-        _put(state.pose_meas, i, odom)
+        _put(state.pose_meas, i, odom_eff)
         state = state._replace(
             n_rel=n_rel + 2,
             last_icp_valid=icp_res.valid,
             last_icp_inliers=icp_res.num_inliers.to(torch.int32))
 
     # --- incremental solve (incremental_estimator.cpp:151-163) ----------
-    pose_mask = torch.arange(state.traj_poses.shape[0], device=dev) < (i + 1)
-    result = sv.solve(_graph_view(state), state.traj_poses, pose_mask,
-                      config.solver)
+    if config.solver.window > 0:
+        # The newest `window` poses as a compact dense subproblem: the
+        # online path appends factors chronologically (2 a scan), so the
+        # window's factors are the newest ones.
+        traj, error = _window_solve(state, i, config)
+    else:
+        pose_mask = (torch.arange(state.traj_poses.shape[0], device=dev)
+                     < (i + 1))
+        result = sv.solve(_graph_view(state), state.traj_poses, pose_mask,
+                          config.solver)
+        traj, error = result.poses, result.error_final
     # Ring push for this track (newest scan last).
     for ring, value in ((state.ring_points, scan.points),
                         (state.ring_mask, scan.mask),
@@ -345,8 +477,8 @@ def online_step(state: OnlineState, points: torch.Tensor,
     state.ring_keys[track_id] = torch.cat(
         [state.ring_keys[track_id, 1:], i.reshape(1)])
     state.track_last_key[track_id] = i
-    state = state._replace(traj_poses=result.poses, n_poses=i + 1,
-                           last_error=result.error_final)
+    state = state._replace(traj_poses=traj, n_poses=i + 1,
+                           last_error=error)
     info = StepInfo(key=i, icp_valid=state.last_icp_valid,
                     icp_inliers=state.last_icp_inliers,
                     solve_error=state.last_error)
@@ -406,6 +538,70 @@ def _append_lc_and_solve(state: OnlineState, key_a: int, key_b: int,
     return state, info
 
 
+def online_step_ranges(state: OnlineState, words: torch.Tensor,
+                       table: spherical.BeamTable, odom_pose7: torch.Tensor,
+                       config: EstimatorConfig, first_scan: bool,
+                       track_id: int = 0,
+                       generator: Optional[torch.Generator] = None,
+                       odometry_free: bool = False,
+                       range_unit_m: Optional[float] = None
+                       ) -> Tuple[OnlineState, StepInfo]:
+    """:func:`online_step` fed by the sensor's native encoding: integer
+    range words ``[B, A]`` on the device (0 = no echo;
+    :func:`spherical.words_to_device`) and a device-resident
+    :class:`spherical.BeamTable`, decoded to points as the step's first
+    stage.  The decode lands the points in the packed ring-major layout
+    of the xyz path, so the two paths differ only by the range
+    quantization."""
+    if range_unit_m is None:
+        range_unit_m = spherical.RANGE_UNIT_M
+    points, n_valid = spherical.decode_and_pack(words, table, range_unit_m)
+    return online_step(state, points, n_valid, odom_pose7, config,
+                       first_scan, track_id, generator,
+                       odometry_free=odometry_free)
+
+
+def decode_ranges_chunk(words: torch.Tensor, table: spherical.BeamTable,
+                        range_unit_m: Optional[float] = None):
+    """Decode a chunk of range images ``[C, B, A]`` into device-resident
+    ``(points [C, B*A, 3], n_valid [C])`` for :func:`online_chunk`."""
+    if range_unit_m is None:
+        range_unit_m = spherical.RANGE_UNIT_M
+    return spherical.decode_and_pack(words, table, range_unit_m)
+
+
+def online_chunk(state: OnlineState, archive, points: torch.Tensor,
+                 n_valid: torch.Tensor, odom_pose7s: torch.Tensor,
+                 track_ids, config: EstimatorConfig,
+                 odometry_free: bool = False, with_archive: bool = False,
+                 return_scans: bool = False, pr_db=None, pr_keys=None,
+                 pr_n=None, pr_config=None, first_scan: bool = False,
+                 generator: Optional[torch.Generator] = None):
+    """Integrate C scans from device-resident stacks: points [C,N,3],
+    n_valid [C], odom_pose7s [C,7]; ``track_ids`` host ints [C].
+
+    The JAX package scans its step over the chunk in one program; here
+    it is a loop over :func:`online_step` on inputs uploaded once, with
+    the same result as C per-scan calls (the generator's draws
+    included).  ``first_scan`` says that the chunk's first scan is its
+    track's first.  The scan archive (``archive``, ``with_archive``),
+    ``return_scans`` and the place-recognition stages come with slice 3.
+    Returns (state, archive, infos) with the infos' fields stacked."""
+    if archive is not None or with_archive or return_scans:
+        raise NotImplementedError('the scan archive and return_scans come '
+                                  'with slice 3')
+    if any(a is not None for a in (pr_db, pr_keys, pr_n, pr_config)):
+        raise NotImplementedError('place recognition comes with slice 3')
+    infos = []
+    for c in range(points.shape[0]):
+        state, info = online_step(
+            state, points[c], n_valid[c], odom_pose7s[c], config,
+            first_scan=first_scan and c == 0, track_id=int(track_ids[c]),
+            generator=generator, odometry_free=odometry_free)
+        infos.append(info)
+    return state, archive, StepInfo(*(torch.stack(v) for v in zip(*infos)))
+
+
 def online_solve(state: OnlineState, config: EstimatorConfig
                  ) -> Tuple[OnlineState, torch.Tensor]:
     """Re-run the full-graph solve on the current state (no new factors).
@@ -447,18 +643,22 @@ def extract_trajectory(state: OnlineState) -> np.ndarray:
 
 class OnlineRunner:
     """Host loop of the online path: distance gating on host odometry,
-    everything else on the device.  Single track; the multi-robot
-    bookkeeping, scan archive, device map and place recognition of the
-    JAX runner come in later slices."""
+    everything else on the device.  Single track; scans come as xyz
+    points or, after :meth:`enable_packed_ingest`, as uint16 range
+    images, one at a time (:meth:`process_scan`) or in chunks
+    (:meth:`process_scans`).  The multi-robot bookkeeping, scan archive,
+    device map and place recognition of the JAX runner come in later
+    slices."""
 
     def __init__(self, config: EstimatorConfig, pose_capacity: int = 4096,
                  factor_capacity: int = 8192,
                  minimum_distance_to_add_pose: float = 0.0, seed: int = 0,
-                 device='cuda'):
+                 use_odometry_information: bool = True, device='cuda'):
         """``seed`` seeds the runner's ``torch.Generator`` (the JAX
-        runner's ``rng_key``).  ``device`` is the card unless the caller
-        names another (``'cpu'`` for the CPU).  The odometry-free mode
-        (``use_odometry_information=False``) comes in slice 2."""
+        runner's ``rng_key``).  ``use_odometry_information=False``
+        switches to the constant-velocity odometry-free mode (pass
+        ``odom_pose7=None``).  ``device`` is the card unless the caller
+        names another (``'cpu'`` for the CPU)."""
         self.config = config
         self.device = resolve_device(device)
         self.state = init_state(config, pose_capacity, factor_capacity,
@@ -466,6 +666,7 @@ class OnlineRunner:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.min_dist = minimum_distance_to_add_pose
+        self.use_odometry = use_odometry_information
         self._last_odom: Optional[np.ndarray] = None
         # time_ns per key, in key order.
         self.key_info: list = []
@@ -475,6 +676,35 @@ class OnlineRunner:
         # Host mirror of the device factor counter (2 per normal scan,
         # 1 per loop closure) for capacity guarding.
         self._n_rel_host = 0
+        # Packed (uint16 range-image) ingest — see enable_packed_ingest.
+        self._beam_table = None
+        self._range_unit_m = None
+
+    def enable_packed_ingest(self, elev_deg, n_azimuth: int,
+                             range_unit_m: Optional[float] = None) -> None:
+        """Accept scans as sensor-native uint16 range images.
+
+        After this call, :meth:`process_scan` / :meth:`process_scans` take
+        a 2-D uint16 ``points`` payload ``[n_beams, n_azimuth]`` (0 = no
+        echo, else range in ``range_unit_m`` units) as a packed scan: it
+        is uploaded as-is (2 B/point against 12 B for xyz) and decoded on
+        the device.  Float ``[N, 3]`` payloads keep working.  ``elev_deg``
+        is the sensor's per-ring elevation table (e.g.
+        ``velodyne_sim.HDL64_ELEV_DEG``)."""
+        self._beam_table = spherical.beam_table(elev_deg, n_azimuth,
+                                                device=self.device)
+        self._range_unit_m = float(range_unit_m if range_unit_m is not None
+                                   else spherical.RANGE_UNIT_M)
+
+    def _is_packed_scan(self, points) -> bool:
+        packed = (getattr(points, 'dtype', None) == np.uint16
+                  and getattr(points, 'ndim', 0) == 2)
+        if packed and self._beam_table is None:
+            raise ValueError('uint16 range-image scan received but packed '
+                             'ingest is not configured; call '
+                             'enable_packed_ingest(elev_deg, n_azimuth) '
+                             'first')
+        return packed
 
     def _ensure_capacity(self, new_poses: int = 0, new_rels: int = 0,
                          new_priors: int = 0) -> None:
@@ -495,47 +725,158 @@ class OnlineRunner:
         if kw:
             self.state = grow_state(self.state, **kw)
 
-    def process_scan(self, time_ns: int, points: np.ndarray,
-                     odom_pose7: Optional[np.ndarray] = None,
-                     track_id: int = 0) -> bool:
-        """Gate on travelled distance and integrate one scan; returns
-        whether it was integrated."""
-        if track_id != 0:
-            raise NotImplementedError('multi-track runs come with slice 3')
+    def _gate(self, odom_pose7) -> Optional[np.ndarray]:
+        """The odometry to integrate a frame with, or None when the frame
+        has not moved far enough since the last one."""
         if odom_pose7 is None:
-            raise ValueError('odometry pose required (the odometry-free '
-                             'mode comes in slice 2)')
+            if self.use_odometry:
+                raise ValueError('odometry pose required when '
+                                 'use_odometry_information is set')
+            return se3.identity().numpy()
         odom_pose7 = np.asarray(odom_pose7, np.float32)
         last = self._last_odom
         if last is not None and self.min_dist > 0:
             if np.linalg.norm(odom_pose7[4:] - last[4:]) <= self.min_dist:
-                return False
+                return None
         self._last_odom = odom_pose7
-        return self._integrate_one(time_ns, points, odom_pose7, track_id)
+        return odom_pose7
 
-    def _integrate_one(self, time_ns: int, points: np.ndarray,
-                       odom_pose7: np.ndarray, track_id: int = 0) -> bool:
-        """Single online_step for an already-gated frame."""
-        first_scan_of_track = track_id not in self._tracks_seen
-        self._tracks_seen.add(track_id)
-        self._ensure_capacity(new_poses=1,
-                              new_rels=0 if first_scan_of_track else 2,
-                              new_priors=1 if first_scan_of_track else 0)
-        if not first_scan_of_track:
-            self._n_rel_host += 2
+    def process_scan(self, time_ns: int, points: np.ndarray,
+                     odom_pose7: Optional[np.ndarray] = None,
+                     track_id: int = 0) -> bool:
+        """Gate on travelled distance and integrate one scan (xyz
+        ``[N, 3]`` or, with packed ingest, uint16 ``[B, A]``); returns
+        whether it was integrated."""
+        if track_id != 0:
+            raise NotImplementedError('multi-track runs come with slice 3')
+        odom = self._gate(odom_pose7)
+        if odom is None:
+            return False
+        return self._integrate_one(time_ns, points, odom, track_id)
+
+    def process_scans(self, frames, track_id: int = 0,
+                      chunk_size: int = 8) -> int:
+        """Chunked ingestion of ``(time_ns, points, odom_pose7)`` tuples
+        (or ScanFrame-likes): ``chunk_size`` scans a chunk, uploaded in
+        one transfer and run by :func:`online_chunk`; a remainder runs
+        through the per-scan step.  Gives the same result as
+        :meth:`process_scan` per frame; returns the number of scans
+        accepted (min-distance gating applies)."""
+        if track_id != 0:
+            raise NotImplementedError('multi-track runs come with slice 3')
+        frames = [(f.time_ns, f.points, f.odom_pose7)
+                  if hasattr(f, 'points') else f for f in frames]
+        accepted = []
+        for t, p, o in frames:
+            odom = self._gate(o)
+            if odom is not None:
+                accepted.append((t, p, odom))
+        chunk_size = max(int(chunk_size), 1)
+        # Chunks are payload-homogeneous (one uint16 [C,B,A] or one f32
+        # [C,N,3] upload), so a mixed stream is split into same-kind runs.
+        runs = []
+        for frame in accepted:
+            kind = self._is_packed_scan(frame[1])
+            if runs and runs[-1][0] == kind:
+                runs[-1][1].append(frame)
+            else:
+                runs.append((kind, [frame]))
+        for _, run in runs:
+            n_chunks = len(run) // chunk_size if chunk_size > 1 else 0
+            for ci in range(n_chunks):
+                self._dispatch_chunk(
+                    run[ci * chunk_size:(ci + 1) * chunk_size], track_id)
+            for t, p, o in run[n_chunks * chunk_size:]:
+                self._integrate_one(t, p, o, track_id)
+        return len(accepted)
+
+    def _pad_xyz(self, points) -> Tuple[np.ndarray, int]:
         pts = np.asarray(points, np.float32)
         n = min(len(pts), self.scan_cap)
         padded = np.full((self.scan_cap, 3), pc.SENTINEL, np.float32)
         padded[:n] = pts[:n]
-        self.state, _ = online_step(
-            self.state, torch.from_numpy(padded).to(self.device), n,
-            torch.tensor(odom_pose7, device=self.device), self.config,
-            first_scan=first_scan_of_track, track_id=track_id,
-            generator=self.generator)
-        self.key_info.append(time_ns)
-        if first_scan_of_track:
+        return padded, n
+
+    def _begin(self, n_scans: int, track_id: int) -> bool:
+        """Capacity and counters for ``n_scans`` new scans of a track;
+        returns whether the first of them is the track's first."""
+        first = track_id not in self._tracks_seen
+        self._tracks_seen.add(track_id)
+        new_rels = 2 * n_scans - (2 if first else 0)
+        self._ensure_capacity(new_poses=n_scans, new_rels=new_rels,
+                              new_priors=1 if first else 0)
+        self._n_rel_host += new_rels
+        if first:
             self._n_priors_seen += 1
+        return first
+
+    def _dispatch_chunk(self, chunk, track_id: int) -> None:
+        """One online_chunk call over pre-gated frames."""
+        C = len(chunk)
+        first = self._begin(C, track_id)
+        odos = torch.from_numpy(np.stack([o for _, _, o in chunk]).astype(
+            np.float32)).to(self.device)
+        if self._is_packed_scan(chunk[0][1]):
+            words = spherical.words_to_device(
+                np.stack([p for _, p, _ in chunk]), self.device)
+            pts, nv = decode_ranges_chunk(words, self._beam_table,
+                                          self._range_unit_m)
+        else:
+            padded = [self._pad_xyz(p) for _, p, _ in chunk]
+            pts = torch.from_numpy(np.stack([a for a, _ in padded])).to(
+                self.device)
+            nv = torch.tensor([n for _, n in padded], dtype=torch.int32,
+                              device=self.device)
+        self.state, _, _ = online_chunk(
+            self.state, None, pts, nv, odos, [track_id] * C, self.config,
+            odometry_free=not self.use_odometry, first_scan=first,
+            generator=self.generator)
+        self.key_info.extend(t for t, _, _ in chunk)
+
+    def _integrate_one(self, time_ns: int, points: np.ndarray,
+                       odom_pose7: np.ndarray, track_id: int = 0) -> bool:
+        """Single online_step for an already-gated frame."""
+        first = self._begin(1, track_id)
+        odom = torch.tensor(odom_pose7, device=self.device)
+        if self._is_packed_scan(points):
+            self.state, _ = online_step_ranges(
+                self.state, spherical.words_to_device(points, self.device),
+                self._beam_table, odom, self.config, first_scan=first,
+                track_id=track_id, generator=self.generator,
+                odometry_free=not self.use_odometry,
+                range_unit_m=self._range_unit_m)
+        else:
+            padded, n = self._pad_xyz(points)
+            self.state, _ = online_step(
+                self.state, torch.from_numpy(padded).to(self.device), n,
+                odom, self.config, first_scan=first, track_id=track_id,
+                generator=self.generator,
+                odometry_free=not self.use_odometry)
+        self.key_info.append(time_ns)
         return True
+
+    def refine(self, iterations: int = 1,
+               gn_iterations: Optional[int] = None,
+               pcg_iterations: Optional[int] = None,
+               pcg_tolerance: Optional[float] = None) -> float:
+        """Extra full-graph solve passes (:func:`online_solve`), with
+        optional stronger solver settings than the per-scan config.
+        Returns the last solve's error (one read at the end)."""
+        cfg = self.config
+        s = cfg.solver
+        s = dataclasses.replace(
+            s,
+            gn_iterations=(s.gn_iterations if gn_iterations is None
+                           else gn_iterations),
+            pcg_iterations=(s.pcg_iterations if pcg_iterations is None
+                            else pcg_iterations),
+            pcg_tolerance=(s.pcg_tolerance if pcg_tolerance is None
+                           else pcg_tolerance))
+        cfg = dataclasses.replace(cfg, solver=s)
+        err = None
+        for _ in range(max(iterations, 1)):
+            self.state, err = online_solve(self.state, cfg)
+        return float(err)
 
     def add_loop_closure(self, key_a: int, key_b: int,
                          w_T_a_b: np.ndarray,

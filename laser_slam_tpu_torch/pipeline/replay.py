@@ -24,6 +24,10 @@ class ScanFrame:
     odom_pose7: Optional[np.ndarray]   # odometry estimate (None if absent)
     points: np.ndarray                 # [N,3] float32, sensor frame
     gt_pose7: Optional[np.ndarray] = None  # ground truth if known
+    # Sensor-native packed scan (uint16 [n_beams, n_azimuth], 0 = no
+    # echo), when the stream provides one (velodyne_sim.BeamStream with
+    # packed=True); feed it to a runner after enable_packed_ingest.
+    range_words: Optional[np.ndarray] = None
 
 
 def _t(a) -> torch.Tensor:

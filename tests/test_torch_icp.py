@@ -127,10 +127,20 @@ def test_icp_failure_returns_initial_guess(rng):
 
 
 def test_projective_matcher_waits_for_slice_2(rng):
-    cloud = tpc.make_cloud(rng.normal(size=(64, 3)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match='slice 2'):
-        ticp.icp(cloud, cloud, torch.zeros(64, 3), torch.tensor(
-            [1.0, 0, 0, 0, 0, 0, 0]), IcpConfig(matcher='projective'))
+    """The projective matcher came with slice 2 and runs (held to JAX in
+    tests/test_torch_range_image.py); an unknown matcher raises."""
+    pts = synthetic_scene(rng, 512)
+    cloud = tpc.make_cloud(pts)
+    normals = tpc.estimate_normals(cloud)
+    res = ticp.icp(cloud, cloud, normals, torch.tensor(
+        [1.0, 0, 0, 0, 0, 0, 0]), IcpConfig(
+            matcher='projective', range_image_elev_min=-0.8,
+            range_image_elev_max=0.8, range_image_cols=256))
+    assert bool(res.valid)
+    np.testing.assert_allclose(res.T.numpy(), [1, 0, 0, 0, 0, 0, 0],
+                               atol=1e-4)
+    with pytest.raises(ValueError, match='matcher'):
+        ticp.icp(cloud, cloud, normals, res.T, IcpConfig(matcher='nope'))
 
 
 @pytest.mark.parametrize('method', ['sort', 'histogram'])

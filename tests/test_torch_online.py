@@ -205,12 +205,16 @@ def test_runner_gating_and_later_slices():
         runner.process_scan(2, pts, odom, track_id=1)
     with pytest.raises(NotImplementedError, match='slice 3'):
         runner.add_loop_closure(0, 0, odom, verify_with_icp=True)
+    # The window solve came with slice 2: a windowed runner integrates.
     windowed = dataclasses.replace(
         small_config(), solver=dataclasses.replace(small_config().solver,
                                                    window=8))
-    with pytest.raises(NotImplementedError, match='slice 2'):
-        ton.OnlineRunner(windowed, device='cpu', **CAPS).process_scan(
-            0, pts * 10, odom)
+    wrun = ton.OnlineRunner(windowed, device='cpu', **CAPS)
+    assert wrun.process_scan(0, pts * 10, odom)
+    assert wrun.process_scan(1, pts * 10, odom)
+    assert np.all(np.isfinite(np.stack(list(wrun.trajectory().values()))))
+    with pytest.raises(NotImplementedError, match='slice 3'):
+        wrun.process_scans([(2, pts, odom)], track_id=1)
 
 
 def test_entry_points_default_to_the_card():
@@ -241,6 +245,8 @@ def test_port_imports_no_jax():
         'from laser_slam_tpu_torch.pipeline import online, replay\n'
         'from laser_slam_tpu_torch.ops import nn_kernels, cuda_build\n'
         'from laser_slam_tpu_torch.ops import nn_variants\n'
+        'from laser_slam_tpu_torch.ops import range_image, spherical\n'
+        'from laser_slam_tpu_torch.pipeline import velodyne_sim\n'
         'from laser_slam_tpu_torch.experiments import nn_shootout\n'
         "runpy.run_path({smoke!r}, run_name='chip_smoke')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -252,11 +252,73 @@ def test_linearization_and_helpers_match_jax(rng):
 
 
 def test_dense_and_woodbury_wait_for_later_slices(rng):
+    """The dense method came with slice 2 and runs (held to JAX in
+    test_dense_solve_matches_jax); Woodbury still waits for slice 3."""
     g, gt = build_chain(rng, n=4)
     poses, mask = pad_poses(gt)
     graph = to_torch_graph(g.to_device())
-    for cfg, slice_name in ((dict(method='dense'), 'slice 2'),
-                            (dict(preconditioner='woodbury'), 'slice 3')):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            tsv.solve(graph, torch.tensor(poses), torch.tensor(mask),
-                      dataclasses.replace(SolverConfig(), **cfg))
+    res = tsv.solve(graph, torch.tensor(poses), torch.tensor(mask),
+                    dataclasses.replace(SolverConfig(), method='dense'))
+    np.testing.assert_allclose(res.poses.numpy(), poses, atol=1e-5)
+    with pytest.raises(NotImplementedError, match='slice 3'):
+        tsv.solve(graph, torch.tensor(poses), torch.tensor(mask),
+                  dataclasses.replace(SolverConfig(),
+                                      preconditioner='woodbury'))
+    with pytest.raises(ValueError, match='method'):
+        tsv.solve(graph, torch.tensor(poses), torch.tensor(mask),
+                  dataclasses.replace(SolverConfig(), method='nope'))
+
+
+# Dense solves: every graph at a 16-pose table (the window's size class),
+# with and without the GN early-out.
+DENSE = dict(method='dense', gn_iterations=3)
+
+
+@pytest.mark.parametrize('graph', sorted(GRAPHS))
+@pytest.mark.parametrize('gn_tol', [0.0, 1e-4])
+def test_dense_solve_matches_jax(rng, graph, gn_tol):
+    g, poses, mask = GRAPHS[graph](rng)
+    if graph == 'loop_closure':
+        poses, mask = poses[:20], mask[:20]
+    else:
+        poses, mask = poses[:16], mask[:16]
+    solve_both(g, poses, mask, gn_tolerance=gn_tol, **DENSE)
+
+
+def test_dense_factor_matches_jax_and_float64(rng):
+    """The dense normal equations and their Cholesky solve against JAX
+    and a float64 solve, with a frozen pose and a gauge prior."""
+    g, poses, mask = graph_loop_closure(rng)
+    poses, mask = poses[:20], mask[:20].copy()
+    mask[12] = False
+    jg = g.to_device()
+    jlin = jax.jit(jsv._linearize, static_argnums=3)(
+        jg, jnp.asarray(poses), jnp.asarray(mask), 1.0)
+    tlin = tsv._linearize(to_torch_graph(jg), torch.tensor(poses),
+                          torch.tensor(mask), 1.0)
+    b = -tsv._gradient(tlin)
+    x_t = tsv._dense_apply(tsv._dense_factor(tlin, 1e-6), b).numpy()
+    x_j = np.asarray(jax.jit(lambda lin: jsv._dense_apply(
+        jsv._dense_factor(lin, 1e-6), -jsv._gradient(lin)))(jlin))
+    np.testing.assert_allclose(x_t, x_j, rtol=1e-4, atol=1e-5)
+    H = np.zeros((120, 120))
+    for i in range(120):
+        e = np.zeros((20, 6), np.float32)
+        e.flat[i] = 1.0
+        H[:, i] = tsv._hessian_matvec(tlin, torch.tensor(e), 1e-6).numpy(
+        ).reshape(-1)
+    want = np.linalg.solve(H, b.numpy().reshape(-1).astype(np.float64))
+    np.testing.assert_allclose(x_t.reshape(-1), want, rtol=1e-3, atol=1e-5)
+    assert np.all(x_t[12] == 0) or np.allclose(x_t[12], 0, atol=1e-12)
+
+
+def test_dense_factor_not_positive_definite_gives_nan():
+    lin = tsv._LinearizedGraph(
+        Ja=torch.zeros((1, 6, 6)), Jb=torch.zeros((1, 6, 6)),
+        r_rel=torch.zeros((1, 6)), w_rel=torch.zeros(1),
+        keys=torch.zeros((1, 2), dtype=torch.int64),
+        Jp=torch.zeros((1, 6, 6)), r_prior=torch.zeros((1, 6)),
+        w_prior=torch.zeros(1), prior_keys=torch.zeros(1, dtype=torch.int64),
+        free=torch.ones(2))
+    chol = tsv._dense_factor(lin, -1.0)
+    assert bool(torch.all(torch.isnan(chol)))
