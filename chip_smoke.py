@@ -72,10 +72,32 @@ result line):
    device ops), and each stage alone on the state left behind (upload,
    decode and pack, filters and normals, range-image build, ICP, window
    solve; synchronized ms a call).  ATE max < 0.35 m and final < 0.15 m.
+9. The flagship path (slice 3: SLAM with loop-closure detection) through
+   ``OnlineRunner(flagship_config(...), **FLAGSHIP_RUNNER,
+   place_recognition=flagship_place_recognition(), device='cuda')``: the
+   scan archive, the scan-context detector on its detect/fetch cadence,
+   ICP-verified and refined closures solved through the persisted
+   Woodbury cache.  No hand-written kernel (the JAX package computes it
+   outside Pallas).  (a) bench.py's 16k place-recognition stream (2 laps
+   of an off-centre 20 m circle, seed 21) cut to 64 scans, xyz, in
+   ``flagship_config(16384, 16384, 512, 256)``: per scan and in chunks
+   of 8 with the detector, and per scan without it.  At least one
+   detection; every accepted pair 32 +- 3 keys apart with |yaw| < 0.5
+   rad; error max < 0.35 m, final < 0.15 m; mean error at most 1 cm
+   above the run without the detector; the chunked detection count
+   within 2 of the per-scan one; on one closure, ``solve_cached`` after
+   ``extend_cache`` within 1 cm / 0.1 deg of a cold tridiagonal solve.
+   (b) Its 116-scan KITTI-density stream (64 x 2048 beams, seed 22) in
+   ``flagship_config()``, as bench.py's ``run_e2e_pr``: 10 warm-up
+   scans, a chunk of 8, ``warmup_closure_path``, scans/s over timed
+   chunks of 8, the benchmarker's four closure topics, the last chunk
+   under ``torch.profiler`` (a closure in it, detected or else added and
+   verified by hand), one synchronized verification and closure solve,
+   cached and cold.  K1/K2 must not launch in phase 9.
 
 The kernel counters are reset right before phase 5 (K2), phase 6 (K1),
-the shootout run of phase 7 and the production runs of phase 8, the
-main-path runs, and read right after; launches made to compare a kernel
+the shootout run of phase 7 and the production and flagship runs of
+phases 8 and 9, the main-path runs, and read right after; launches made to compare a kernel
 with its plain version are not counted.  Each kernel's bound is the larger of its bytes (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the
 card's rate for their type: f32 lane instructions over SMs x 128 lanes x
@@ -125,10 +147,53 @@ INSTR_PAYLOAD = 5       # 3 FMA, compare, 1 select (E4, E6)
 PROD_SCANS = 64
 CHUNK_ATOL_M, CHUNK_ATOL_DEG = 0.01, 0.1
 KITTI_STREAM, KITTI_WARM, KITTI_TIMED, KITTI_PROFILE = 116, 8, 40, 4
+# Phase 9, the flagship (SLAM with loop-closure detection).  (a) bench.py's
+# 16k place-recognition stream cut from 128 to 64 scans over its 2 laps;
+# (b) its 116-scan KITTI-density stream: 10 warm-up scans, a chunk of 8,
+# timed chunks of 8 and the last chunk profiled.
+FLAG_SCANS, FLAG_CHUNK, FLAG_KITTI_WARM = 64, 8, 10
+FLAG_CIRCLE = dict(n_beams=64, trajectory='circle', radius_m=20.0,
+                   center_m=(8.0, 5.0), laps=2, world_size_m=80.0,
+                   range_noise_m=0.01, odom_noise=0.005)
+# The KITTI-density beam streams take tens of seconds each to ray-cast on
+# the host: helper processes make them while the earlier phases run.
+PREFETCH = {
+    'production_kitti': dict(
+        n_take=KITTI_WARM + KITTI_TIMED + KITTI_PROFILE + 1,
+        n_scans=KITTI_STREAM, n_beams=64, n_azimuth=2048,
+        trajectory='circle', radius_m=20.0, world_size_m=80.0,
+        range_noise_m=0.01, odom_noise=0.005, seed=12, packed=True),
+    'flagship_kitti': dict(n_scans=KITTI_STREAM, n_azimuth=2048, seed=22,
+                           **FLAG_CIRCLE),
+}
+_POOL = []
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def beam_frames(n_take=None, **stream):
+    """The first ``n_take`` frames (all by default) of a BeamStream."""
+    from laser_slam_tpu_torch.pipeline import velodyne_sim as vs
+    return list(itertools.islice(vs.BeamStream(**stream), n_take))
+
+
+def start_prefetch():
+    """Start making the PREFETCH streams in spawned helper processes (the
+    script's exit terminates them); returns {name: async result}."""
+    import multiprocessing
+    pool = multiprocessing.get_context('spawn').Pool(len(PREFETCH))
+    _POOL.append(pool)
+    return {name: pool.apply_async(beam_frames, kwds=kw)
+            for name, kw in PREFETCH.items()}
+
+
+def fetched(streams, name):
+    """A prefetched stream's frames, and the seconds spent waiting."""
+    t0 = time.perf_counter()
+    frames = streams[name].get(timeout=600)
+    return frames, time.perf_counter() - t0
 
 
 def cuda_ms(fn, reps):
@@ -223,6 +288,7 @@ def profile_summary(prof, wall_s, scans, focus=(), top=5):
     range), the share of device time of each ``focus`` entry (a label and
     the kernel-name substrings it sums) and the ``top`` device ops.
     Returns the numbers, or None when the profiler saw no device time."""
+    t0 = time.perf_counter()
     rows = device_rows(prof)
     t = {e.key: getattr(e, 'self_device_time_total',
                         getattr(e, 'self_cuda_time_total', 0)) / 1e3
@@ -231,13 +297,14 @@ def profile_summary(prof, wall_s, scans, focus=(), top=5):
     if total <= 0:
         log('  profiler: no device time recorded (not measured)')
         return None
-    launches = device_launches(prof)
+    launches = sum(e.count for e in rows)
     n = len(scans)
     busy = 100 * total / (1000 * wall_s)
     log(f'  profiler over scans {scans.start}-{scans.stop - 1}: {launches} '
         f'device launches ({launches / n:.0f} a scan), {total:.3f} ms of '
         f'device time in {1000 * wall_s:.3f} ms of wall time (profiler '
-        f'on): busy {busy:.2f}%')
+        f'on): busy {busy:.2f}% (summed in '
+        f'{time.perf_counter() - t0:.1f} s)')
     for label, keys in focus:
         v = sum(x for k, x in t.items() if any(s in k for s in keys))
         log(f'  {label}: {100 * v / total:.2f}% of device time '
@@ -316,7 +383,7 @@ def run_stream(cfg, frames, closures, packed_az=None, chunk=None,
     return est, wall
 
 
-def production_phase(nk):
+def production_phase(nk, streams):
     """Phase 8: the production online path (slice 2) through OnlineRunner:
     (a) accuracy at 16k density against the exact slice-1 path and
     ground truth, (b) speed and the stage split at KITTI density."""
@@ -396,16 +463,11 @@ def production_phase(nk):
                witness_gap_m=dt_w, witness_gap_deg=dr_w)
 
     # (b) Speed at KITTI density.
-    n_frames = KITTI_WARM + KITTI_TIMED + KITTI_PROFILE + 1
-    t0 = time.perf_counter()
-    frames = list(itertools.islice(vs.BeamStream(
-        n_scans=KITTI_STREAM, n_beams=64, n_azimuth=2048,
-        trajectory='circle', radius_m=20.0, world_size_m=80.0,
-        range_noise_m=0.01, odom_noise=0.005, seed=12, packed=True),
-        n_frames))
+    frames, waited = fetched(streams, 'production_kitti')
+    n_frames = len(frames)
     log(f'production (b): the first {n_frames} of {KITTI_STREAM} beam scans '
-        f'of 64 x 2048 = 131072 beams (a 20 m circle, seed 12) made in '
-        f'{time.perf_counter() - t0:.1f} s')
+        f'of 64 x 2048 = 131072 beams (a 20 m circle, seed 12), made by a '
+        f'helper process ({waited:.1f} s waited for them)')
     cfg = production_config(131072, 32768, 1024, 1024)
     runner = online.OnlineRunner(cfg, pose_capacity=128, factor_capacity=512,
                                  device='cuda')
@@ -419,8 +481,9 @@ def production_phase(nk):
         runner.process_scan(f.time_ns, f.range_words, f.odom_pose7)
     torch.cuda.synchronize()
     rate = KITTI_TIMED / (time.perf_counter() - t0)
+    # Device activity only: every number read is a device row, and host
+    # op events would multiply the post-processing time.
     prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
     with prof:
         t0 = time.perf_counter()
@@ -491,6 +554,282 @@ def production_phase(nk):
     log('  production: ' + json.dumps(out))
 
 
+def detection_alignment(state, key_a, key_b, yaw):
+    """The detector's alignment guess T_w_a Rz(yaw) T_w_b^-1, on the host
+    (OnlineRunner._inject_detection)."""
+    from laser_slam_tpu_torch.ops import se3
+    pair = state.traj_poses[[key_a, key_b]].cpu()
+    rz = torch.tensor([np.cos(yaw / 2), 0, 0, np.sin(yaw / 2), 0, 0, 0],
+                      dtype=torch.float32)
+    return se3.compose(pair[0], se3.compose(rz, se3.inverse(pair[1])))
+
+
+def clone_state(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+def flagship_run(cfg, frames, pr, chunk=None):
+    """A fresh flagship runner on the card over ``frames`` (xyz), per
+    scan or in chunks, flushed at the end.  Returns (runner, [n,7]
+    trajectory in frame order, wall seconds)."""
+    from laser_slam_tpu_torch.config import FLAGSHIP_RUNNER
+    from laser_slam_tpu_torch.pipeline import online
+    kw = dict(FLAGSHIP_RUNNER)
+    runner = online.OnlineRunner(cfg, place_recognition=pr, device='cuda',
+                                 **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if chunk:
+        runner.process_scans([(f.time_ns, f.points, f.odom_pose7)
+                              for f in frames], chunk_size=chunk)
+    else:
+        for f in frames:
+            runner.process_scan(f.time_ns, f.points, f.odom_pose7)
+    traj = runner.trajectory()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    est = np.stack([traj[f.time_ns] for f in frames])
+    if not np.all(np.isfinite(est)):
+        raise AssertionError('flagship: non-finite trajectory')
+    return runner, est, wall
+
+
+def flagship_phase(nk, streams):
+    """Phase 9: the flagship path (slice 3: SLAM with loop-closure
+    detection) through OnlineRunner: (a) the flow and its accuracy at 16k
+    density, (b) speed at KITTI density."""
+    from laser_slam_tpu_torch.config import (flagship_config,
+                                             flagship_place_recognition)
+    from laser_slam_tpu_torch.core import benchmarker as bench
+    from laser_slam_tpu_torch.graph import solver as sv
+    from laser_slam_tpu_torch.pipeline import online
+    pr = flagship_place_recognition()
+    out = {}
+    t_phase = time.perf_counter()
+
+    # (a) 16k density: the flow, its accuracy, cached against cold.
+    t0 = time.perf_counter()
+    frames = beam_frames(n_scans=FLAG_SCANS, n_azimuth=256, seed=21,
+                         **FLAG_CIRCLE)
+    lap = FLAG_SCANS // 2
+    gt = np.stack([f.gt_pose7 for f in frames])
+    log(f'flagship (a): {FLAG_SCANS} beam scans of 64 x 256 (2 laps of an '
+        f'off-centre 20 m circle, seed 21) made in '
+        f'{time.perf_counter() - t0:.1f} s')
+    cfg16 = flagship_config(16384, 16384, 512, 256)
+    nk.nn_indices.launches = 0
+    nk.nn_indices_pruned.launches = 0
+    runs = {}
+    for label, pr_cfg, chunk in (('per-scan', pr, None),
+                                 ('chunked', pr, FLAG_CHUNK),
+                                 ('no detector', None, None)):
+        runner, est, wall = flagship_run(cfg16, frames, pr_cfg, chunk)
+        err = np.linalg.norm(est[:, 4:] - gt[:, 4:], axis=1)
+        runs[label] = (runner, err)
+        log(f'  {label}: {wall:.2f} s, detections '
+            f'{[d[:2] for d in runner.detections]}, rejected '
+            f'{[d[:2] for d in runner.rejected_detections]}; error mean '
+            f'{err.mean():.6f} m, max {err.max():.6f} m, final '
+            f'{err[-1]:.6f} m')
+    nn_launches = nk.nn_indices.launches + nk.nn_indices_pruned.launches
+    runner, err = runs['per-scan']
+    chunked, err_c = runs['chunked']
+    base = runs['no detector'][1]
+    if not runner.detections:
+        raise AssertionError('flagship (a): no accepted detection')
+    for r in (runner, chunked):
+        for key_a, key_b, _, yaw in r.detections:
+            if abs((key_b - key_a) - lap) > 3 or abs(yaw) >= 0.5:
+                raise AssertionError(f'flagship (a): detection {key_a}, '
+                                     f'{key_b}, yaw {yaw}')
+    for label, e in (('per-scan', err), ('chunked', err_c)):
+        if not (e.max() < 0.35 and e[-1] < 0.15):
+            raise AssertionError(f'flagship (a) {label}: error out of '
+                                 f'bounds (max {e.max()}, final {e[-1]})')
+    if not err.mean() <= base.mean() + 0.01:
+        raise AssertionError('flagship (a): the detector raised the mean '
+                             f'error from {base.mean()} to {err.mean()}')
+    if abs(len(chunked.detections) - len(runner.detections)) > 2:
+        raise AssertionError('flagship (a): chunked and per-scan detection '
+                             'counts differ by more than 2')
+    if nn_launches:
+        raise AssertionError(f'flagship (a): K1/K2 launched {nn_launches} '
+                             'times')
+    # One closure, on clones of the final state: the refined measurement
+    # once, then solve_cached after extend_cache of a cache built on this
+    # state against a cold tridiagonal solve (and a converged one).  The
+    # runner's own cache was built at its first closure; the poses added
+    # since ride identity rows in it, so its solve is logged beside.
+    key_a, key_b, _, yaw = runner.detections[-1]
+    w_T = detection_alignment(runner.state, key_a, key_b, yaw).cuda()
+    meas, _ = online._refine_lc_meas(runner.state, runner.archive, key_a,
+                                     key_b, w_T, cfg16)
+
+    def cached_solve(cache):
+        return online._append_lc_and_solve_cached(
+            clone_state(runner.state), cache, key_a, key_b, meas, cfg16, -1,
+            False)[0]
+
+    def cold_solve(**solver):
+        cfg = dataclasses.replace(cfg16, solver=dataclasses.replace(
+            cfg16.solver, **solver))
+        return online._append_lc_and_solve(clone_state(runner.state), key_a,
+                                           key_b, meas, cfg, -1, False)[0]
+
+    fresh = sv.build_cache(online._graph_view(runner.state),
+                           runner.state.traj_poses,
+                           online._pose_mask(runner.state), cfg16.solver)
+    n = len(frames)
+    solved = {k: s.traj_poses[:n].cpu().numpy() for k, s in (
+        ('cached', cached_solve(fresh)),
+        ('stale', cached_solve(sv.clone_cache(runner._solver_cache))),
+        ('cold', cold_solve(preconditioner='tridiagonal')),
+        ('converged', cold_solve(preconditioner='tridiagonal',
+                                 gn_iterations=4, gn_tolerance=0.0,
+                                 pcg_iterations=400, pcg_tolerance=1e-12)))}
+    dt, dr = pose_gaps(solved['cached'], solved['cold'])
+    to_converged = {k: pose_gaps(v, solved['converged'])[0]
+                    for k, v in solved.items() if k != 'converged'}
+    stale_by = runner._n_rel_host - runner._cache_rel_count
+    log(f'  closure ({key_a}, {key_b}) on clones: solve_cached after '
+        f'extend_cache vs a cold tridiagonal solve: {dt:.3e} m, {dr:.3e} '
+        'deg (limits 0.01 m, 0.1 deg); m from a converged solve (4 GN x '
+        f'400 PCG): {to_converged}, "stale" with the runner\'s cache, '
+        f'built {stale_by} factors before')
+    if not (dt <= 0.01 and dr <= 0.1):
+        raise AssertionError('flagship (a): cached and cold solves differ')
+    out.update(err16_mean_m=float(err.mean()), err16_max_m=float(err.max()),
+               err16_final_m=float(err[-1]),
+               err16_no_detector_mean_m=float(base.mean()),
+               detections16=len(runner.detections),
+               detections16_chunked=len(chunked.detections),
+               rejected16=len(runner.rejected_detections),
+               cached_vs_cold_m=dt, cached_vs_cold_deg=dr)
+
+    log(f'  phase 9 (a) took {time.perf_counter() - t_phase:.1f} s')
+
+    # (b) KITTI density, as bench.py's run_e2e_pr: warm-up scans, one
+    # chunk, warmup_closure_path, timed chunks (the last one profiled).
+    t_b = time.perf_counter()
+    frames, waited = fetched(streams, 'flagship_kitti')
+    log(f'flagship (b): {KITTI_STREAM} beam scans of 64 x 2048 = 131072 '
+        f'beams (seed 22), made by a helper process ({waited:.1f} s waited '
+        'for them)')
+    cfg = flagship_config(131072, 32768, 1024, 1024)
+    runner, _, _ = flagship_run(cfg, frames[:FLAG_KITTI_WARM], pr)
+    rest = frames[FLAG_KITTI_WARM:]
+    rest = rest[:(len(rest) // FLAG_CHUNK) * FLAG_CHUNK]
+    runner.process_scans([(f.time_ns, f.points, f.odom_pose7)
+                          for f in rest[:FLAG_CHUNK]], chunk_size=FLAG_CHUNK)
+    runner.warmup_closure_path()
+    log(f'  warm-up scans, a chunk and warmup_closure_path: '
+        f'{time.perf_counter() - t_b:.1f} s')
+    timed, profiled = rest[FLAG_CHUNK:-FLAG_CHUNK], rest[-FLAG_CHUNK:]
+    bench.enable()
+    bench.reset_topic()
+    nk.nn_indices.launches = 0
+    nk.nn_indices_pruned.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(0, len(timed), FLAG_CHUNK):
+        runner.process_scans([(f.time_ns, f.points, f.odom_pose7)
+                              for f in timed[k:k + FLAG_CHUNK]],
+                             chunk_size=FLAG_CHUNK)
+    runner.flush_detections()
+    torch.cuda.synchronize()
+    rate = len(timed) / (time.perf_counter() - t0)
+    stats = bench.statistics()
+    bench.disable()
+    # The profiled chunk must hold a closure: when the detector lands
+    # none in it, a verified closure of the chunk's last key with its
+    # previous-lap twin is added inside the window.
+    n_det = len(runner.detections)
+    # Device activity only: every number read is a device row, and host
+    # op events would multiply the post-processing time.
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        runner.process_scans([(f.time_ns, f.points, f.odom_pose7)
+                              for f in profiled], chunk_size=FLAG_CHUNK)
+        runner.flush_detections()
+        manual = len(runner.detections) == n_det
+        if manual:
+            kb = len(runner.key_info) - 1
+            ka = kb - len(frames) // 2
+            runner.add_loop_closure(ka, kb, detection_alignment(
+                runner.state, ka, kb, 0.0).numpy(), verify_with_icp=True)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    nn_launches = nk.nn_indices.launches + nk.nn_indices_pruned.launches
+    traj = online.extract_trajectory(runner.state)
+    gt = np.stack([f.gt_pose7 for f in frames[:len(traj)]])
+    err = np.linalg.norm(traj[:, 4:] - gt[:, 4:], axis=1)
+    log(f'  scans/s over {len(timed)} scans in chunks of {FLAG_CHUNK} '
+        f'after {FLAG_KITTI_WARM} warm-up scans, a chunk and '
+        f'warmup_closure_path: {rate:.4f} ({1000 / rate:.3f} ms a scan)')
+    log(f'  detections {[d[:2] for d in runner.detections]}, rejected '
+        f'{[d[:2] for d in runner.rejected_detections]}; error over '
+        f'{len(traj)} scans: mean {err.mean():.6f} m, max {err.max():.6f} '
+        f'm, final {err[-1]:.6f} m; K1/K2 launches {nn_launches}')
+    totals = {}
+    for topic in ('online.flush_detections', 'online.verify_closure',
+                  'online.lc_cache_build', 'online.lc_solve_dispatch'):
+        mean, _, count = stats.get(topic, (0.0, 0.0, 0))
+        totals[topic] = (round(mean * count, 3), count)
+    log('  benchmarker totals in the timed window (host ms, calls): '
+        + json.dumps(totals))
+    prof_out = profile_summary(prof, prof_wall, range(
+        len(traj) - FLAG_CHUNK, len(traj)), top=12)
+    log(f'  (the profiled chunk held '
+        f'{"a manual verified closure" if manual else "a detection"})')
+    if not runner.detections:
+        raise AssertionError('flagship (b): no accepted detection')
+    # One synchronized verification and closure solve, cached and cold
+    # (a Woodbury build in the solve), each on its own clones of the
+    # final state and cache, made before the clock starts.
+    key_a, key_b, _, yaw = runner.detections[-1]
+    w_T = detection_alignment(runner.state, key_a, key_b, yaw).cuda()
+    verify_ms = sync_ms(lambda: online.verify_closure(
+        runner.state, runner.archive, key_a, key_b, w_T, cfg).cpu(), 3)
+    cache = runner._lc_solver_cache()
+    clones = [(clone_state(runner.state), sv.clone_cache(cache))
+              for _ in range(8)]
+
+    def cached_closure():
+        state, c = clones.pop()
+        return online.online_loop_closure_refined_cached(
+            state, runner.archive, c, key_a, key_b, w_T, cfg)
+
+    def cold_closure():
+        return online.online_loop_closure_refined(
+            clones.pop()[0], runner.archive, key_a, key_b, w_T, cfg)
+
+    cached_ms = sync_ms(cached_closure, 3)
+    cold_ms = sync_ms(cold_closure, 3)
+    log(f'  one closure (ms, synchronized, mean of 3): verify_closure '
+        f'{verify_ms:.3f}, refined + cached solve {cached_ms:.3f}, refined '
+        f'+ cold solve {cold_ms:.3f}')
+    if not (err.max() < 0.35 and err[-1] < 0.15):
+        raise AssertionError(f'flagship (b): error out of bounds (max '
+                             f'{err.max()}, final {err[-1]})')
+    if nn_launches:
+        raise AssertionError(f'flagship (b): K1/K2 launched {nn_launches} '
+                             'times')
+    out.update(kitti_pr_scans_per_s=rate,
+               kitti_pr_detections=len(runner.detections),
+               kitti_pr_rejected=len(runner.rejected_detections),
+               kitti_pr_err_mean_m=float(err.mean()),
+               kitti_pr_err_max_m=float(err.max()),
+               kitti_pr_err_final_m=float(err[-1]),
+               verify_ms=verify_ms, closure_cached_ms=cached_ms,
+               closure_cold_ms=cold_ms)
+    if prof_out is not None:
+        out.update(prof_out)
+    log(f'  phase 9 (b) took {time.perf_counter() - t_b:.1f} s')
+    log('  flagship: ' + json.dumps(out))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: chip_smoke.py runs on a GPU')
@@ -502,9 +841,11 @@ def main():
     from laser_slam_tpu_torch.ops import nn_kernels as nk
     from laser_slam_tpu_torch.ops import nn_variants as nv
     from laser_slam_tpu_torch.pipeline import online, replay
+    streams = start_prefetch()
     dev = torch.device('cuda')
 
     # 1. Device --------------------------------------------------------
+    t_main = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -562,7 +903,11 @@ def main():
     queries = se3.apply(rel_guess, T(reading_np)).to(dev).contiguous()
     kernels = {}
 
+    def elapsed(phase):
+        log(f'[{time.perf_counter() - t_main:.1f} s] phase {phase}')
+
     # 3. K1 vs plain ---------------------------------------------------
+    elapsed(3)
     log('K1 nn_indices vs plain:')
     d2_k, idx_k = nk.nn_indices(queries, submap)
     d2_p, idx_p = nk.nn_indices_plain(queries, submap)
@@ -609,6 +954,7 @@ def main():
                          library_ms=k1_lib_ms, library=lib_exact)
 
     # 4. K2 vs plain and K1 --------------------------------------------
+    elapsed(4)
     log(f'K2 nn_indices_pruned vs plain and K1 (cutoff {CUTOFF} m):')
     rng = np.random.default_rng(3)
     clusters = rng.uniform(-40, 40, size=(16, 3))
@@ -691,6 +1037,7 @@ def main():
                          library=lib_exact + ' (the cutoff is a where)')
 
     # 5. The slice -----------------------------------------------------
+    elapsed(5)
     cfg = slice1_config(scan_capacity=N_POINTS, reading_capacity=READING)
     log(f'slice: OnlineRunner(slice1_config()) on cuda, {N_SCANS} scans')
     runner = online.OnlineRunner(cfg, pose_capacity=128,
@@ -701,8 +1048,9 @@ def main():
     nk.nn_indices.launches = 0
     nk.nn_indices_pruned.launches = 0
     scan_s = []
+    # Device activity only: every number read is a device row, and host
+    # op events would multiply the post-processing time.
     prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
     t_all = time.perf_counter()
     for idx, f in enumerate(frames):
@@ -750,6 +1098,7 @@ def main():
     kernels['K2']['launches'] = k2_launches
 
     # 6. K1 inside ICP -------------------------------------------------
+    elapsed(6)
     log('K1 inside ICP (pallas_prune=False) vs the K2 matcher:')
     ref_parts, nrm_parts = [], []
     for f in frames[:SUBMAP_SCANS]:
@@ -792,6 +1141,7 @@ def main():
     kernels['K1']['launches'] = k1_launches
 
     # 7. The shootout's kernels (E1-E6) --------------------------------
+    elapsed(7)
     log(f'shootout kernels vs plain at {SHOOT_Q} x {SHOOT_R} and 1000 x '
         '3001 (parked reference):')
     full = tuple(torch.tensor(a, device=dev)
@@ -924,7 +1274,14 @@ def main():
     log(f'  E6 visited {share:.4f} of its reference tiles')
 
     # 8. The production path (slice 2) ---------------------------------
-    production_phase(nk)
+    t0 = time.perf_counter()
+    production_phase(nk, streams)
+    log(f'phase 8 took {time.perf_counter() - t0:.1f} s')
+
+    # 9. The flagship path (slice 3) ------------------------------------
+    t0 = time.perf_counter()
+    flagship_phase(nk, streams)
+    log(f'phase 9 took {time.perf_counter() - t0:.1f} s')
 
     # 9. Records -------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'
@@ -952,8 +1309,14 @@ def main():
 
 
 if __name__ == '__main__':
+    code = 0
     try:
         main()
     except Exception:
         traceback.print_exc()
-        sys.exit(1)
+        code = 1
+    finally:
+        for pool in _POOL:
+            pool.terminate()
+            pool.join()
+    sys.exit(code)

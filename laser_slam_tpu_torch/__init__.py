@@ -3,9 +3,13 @@
 Same layout and function names as the JAX package, so each function has
 an obvious counterpart:
 
-  ops/       SE(3), point clouds, nearest neighbours, normals, ICP
-  graph/     factor-graph arrays and the Gauss-Newton/PCG solver
-  pipeline/  the online SLAM step, its host runner, replay streams
+  ops/       SE(3), point clouds, nearest neighbours, normals, ICP,
+             scan-context descriptors
+  graph/     factor-graph arrays, the Gauss-Newton/PCG solver and its
+             Woodbury cache
+  pipeline/  the online SLAM step, its host runner, place recognition,
+             replay streams
+  core/      the benchmarker (host timers)
   csrc/      hand-written CUDA kernels (built with nvcc at first use)
 
 Imports torch and numpy only; never jax.

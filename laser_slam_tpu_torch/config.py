@@ -586,3 +586,40 @@ def production_config(scan_capacity: int = 131072,
                           gn_steps_per_match=gn_steps_per_match)),
         solver=SolverConfig(gn_iterations=3, gn_tolerance=1e-4,
                             pcg_iterations=32, window=window))
+
+
+# The flagship runner's capacities (bench.py:1017-1019): a 2048-key pose
+# table, 8192 factors and a 2048-point scan archive row.
+FLAGSHIP_RUNNER = dict(pose_capacity=2048, factor_capacity=8192,
+                       archive_points=2048)
+
+
+def flagship_config(scan_capacity: int = 131072, store_capacity: int = 32768,
+                    range_image_cols: int = 1024,
+                    normal_image_cols: int = 1024,
+                    **production_kw) -> EstimatorConfig:
+    """The flagship online path: SLAM with loop-closure detection, as
+    ``bench.py``'s ``run_e2e_pr`` runs it.
+
+    :func:`production_config` with closures solved through the persisted
+    Woodbury cache (``preconditioner='woodbury'``, ``closure_solve=
+    'full'``: extend the cache, then a full GN solve with it) and no
+    diagnostic error passes (``compute_errors=False``).  Run it with
+    ``OnlineRunner(cfg, **FLAGSHIP_RUNNER, place_recognition=
+    flagship_place_recognition())``.  At the defaults it is the
+    KITTI-density cell; ``flagship_config(16384, 16384, 512, 256)`` is the
+    16k cell."""
+    cfg = production_config(scan_capacity, store_capacity, range_image_cols,
+                            normal_image_cols, **production_kw)
+    return dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, preconditioner='woodbury', closure_solve='full',
+        compute_errors=False))
+
+
+def flagship_place_recognition() -> PlaceRecognitionConfig:
+    """The flagship's detector (bench.py:1002-1004): a query every 2nd
+    key, rows fetched 4 queries at a time, the newest 24 keys excluded,
+    10 keys of cooldown after an accepted detection."""
+    return PlaceRecognitionConfig(detect_every=2, fetch_every=4,
+                                  exclude_recent_keys=24,
+                                  min_keys_between_detections=10)

@@ -20,9 +20,10 @@ iteration count with the state frozen once converged (no device read per
 iteration); the ``lax.cond`` between the chain and scatter matvecs reads
 one flag per linearization.  The GN early-out (``gn_tolerance``) masks
 the later steps' results instead of skipping them, so every step runs.
-The dense method factors with ``cholesky_ex`` (no error check, no device
-read).  Not ported yet: the Woodbury preconditioner and cache, marginal
-covariances and the delta closure solve (ROADMAP queue 1).
+The dense method and the Woodbury capacitance factor with ``cholesky_ex``
+(no error check, no device read; a failed factor becomes NaN, as JAX's).
+Not ported yet: marginal covariances (slice 4) and the delta closure
+solve ``solve_closure_cached`` (ROADMAP, "Do not port").
 """
 
 from __future__ import annotations
@@ -134,22 +135,26 @@ def _linearize(graph: FactorGraphData, poses, pose_mask,
 
     pkeys = graph.prior_keys.long()
     rp, Jp = _prior_linearize_analytic(poses[pkeys], graph.prior_meas)
-    # Gauge-fixing priors freeze their pose instead of weighting.
-    gauge = torch.any(graph.prior_sqrt_info > GAUGE_FIX_THRESHOLD, dim=-1)
     sp = torch.clamp(graph.prior_sqrt_info, max=GAUGE_FIX_THRESHOLD)
     rp_w = rp * sp
     Jp_w = Jp * sp[:, :, None]
     wp = graph.prior_weight
-
-    # JAX's .at[keys].max(flag): a sum of 0/1 flags is > 0 exactly when
-    # the max is 1, and index_add_ handles the duplicate padding keys.
-    n = poses.shape[0]
-    hits = torch.zeros(n, dtype=poses.dtype, device=poses.device)
-    hits.index_add_(0, pkeys, (gauge & (graph.prior_weight > 0)).to(
-        poses.dtype))
-    free = (pose_mask & ~(hits > 0)).to(poses.dtype)
     return _LinearizedGraph(Ja_w, Jb_w, r_w, w, keys, Jp_w, rp_w, wp, pkeys,
-                            free)
+                            _free(graph, poses, pose_mask))
+
+
+def _free(graph: FactorGraphData, poses, pose_mask):
+    """[N] f32: 1 for optimizable poses; 0 for masked-out poses and for
+    poses that a gauge-fixing prior freezes (they are snapped, not
+    weighted).  JAX's ``.at[keys].max(flag)``: a sum of 0/1 flags is > 0
+    exactly when the max is 1, and index_add_ handles the duplicate
+    padding keys."""
+    gauge = torch.any(graph.prior_sqrt_info > GAUGE_FIX_THRESHOLD, dim=-1)
+    hits = torch.zeros(poses.shape[0], dtype=poses.dtype,
+                       device=poses.device)
+    hits.index_add_(0, graph.prior_keys.long(),
+                    (gauge & (graph.prior_weight > 0)).to(poses.dtype))
+    return (pose_mask & ~(hits > 0)).to(poses.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +215,15 @@ def _select_offchain(lin: _LinearizedGraph, capacity: int):
     return _first_true_indices(_offchain_mask(lin), L)
 
 
+def _without(lin: _LinearizedGraph, sel, valid):
+    """[F] weight scale that is 0 at the selected factors and 1 elsewhere.
+    Padding slots (sel == F) write an overflow entry that is cut off."""
+    F = lin.keys.shape[0]
+    w_scale = torch.ones(F + 1, dtype=lin.w_rel.dtype, device=sel.device)
+    w_scale[sel] = torch.where(valid, 0.0, 1.0).to(w_scale.dtype)
+    return w_scale[:F]
+
+
 def _offchain_blocks(lin: _LinearizedGraph, sel, valid):
     """Per-selected-factor U blocks: Ua/Ub [L,6(state),6(col)] with weight
     and free-gating folded in, plus their pose keys.  Padding slots gather
@@ -244,9 +258,8 @@ def _make_matvec(lin: _LinearizedGraph, damping, config):
     sel, valid = _first_true_indices(off, L)
     # T excludes the selected off-chain factors entirely; their diagonal
     # AND coupling ride in U U^T (exact, no boost).
-    w_scale = torch.ones(F + 1, dtype=lin.w_rel.dtype, device=sel.device)
-    w_scale[sel] = torch.where(valid, 0.0, 1.0).to(w_scale.dtype)
-    B, A = _build_tridiag(lin, damping, w_scale=w_scale[:F], boost=False)
+    B, A = _build_tridiag(lin, damping, w_scale=_without(lin, sel, valid),
+                          boost=False)
     Ua, Ub, ka, kb = _offchain_blocks(lin, sel, valid)
     zero = torch.zeros((1, 6, 6), dtype=B.dtype, device=B.device)
     # A_up[i] = A[i+1]^T couples pose i to pose i+1.
@@ -499,6 +512,118 @@ def _tridiag_solve(B, A, r):
     return _tridiag_apply(_tridiag_factor(B, A), r)
 
 
+# ---------------------------------------------------------------------------
+# Woodbury preconditioner: exact chain + exact low-rank off-chain part
+# ---------------------------------------------------------------------------
+#
+# H = T0 + U U^T, T0 the chain + prior + damping part and U the 6-column
+# whitened Jacobian blocks of the (few) off-chain factors; the Woodbury
+# identity
+#   H^-1 = T0^-1 - T0^-1 U (I + U^T T0^-1 U)^-1 U^T T0^-1
+# gives a near-exact H^-1 from one cyclic-reduction factorization, one
+# batched chain solve for the U columns and one dense Cholesky of the
+# [6L,6L] capacitance (iSAM2's incremental Bayes-tree update,
+# incremental_estimator.cpp:151-163, as batched algebra).
+
+class WoodburyCache(NamedTuple):
+    """The Woodbury preconditioner, kept across solves (the analogue of
+    iSAM2 keeping its Bayes tree): the chain factorization of T0 and the
+    inverse lower Cholesky factor of the capacitance.  A new loop-closure
+    factor is a rank-6 extension of the factor (:func:`extend_cache`),
+    not a rebuild.  Fixed shapes; unused slots are identity rows of
+    ``chol_inv`` with zero U blocks.
+
+    The JAX cache also keeps the unboosted chain blocks and column norms
+    (``T_B``, ``T_A``, ``cn2``); only the delta solve reads them, which
+    the port leaves out (ROADMAP, "Do not port")."""
+    factors: tuple            # (levels, root_inv) cyclic-reduction of T0
+    Ua: torch.Tensor          # [L,6,6] column-scaled off-chain blocks (key_a)
+    Ub: torch.Tensor          # [L,6,6] (key_b)
+    ka: torch.Tensor          # [L] int64 pose keys
+    kb: torch.Tensor          # [L]
+    chol_inv: torch.Tensor    # [K,K] INVERSE lower Cholesky of the capacitance
+    n_used: torch.Tensor      # 0-d int64: occupied slots (append cursor)
+
+
+def _column_scale(cn):
+    """Scale and capacitance diagonal of scaled columns with norms ``cn``:
+    s = 1/||col|| keeps the capacitance in f32 range (a closure's lever
+    arm makes its whitened columns ~1e4); zero columns keep s = 0 and a
+    unit diagonal."""
+    big = cn > 1e-20
+    s = torch.where(big, 1.0 / torch.clamp(cn, min=1e-20),
+                    torch.zeros_like(cn))
+    return s, torch.where(big, s * s, torch.ones_like(cn))
+
+
+def _factor_or_nan(C):
+    """Lower Cholesky factor of C; NaN where C is not positive definite
+    (JAX's ``cholesky`` returns NaN there), read by no one on the host."""
+    L, info = torch.linalg.cholesky_ex(C)
+    return torch.where(info == 0, L, torch.full_like(L, float('nan')))
+
+
+def _build_woodbury_cache(lin: _LinearizedGraph, damping,
+                          config) -> WoodburyCache:
+    sel, valid = _select_offchain(lin, config.offchain_capacity)
+    # T0 excludes the SELECTED off-chain factors (their diagonal rides in
+    # U U^T); unselected overflow keeps its diagonal in T0, degrading
+    # gracefully to 'tridiagonal'.
+    factors = _tridiag_factor(*_build_tridiag(
+        lin, damping, w_scale=_without(lin, sel, valid)))
+    Ua, Ub, ka, kb = _offchain_blocks(lin, sel, valid)
+    L = Ua.shape[0]
+    n = lin.free.shape[0]
+    K = 6 * L
+    # With Utilde = U diag(s):  H^-1 = T0^-1 - T0^-1 Utilde Ctilde^-1
+    # Utilde^T T0^-1,  Ctilde = diag(s^2) + Utilde^T T0^-1 Utilde.
+    cn = torch.sqrt(torch.sum(Ua * Ua, dim=1) + torch.sum(Ub * Ub, dim=1))
+    s, diag_c = _column_scale(cn)                         # [L,6]
+    Ua = Ua * s[:, None, :]
+    Ub = Ub * s[:, None, :]
+    # U[k, :, l, :] += Ua[l] at k = ka[l] (and Ub at kb[l]); accumulate,
+    # since padding slots repeat a key (with zero blocks).
+    lidx = torch.arange(L, device=Ua.device)
+    U = torch.zeros((n, L, 6, 6), dtype=Ua.dtype, device=Ua.device)
+    U.index_put_((ka, lidx), Ua, accumulate=True)
+    U.index_put_((kb, lidx), Ub, accumulate=True)
+    V = _tridiag_apply(factors, U.permute(0, 2, 1, 3).reshape(n, 6, K))
+    Vl = V.reshape(n, 6, L, 6)                            # T0^-1 Utilde
+    C = (torch.einsum('lsc,lsmd->lcmd', Ua, Vl[ka]) +
+         torch.einsum('lsc,lsmd->lcmd', Ub, Vl[kb])).reshape(K, K)
+    C = C + torch.diag(diag_c.reshape(K))
+    # Multiplicative diagonal jitter: rows span many orders of magnitude,
+    # so a relative nudge toward SPD keeps the small rows.
+    C = C + torch.diag(1e-5 * torch.abs(torch.diagonal(C)))
+    eye = torch.eye(K, dtype=C.dtype, device=C.device)
+    chol_inv = torch.linalg.solve_triangular(_factor_or_nan(C), eye,
+                                             upper=False)
+    return WoodburyCache(factors=factors, Ua=Ua, Ub=Ub, ka=ka, kb=kb,
+                         chol_inv=chol_inv, n_used=torch.sum(valid))
+
+
+def _apply_from_cache(cache: WoodburyCache):
+    """apply_M(r) ~= H^-1 r from a (possibly extended) WoodburyCache."""
+    L = cache.Ua.shape[0]
+    Ua, Ub, ka, kb = cache.Ua, cache.Ub, cache.ka, cache.kb
+
+    def apply_M(r):
+        t1 = _tridiag_apply(cache.factors, r)
+        c = (torch.einsum('lsc,ls->lc', Ua, t1[ka]) +
+             torch.einsum('lsc,ls->lc', Ub, t1[kb])).reshape(6 * L)
+        # C^-1 c = L^-T (L^-1 c): two products with the prebuilt inverse.
+        y = (cache.chol_inv.T @ (cache.chol_inv @ c)).reshape(L, 6)
+        z = torch.zeros_like(r)
+        z.index_add_(0, ka, torch.einsum('lsc,lc->ls', Ua, y))
+        z.index_add_(0, kb, torch.einsum('lsc,lc->ls', Ub, y))
+        out = t1 - _tridiag_apply(cache.factors, z)
+        # A failed capacitance factorization degrades to the chain
+        # preconditioner, never poisons the trajectory.
+        return torch.where(torch.isfinite(out), out, t1)
+
+    return apply_M
+
+
 def _make_preconditioner(lin: _LinearizedGraph, damping, config):
     """Build ``apply_M(r) ~= H^-1 r`` once per solve."""
     kind = config.preconditioner
@@ -509,8 +634,7 @@ def _make_preconditioner(lin: _LinearizedGraph, damping, config):
         factors = _tridiag_factor(*_build_tridiag(lin, damping))
         return lambda r: _tridiag_apply(factors, r)
     if kind == 'woodbury':
-        raise NotImplementedError("preconditioner='woodbury' comes with the "
-                                  'closure machinery of slice 3')
+        return _apply_from_cache(_build_woodbury_cache(lin, damping, config))
     raise ValueError(f'unknown preconditioner {kind!r}')
 
 
@@ -544,8 +668,7 @@ def _dense_factor(lin: _LinearizedGraph, damping):
     H4 = H4 * f[:, None, None, None] * f[None, :, None, None]
     H = H4.permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
     H = H + torch.diag(torch.repeat_interleave(damping + (1.0 - f), 6))
-    L, info = torch.linalg.cholesky_ex(H)
-    return torch.where(info == 0, L, torch.full_like(L, float('nan')))
+    return _factor_or_nan(H)
 
 
 def _dense_apply(chol, b):
@@ -624,6 +747,37 @@ def graph_error(graph: FactorGraphData, poses) -> torch.Tensor:
     return 0.5 * (e_rel + e_pri)
 
 
+def _snap_gauge(graph: FactorGraphData, poses):
+    """Gauge-fixing priors pin their pose AT the prior measurement.
+    Non-gauge slots write the overflow row N, which is cut off (JAX
+    drops them: padding slots share key 0 and must not clobber a snap)."""
+    N = poses.shape[0]
+    gauge = (torch.any(graph.prior_sqrt_info > GAUGE_FIX_THRESHOLD, dim=-1)
+             & (graph.prior_weight > 0))
+    snap_idx = torch.where(gauge, graph.prior_keys.long(),
+                           torch.full_like(graph.prior_keys, N).long())
+    poses_ext = torch.cat([poses, torch.zeros((1, 7), dtype=poses.dtype,
+                                              device=poses.device)])
+    poses_ext[snap_idx] = graph.prior_meas
+    return poses_ext[:N]
+
+
+def _pcg_step(graph: FactorGraphData, pose_mask, config, damping, apply_M):
+    """One GN step's linear solve by PCG with the fresh linearization's
+    matvec and a preconditioner ``apply_M`` built before the loop.
+    Returns ``step(poses) -> (lin, delta, pcg iterations)``."""
+    def step(poses):
+        lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
+        b = -_gradient(lin)
+        mv = _make_matvec(lin, damping, config)
+        x0 = apply_M(b) if config.pcg_init == 'precond' else None
+        delta, pcg_it = _pcg(lin, b, damping, config.pcg_iterations,
+                             config.pcg_tolerance, apply_M, matvec=mv,
+                             x0=x0)
+        return lin, delta, pcg_it
+    return step
+
+
 def solve(graph: FactorGraphData, poses, pose_mask,
           config: SolverConfig) -> SolveResult:
     """Run ``config.gn_iterations`` Gauss-Newton steps from ``poses``
@@ -632,58 +786,48 @@ def solve(graph: FactorGraphData, poses, pose_mask,
     if config.method not in ('pcg', 'dense'):
         raise ValueError(f'unknown solver method {config.method!r}')
     damping = float(config.damping)
-    N = poses.shape[0]
-
-    # Gauge-fixing priors pin their pose AT the prior measurement.
-    # Non-gauge slots write the overflow row N, which is cut off (JAX
-    # drops them: padding slots share key 0 and must not clobber a snap).
-    gauge = (torch.any(graph.prior_sqrt_info > GAUGE_FIX_THRESHOLD, dim=-1)
-             & (graph.prior_weight > 0))
-    snap_idx = torch.where(gauge, graph.prior_keys.long(),
-                           torch.full_like(graph.prior_keys, N).long())
-    poses_ext = torch.cat([poses, torch.zeros((1, 7), dtype=poses.dtype,
-                                              device=poses.device)])
-    poses_ext[snap_idx] = graph.prior_meas
-    poses = poses_ext[:N]
-
-    def no_error():
-        return torch.full((), -1.0, dtype=poses.dtype, device=poses.device)
-
-    e0 = graph_error(graph, poses) if config.compute_errors else no_error()
-    # gn_tolerance compares against the RMS step per ACTIVE pose.
-    n_active = torch.clamp(torch.sum(pose_mask.to(poses.dtype)), min=1.0)
-
-    def finish(poses, lin, delta, it):
-        delta = torch.nan_to_num(delta) * lin.free[:, None]
-        new_poses = se3.normalize(se3.compose(poses, se3.exp(delta)))
-        new_poses = torch.where(pose_mask[:, None], new_poses, poses)
-        return new_poses, it, torch.linalg.norm(delta) / torch.sqrt(n_active)
-
+    poses = _snap_gauge(graph, poses)
+    e0 = _error(graph, poses, config)
     if config.method == 'dense':
         # The [6N,6N] normal equations are factored again at every GN
         # step (the exact Newton direction).
-        def one_step(poses):
+        def step(poses):
             lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
-            b = -_gradient(lin)
-            delta = _dense_apply(_dense_factor(lin, damping), b)
-            return finish(poses, lin, delta, torch.ones(
-                (), dtype=torch.int32, device=poses.device))
+            delta = _dense_apply(_dense_factor(lin, damping),
+                                 -_gradient(lin))
+            return lin, delta, torch.ones((), dtype=torch.int32,
+                                          device=poses.device)
     else:
         # The preconditioner is built once from the initial linearization
         # and reused across all GN steps (staleness only costs PCG
         # iterations).
         lin0 = _linearize(graph, poses, pose_mask, config.cauchy_k)
-        apply_M = _make_preconditioner(lin0, damping, config)
+        step = _pcg_step(graph, pose_mask, config, damping,
+                         _make_preconditioner(lin0, damping, config))
+    return _gauss_newton(graph, poses, pose_mask, config, step, e0)
 
-        def one_step(poses):
-            lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
-            b = -_gradient(lin)
-            mv = _make_matvec(lin, damping, config)
-            x0 = apply_M(b) if config.pcg_init == 'precond' else None
-            delta, pcg_it = _pcg(lin, b, damping, config.pcg_iterations,
-                                 config.pcg_tolerance, apply_M, matvec=mv,
-                                 x0=x0)
-            return finish(poses, lin, delta, pcg_it)
+
+def _error(graph: FactorGraphData, poses, config) -> torch.Tensor:
+    """graph_error, or -1 when ``config.compute_errors`` is off."""
+    if config.compute_errors:
+        return graph_error(graph, poses)
+    return torch.full((), -1.0, dtype=poses.dtype, device=poses.device)
+
+
+def _gauss_newton(graph: FactorGraphData, poses, pose_mask, config, step,
+                  e0) -> SolveResult:
+    """``config.gn_iterations`` GN steps of ``step(poses) -> (lin, delta,
+    iterations)`` from the snapped ``poses``, each retracted on the free
+    poses, with the ``gn_tolerance`` early-out."""
+    # gn_tolerance compares against the RMS step per ACTIVE pose.
+    n_active = torch.clamp(torch.sum(pose_mask.to(poses.dtype)), min=1.0)
+
+    def one_step(poses):
+        lin, delta, it = step(poses)
+        delta = torch.nan_to_num(delta) * lin.free[:, None]
+        new_poses = se3.normalize(se3.compose(poses, se3.exp(delta)))
+        new_poses = torch.where(pose_mask[:, None], new_poses, poses)
+        return new_poses, it, torch.linalg.norm(delta) / torch.sqrt(n_active)
 
     gn_tol = config.gn_tolerance
     total = torch.zeros((), dtype=torch.int32, device=poses.device)
@@ -700,6 +844,157 @@ def solve(graph: FactorGraphData, poses, pose_mask,
             last_delta = torch.where(run, dnorm, last_delta)
         else:
             poses, total, last_delta = new_poses, total + it, dnorm
-    e1 = graph_error(graph, poses) if config.compute_errors else no_error()
-    return SolveResult(poses=poses, error_initial=e0, error_final=e1,
+    return SolveResult(poses=poses, error_initial=e0,
+                       error_final=_error(graph, poses, config),
                        pcg_iterations=total)
+
+
+# ---------------------------------------------------------------------------
+# Cached, incremental solving (the iSAM2-reuse seam)
+# ---------------------------------------------------------------------------
+
+def _chol6_matrix(A):
+    """Unrolled 6x6 Cholesky returning a dense lower-triangular matrix."""
+    L = _cholesky6(A)
+    zero = torch.zeros_like(A[..., 0, 0])
+    return torch.stack([torch.stack([L[i][j] if j <= i else zero
+                                     for j in range(6)], dim=-1)
+                        for i in range(6)], dim=-2)
+
+
+def _lower6_inverse(Lm):
+    """Inverse of a dense lower-triangular [6,6] matrix, unrolled
+    forward substitution (elementwise)."""
+    inv = [[None] * 6 for _ in range(6)]
+    for i in range(6):
+        inv[i][i] = 1.0 / Lm[..., i, i]
+        for j in range(i):
+            s = 0.0
+            for k in range(j, i):
+                s = s + Lm[..., i, k] * inv[k][j]
+            inv[i][j] = -s / Lm[..., i, i]
+    zero = torch.zeros_like(Lm[..., 0, 0])
+    return torch.stack([torch.stack([inv[i][j] if j <= i else zero
+                                     for j in range(6)], dim=-1)
+                        for i in range(6)], dim=-2)
+
+
+def build_cache(graph: FactorGraphData, poses, pose_mask,
+                config: SolverConfig) -> WoodburyCache:
+    """Factor the Woodbury preconditioner once, for reuse across solves.
+
+    Valid while the graph's CHAIN part (consecutive-key factors and
+    priors) is unchanged; new off-chain factors are absorbed with
+    :func:`extend_cache`.  Staleness only costs PCG iterations: PCG's
+    matvec uses the fresh linearization."""
+    lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
+    return _build_woodbury_cache(lin, float(config.damping), config)
+
+
+def _linearize_one_rel(graph: FactorGraphData, poses, pose_mask,
+                       factor_idx, config: SolverConfig):
+    """Whitened, weighted, free-gated linearization of ONE relative factor
+    at ``factor_idx`` (a 0-d device tensor).  Returns (r_w, Ja_w, Jb_w,
+    w, ka, kb, free)."""
+    f = torch.as_tensor(factor_idx, device=poses.device).long()
+    ka_n, kb_n = graph.rel_keys[f].long().unbind(0)
+    r, Ja, Jb = _rel_linearize_analytic(poses[ka_n][None], poses[kb_n][None],
+                                        graph.rel_meas[f][None])
+    s_info = graph.rel_sqrt_info[f]
+    r_w = r[0] * s_info
+    Ja_w = Ja[0] * s_info[:, None]
+    Jb_w = Jb[0] * s_info[:, None]
+    w = graph.rel_weight[f] * _cauchy_weight(r_w, graph.rel_robust[f],
+                                             config.cauchy_k)
+    Ja_w = torch.where(graph.rel_fixed_a[f], torch.zeros_like(Ja_w), Ja_w)
+    return r_w, Ja_w, Jb_w, w, ka_n, kb_n, _free(graph, poses, pose_mask)
+
+
+def extend_cache(graph: FactorGraphData, poses, pose_mask,
+                 cache: WoodburyCache, factor_idx,
+                 config: SolverConfig) -> WoodburyCache:
+    """Absorb ONE new off-chain (loop-closure) factor into the cache.
+
+    With the capacitance C = L L^T factored and a new scaled column block
+    u, the extended factor is [[L, 0], [X^T, Ls]] with B = U_old^T T0^-1
+    u, X = L^-1 B, Ls = chol(D - X^T X); the cache stores L^-1, so the
+    appended inverse row block is [-Ls^-1 X^T L^-1, Ls^-1]: one chain
+    solve with 6 right-hand sides and two [K,.] products.  Slots fill in
+    order at the device cursor ``n_used`` (no host read); when the
+    capacity is full the slot's own values are written back and the
+    cache is unchanged (the factor is then not preconditioned; PCG still
+    converges, slower).
+
+    The cache's tensors are written in place; the returned cache carries
+    the advanced cursor.  Clone a cache that must stay as it was."""
+    n = poses.shape[0]
+    L_cap = cache.Ua.shape[0]
+    dev = poses.device
+    r_w, Ja_w, Jb_w, w, ka_n, kb_n, free = _linearize_one_rel(
+        graph, poses, pose_mask, factor_idx, config)
+    sw = torch.sqrt(w)
+    Ua_n = Ja_w.T * sw * free[ka_n]              # [6(state),6(col)]
+    Ub_n = Jb_w.T * sw * free[kb_n]
+    # Column scaling, as _build_woodbury_cache.
+    cn = torch.sqrt(torch.sum(Ua_n * Ua_n, dim=0) +
+                    torch.sum(Ub_n * Ub_n, dim=0))
+    s, diag_c = _column_scale(cn)
+    Ua_n = Ua_n * s[None, :]
+    Ub_n = Ub_n * s[None, :]
+
+    # v = T0^-1 u (one chain solve, 6 right-hand sides).
+    u = torch.zeros((n, 6, 6), dtype=poses.dtype, device=dev)
+    u.index_add_(0, ka_n[None], Ua_n[None])
+    u.index_add_(0, kb_n[None], Ub_n[None])
+    v = _tridiag_apply(cache.factors, u)                          # [n,6,6]
+
+    # Coupling to the existing columns and the new diagonal block.
+    B = (torch.einsum('lsc,lsd->lcd', cache.Ua, v[cache.ka]) +
+         torch.einsum('lsc,lsd->lcd', cache.Ub, v[cache.kb])
+         ).reshape(6 * L_cap, 6)
+    D = (torch.einsum('sc,sd->cd', Ua_n, v[ka_n]) +
+         torch.einsum('sc,sd->cd', Ub_n, v[kb_n]) + torch.diag(diag_c))
+    D = D + torch.diag(1e-5 * torch.abs(torch.diagonal(D)))
+
+    # Block-Cholesky-inverse extension.  Rows of B at padding slots are
+    # zero (their U blocks are zero), so the row written below stays
+    # consistent with the identity padding.
+    X = cache.chol_inv @ B                                        # [K,6]
+    Ls_inv = _lower6_inverse(_chol6_matrix(D - X.T @ X))
+    full = cache.n_used >= L_cap
+    slot = torch.clamp(cache.n_used, max=L_cap - 1).reshape(1)
+    rows6 = 6 * slot + torch.arange(6, device=dev)
+    row = -Ls_inv @ (X.T @ cache.chol_inv)                        # [6,K]
+    row.index_copy_(1, rows6, Ls_inv)
+    # Full: write the slot's own values back.
+    row = torch.where(full, cache.chol_inv[rows6], row)
+    for buf, new in ((cache.Ua, Ua_n), (cache.Ub, Ub_n),
+                     (cache.ka, ka_n), (cache.kb, kb_n)):
+        buf.index_copy_(0, slot, torch.where(full, buf[slot], new[None]))
+    cache.chol_inv.index_copy_(0, rows6, row)
+    return cache._replace(n_used=torch.where(full, cache.n_used,
+                                             cache.n_used + 1))
+
+
+def solve_cached(graph: FactorGraphData, poses, pose_mask,
+                 cache: WoodburyCache,
+                 config: SolverConfig) -> SolveResult:
+    """Gauss-Newton with a PREBUILT preconditioner, the incremental fast
+    path: the same fixed point as :func:`solve` (the matvec and gradient
+    use the fresh linearization; only the preconditioner is cached),
+    without the chain factorization and capacitance build of a cold
+    solve."""
+    damping = float(config.damping)
+    poses = _snap_gauge(graph, poses)
+    e0 = _error(graph, poses, config)
+    step = _pcg_step(graph, pose_mask, config, damping,
+                     _apply_from_cache(cache))
+    return _gauss_newton(graph, poses, pose_mask, config, step, e0)
+
+
+def clone_cache(cache: WoodburyCache) -> WoodburyCache:
+    """A copy of the cache that no later extension touches (extensions
+    write every field but the chain factorization, which is shared)."""
+    return cache._replace(**{k: getattr(cache, k).clone()
+                             for k in WoodburyCache._fields
+                             if k != 'factors'})

@@ -9,7 +9,8 @@ The JAX package's ``lax.while_loop`` exits as soon as the checkers fire.
 Here the loop runs its full ``max_iterations`` count with the state
 frozen by a ``done`` mask once it would have exited, which reaches the
 same fixed point without reading a flag back to the host each
-iteration.  On failure (too few correspondences) the initial guess is
+iteration (on the CPU, where that read is free, the loop stops at the
+same point as JAX's).  On failure (too few correspondences) the initial guess is
 returned and ``IcpResult.valid`` is False.
 """
 
@@ -221,6 +222,11 @@ def icp_point_to_plane(reading: Cloud, reference: Cloud,
             mean_err = torch.where(running, err_b, mean_err)
             n_in = torch.where(running, n_new, n_in)
             done = torch.where(running, done_b, done)
+            if dev.type == 'cpu' and bool(done):
+                # A host read costs nothing on the CPU: stop where JAX's
+                # while loop stops (every later iteration would leave the
+                # frozen state as it is).
+                break
         return T, it, hist, done, mean_err, n_in
 
     C = config.coarse_capacity

@@ -17,8 +17,10 @@ from __future__ import annotations
 
 import torch
 
-# Elements of the [chunk, R] distance block computed at once.
+# Elements of the [chunk, R] distance block computed at once: large on
+# the card (fewer launches), cache-sized on the CPU.
 _BLOCK_ELEMS = 1 << 24
+_CPU_BLOCK_ELEMS = 1 << 18
 
 
 def sqdist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -31,9 +33,12 @@ def sqdist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return (dx * dx + dy * dy) + dz * dz
 
 
-def query_chunks(n_queries: int, n_refs: int):
-    """(start, stop) query ranges whose distance blocks stay bounded."""
-    step = max(1, min(n_queries, _BLOCK_ELEMS // max(n_refs, 1)))
+def query_chunks(n_queries: int, n_refs: int, device=None):
+    """(start, stop) query ranges whose distance blocks stay bounded;
+    cache-sized blocks where ``device`` is named and is the CPU."""
+    block = (_CPU_BLOCK_ELEMS if device is not None
+             and torch.device(device).type == 'cpu' else _BLOCK_ELEMS)
+    step = max(1, min(n_queries, block // max(n_refs, 1)))
     for s in range(0, n_queries, step):
         yield s, min(s + step, n_queries)
 
@@ -46,7 +51,7 @@ def nn_brute(queries: torch.Tensor, ref_points: torch.Tensor):
     Q = queries.shape[0]
     idx = torch.empty(Q, dtype=torch.int32, device=queries.device)
     d2 = torch.empty(Q, dtype=queries.dtype, device=queries.device)
-    for s, e in query_chunks(Q, ref_points.shape[0]):
+    for s, e in query_chunks(Q, ref_points.shape[0], queries.device):
         m, i = torch.min(sqdist(queries[s:e], ref_points), dim=1)
         d2[s:e] = m
         idx[s:e] = i.to(torch.int32)
@@ -59,7 +64,7 @@ def knn_brute(queries: torch.Tensor, ref_points: torch.Tensor, k: int):
     Q = queries.shape[0]
     idx = torch.empty((Q, k), dtype=torch.int32, device=queries.device)
     d2 = torch.empty((Q, k), dtype=queries.dtype, device=queries.device)
-    for s, e in query_chunks(Q, ref_points.shape[0]):
+    for s, e in query_chunks(Q, ref_points.shape[0], queries.device):
         v, i = torch.topk(sqdist(queries[s:e], ref_points), k, dim=1,
                           largest=False, sorted=True)
         d2[s:e] = v

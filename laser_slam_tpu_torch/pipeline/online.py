@@ -24,11 +24,22 @@ Port notes:
 * :func:`online_chunk` is a loop over :func:`online_step` on inputs
   uploaded once a chunk (JAX's ``lax.scan``); it computes the same as
   the per-scan calls, draws included.
-* Not ported yet (ROADMAP queue 1, slice 3 and later): the scan
-  archive, refined/cached closures, place recognition, device maps,
-  multi-robot linking and the benchmarker timers.  The JAX runner's
-  background growth precompile hides XLA recompiles and has no
-  counterpart here.
+* Loop closures: the scan archive (:class:`ScanArchive`) keeps every
+  key's scan, strided to a point budget, for submap ICP around old keys;
+  a closure is verified (:func:`verify_closure`), refined
+  (:func:`online_loop_closure_refined`) and solved cold or with a
+  persisted :class:`solver.WoodburyCache`
+  (:func:`online_loop_closure_refined_cached`).  With a scan-context
+  detector attached the runner finds closures itself: every scan's
+  descriptor is added on the device, every ``detect_every``-th key is
+  queried, and the rows are fetched ``fetch_every`` queries at a time
+  (:meth:`OnlineRunner.flush_detections`).
+* Not ported yet (ROADMAP queue 1, slice 4): device maps
+  (``return_scans``), multi-robot linking (``track_id > 0``,
+  ``force_priors``, ``align_mask``) and marginal covariances.  The JAX
+  runner's background growth precompile hides XLA recompiles and has no
+  counterpart here; neither has the delta closure solve
+  (``closure_solve='delta'``, ROADMAP "Do not port").
 """
 
 from __future__ import annotations
@@ -41,13 +52,17 @@ import numpy as np
 import torch
 
 from laser_slam_tpu_torch.config import EstimatorConfig
+from laser_slam_tpu_torch.core import benchmarker as bench
 from laser_slam_tpu_torch.graph.factors import FactorGraphData
 from laser_slam_tpu_torch.graph import solver as sv
 from laser_slam_tpu_torch.ops import cloud as pc
 from laser_slam_tpu_torch.ops import icp as icp_mod
+from laser_slam_tpu_torch.ops import scan_context as sc
 from laser_slam_tpu_torch.ops import se3
 from laser_slam_tpu_torch.ops import spherical
 from laser_slam_tpu_torch.ops.range_image import compute_normals
+
+SLICE4 = 'comes with slice 4 of the port'
 
 
 class OnlineState(NamedTuple):
@@ -201,6 +216,112 @@ def state_to_numpy(state: OnlineState) -> dict:
             for name in OnlineState._fields}
 
 
+class ScanArchive(NamedTuple):
+    """Downsampled per-key scan history for loop-closure submap ICP
+    (buildSubMapAroundTime needs scans far older than the submap ring
+    keeps, laser_track.cpp:602-651).  Row k holds the scan whose pose key
+    is k, strided down to a fixed point budget.  The per-track index
+    (``track_pos``/``track_keys``/``track_count``) windows a submap over
+    the track's own scan sequence."""
+    points: torch.Tensor       # [A,M,3] sensor frame, SENTINEL-parked
+    mask: torch.Tensor         # [A,M]
+    normals: torch.Tensor      # [A,M,3]
+    track: torch.Tensor        # [A] int32 owning track (-1 = empty row)
+    track_pos: torch.Tensor    # [A] int32 scan's position within its track
+    track_keys: torch.Tensor   # [T,A] int32 global key at track position
+    track_count: torch.Tensor  # [T] int32 scans stored per track
+
+
+def init_archive(pose_capacity: int, points_per_scan: int,
+                 n_tracks: int = 1, device='cuda') -> ScanArchive:
+    device = resolve_device(device)
+    A, M, i32 = pose_capacity, points_per_scan, torch.int32
+    return ScanArchive(
+        points=torch.full((A, M, 3), pc.SENTINEL, dtype=torch.float32,
+                          device=device),
+        mask=torch.zeros((A, M), dtype=torch.bool, device=device),
+        normals=torch.zeros((A, M, 3), dtype=torch.float32, device=device),
+        track=torch.full((A,), -1, dtype=i32, device=device),
+        track_pos=torch.zeros((A,), dtype=i32, device=device),
+        track_keys=torch.full((n_tracks, A), -1, dtype=i32, device=device),
+        track_count=torch.zeros((n_tracks,), dtype=i32, device=device))
+
+
+def archive_append(archive: ScanArchive, points: torch.Tensor,
+                   mask: torch.Tensor, normals: torch.Tensor, key,
+                   track_id: int = 0) -> ScanArchive:
+    """Store a (filtered) scan at its pose key (a 0-d device tensor or an
+    int), strided to the archive's point budget M.  Above M valid points
+    are packed first and strided evenly over the VALID count (striding
+    the padded range would dilute the row by the scan's fill ratio).
+    Writes the archive in place and returns it."""
+    N = points.shape[0]
+    M = archive.points.shape[1]
+    if N > M:
+        # Sort-free pack: valid rows to the front, the rest to an overflow
+        # row N that is cut off (JAX's scatter with mode='drop').
+        dest = torch.where(mask, torch.cumsum(mask, dim=0) - 1,
+                           torch.full((N,), N, device=mask.device))
+
+        def pack(a, fill):
+            out = a.new_full((N + 1,) + tuple(a.shape[1:]), fill)
+            out[dest] = a
+            return out[:N]
+
+        nv = torch.sum(mask)
+        i = torch.arange(M, device=points.device)
+        stride_rows = (i.to(torch.float32)
+                       * (nv.to(torch.float32) / M)).to(torch.int64)
+        rows = torch.where(nv > M, torch.clamp(stride_rows, 0, N - 1), i)
+        pts = pack(points, pc.SENTINEL)[rows]
+        msk = pack(mask, False)[rows]
+        nrm = pack(normals, 0.0)[rows]
+    else:
+        pad = M - N
+        pts = torch.cat([points, points.new_full((pad, 3), pc.SENTINEL)])
+        msk = torch.cat([mask, mask.new_zeros((pad,))])
+        nrm = torch.cat([normals, normals.new_zeros((pad, 3))])
+    pts = torch.where(msk[:, None], pts, torch.full_like(pts, pc.SENTINEL))
+    pos = archive.track_count[track_id]
+    _put(archive.points, key, pts)
+    _put(archive.mask, key, msk)
+    _put(archive.normals, key, nrm)
+    _put(archive.track, key, track_id)
+    _put(archive.track_pos, key, pos)
+    _put(archive.track_keys[track_id], pos, key)
+    archive.track_count[track_id] += 1
+    return archive
+
+
+def grow_archive(archive: ScanArchive, pose_capacity: int) -> ScanArchive:
+    """Match a grown pose table (rows keyed by pose key)."""
+    extra = pose_capacity - archive.points.shape[0]
+    return archive._replace(
+        points=torch.cat([archive.points, archive.points.new_full(
+            (extra,) + tuple(archive.points.shape[1:]), pc.SENTINEL)]),
+        mask=_pad_rows(archive.mask, pose_capacity),
+        normals=_pad_rows(archive.normals, pose_capacity),
+        track=torch.cat([archive.track, archive.track.new_full((extra,),
+                                                               -1)]),
+        track_pos=_pad_rows(archive.track_pos, pose_capacity),
+        track_keys=torch.cat([archive.track_keys, archive.track_keys.new_full(
+            (archive.track_keys.shape[0], extra), -1)], dim=1))
+
+
+def archive_from_numpy(d: dict, device='cuda') -> ScanArchive:
+    """A :class:`ScanArchive` on ``device`` from numpy arrays keyed by the
+    JAX ``ScanArchive`` field names."""
+    device = resolve_device(device)
+    return ScanArchive(**{
+        name: torch.as_tensor(np.array(d[name]), device=device)
+        for name in ScanArchive._fields})
+
+
+def archive_to_numpy(archive: ScanArchive) -> dict:
+    return {name: getattr(archive, name).cpu().numpy()
+            for name in ScanArchive._fields}
+
+
 def _graph_view(state: OnlineState) -> FactorGraphData:
     """The state's factor arrays as a solver graph (no copies).
     fixed_a is unused in the online path."""
@@ -214,10 +335,10 @@ def _graph_view(state: OnlineState) -> FactorGraphData:
         prior_weight=state.prior_weight)
 
 
-def _put(buf: torch.Tensor, row: torch.Tensor, value) -> None:
-    """buf[row] = value with a 0-d device index (no host read).  A Python
-    scalar fills the row."""
-    rows = row.reshape(1).long()
+def _put(buf: torch.Tensor, row, value) -> None:
+    """buf[row] = value with a 0-d device index (no host read) or an int.
+    A Python scalar fills the row."""
+    rows = torch.as_tensor(row, device=buf.device).reshape(1).long()
     if isinstance(value, (bool, int, float)):
         buf.index_fill_(0, rows, value)
         return
@@ -379,14 +500,14 @@ def online_step(state: OnlineState, points: torch.Tensor,
     scan and propagate by constant velocity — the relative motion between
     the last two solved poses is replayed as the pseudo-odometry
     measurement (laser_slam_worker.cpp:135-162).  Forced priors
-    (multi-robot) come in slice 3.
+    (multi-robot) come with slice 4.
     """
     lt = config.laser_track
     dev = points.device
     f32 = torch.float32
     if lt.force_priors:
         raise NotImplementedError('force_priors (multi-robot placement) '
-                                  'comes with slice 3')
+                                  + SLICE4)
 
     scan, normals = ingest(points, n_valid, config, generator)
 
@@ -520,14 +641,23 @@ def _append_lc_and_solve(state: OnlineState, key_a: int, key_b: int,
     is built cold each time)."""
     if align_mask is not None:
         raise NotImplementedError('align_mask (multi-robot group alignment) '
-                                  'comes with slice 3')
+                                  + SLICE4)
     state, _ = _append_lc_factor(state, key_a, key_b, a_T_a_b, config,
                                  remove_prior_slot, use_association)
+    result = sv.solve(_graph_view(state), state.traj_poses,
+                      _pose_mask(state), config.solver)
+    return _lc_result(state, key_b, result)
+
+
+def _pose_mask(state: OnlineState) -> torch.Tensor:
     dev = state.traj_poses.device
-    pose_mask = (torch.arange(state.traj_poses.shape[0], device=dev)
-                 < state.n_poses)
-    result = sv.solve(_graph_view(state), state.traj_poses, pose_mask,
-                      config.solver)
+    return (torch.arange(state.traj_poses.shape[0], device=dev)
+            < state.n_poses)
+
+
+def _lc_result(state: OnlineState, key_b: int, result: sv.SolveResult):
+    """The state after a closure solve, and its StepInfo."""
+    dev = state.traj_poses.device
     state = state._replace(traj_poses=result.poses,
                            last_error=result.error_final)
     info = StepInfo(key=torch.tensor(key_b, dtype=torch.int32, device=dev),
@@ -536,6 +666,36 @@ def _append_lc_and_solve(state: OnlineState, key_a: int, key_b: int,
                                             device=dev),
                     solve_error=result.error_final)
     return state, info
+
+
+def _append_lc_and_solve_cached(state: OnlineState, cache: sv.WoodburyCache,
+                                key_a: int, key_b: int,
+                                a_T_a_b: torch.Tensor,
+                                config: EstimatorConfig,
+                                remove_prior_slot: int,
+                                use_association: bool, align_mask=None):
+    """Cached-preconditioner closure solve: absorb the new factor into the
+    persisted WoodburyCache (a rank-6 extension of its capacitance
+    factor) and solve with it, as iSAM2 updates its Bayes tree instead
+    of refactoring (incremental_estimator.cpp:151-163).  Returns (state,
+    cache, info); the cache is extended in place."""
+    if align_mask is not None:
+        raise NotImplementedError('align_mask (multi-robot group alignment) '
+                                  + SLICE4)
+    if config.solver.closure_solve != 'full':
+        raise NotImplementedError(
+            f"closure_solve={config.solver.closure_solve!r}: the port runs "
+            "'full' only; the delta solve (solve_closure_cached) is on the "
+            "ROADMAP's \"Do not port\" list")
+    state, idx = _append_lc_factor(state, key_a, key_b, a_T_a_b, config,
+                                   remove_prior_slot, use_association)
+    graph, pose_mask = _graph_view(state), _pose_mask(state)
+    cache = sv.extend_cache(graph, state.traj_poses, pose_mask, cache, idx,
+                            config.solver)
+    result = sv.solve_cached(graph, state.traj_poses, pose_mask, cache,
+                             config.solver)
+    state, info = _lc_result(state, key_b, result)
+    return state, cache, info
 
 
 def online_step_ranges(state: OnlineState, words: torch.Tensor,
@@ -584,22 +744,67 @@ def online_chunk(state: OnlineState, archive, points: torch.Tensor,
     it is a loop over :func:`online_step` on inputs uploaded once, with
     the same result as C per-scan calls (the generator's draws
     included).  ``first_scan`` says that the chunk's first scan is its
-    track's first.  The scan archive (``archive``, ``with_archive``),
-    ``return_scans`` and the place-recognition stages come with slice 3.
-    Returns (state, archive, infos) with the infos' fields stacked."""
-    if archive is not None or with_archive or return_scans:
-        raise NotImplementedError('the scan archive and return_scans come '
-                                  'with slice 3')
-    if any(a is not None for a in (pr_db, pr_keys, pr_n, pr_config)):
-        raise NotImplementedError('place recognition comes with slice 3')
-    infos = []
+    track's first.
+
+    ``with_archive``: append each scan to ``archive`` (in place).
+    ``pr_db``/``pr_keys`` (the detector's tables, written in place),
+    ``pr_n`` (its host count) and ``pr_config`` (a
+    PlaceRecognitionConfig) run the scan-context cadence as further
+    stages of each scan: its descriptor is added to the database, and
+    every ``detect_every``-th key is first queried against it; the rows
+    (matched key, distance, yaw), or the sentinel (-1, inf, 0) where no
+    query ran, stay on the device as one [C,3] tensor.  Cooldown
+    filtering waits for the flush (OnlineRunner.flush_detections).
+    ``return_scans`` (device maps) comes with slice 4.
+
+    Returns (state, archive, infos[, (pr_db, pr_keys, pr_n, pr_rows)])
+    with the infos' fields stacked."""
+    if return_scans:
+        raise NotImplementedError('return_scans (device maps) ' + SLICE4)
+    use_pr = pr_config is not None
+    infos, rows = [], []
     for c in range(points.shape[0]):
+        tid = int(track_ids[c])
         state, info = online_step(
             state, points[c], n_valid[c], odom_pose7s[c], config,
-            first_scan=first_scan and c == 0, track_id=int(track_ids[c]),
+            first_scan=first_scan and c == 0, track_id=tid,
             generator=generator, odometry_free=odometry_free)
         infos.append(info)
-    return state, archive, StepInfo(*(torch.stack(v) for v in zip(*infos)))
+        scan_pts = state.ring_points[tid, -1]
+        scan_msk = state.ring_mask[tid, -1]
+        if with_archive:
+            archive = archive_append(archive, scan_pts, scan_msk,
+                                     state.ring_normals[tid, -1], info.key,
+                                     tid)
+        if use_pr:
+            rows.append(_pr_stage(pr_db, pr_keys, pr_n, scan_pts, scan_msk,
+                                  info.key, pr_config))
+            pr_n += 1
+    out = (state, archive,
+           StepInfo(*(torch.stack(v) for v in zip(*infos))))
+    if use_pr:
+        out += ((pr_db, pr_keys, pr_n, torch.stack(rows)),)
+    return out
+
+
+def _pr_stage(db, db_keys, n: int, points, mask, key, c) -> torch.Tensor:
+    """One scan's detector stage inside a chunk: query the database when
+    ``key`` is on the ``detect_every`` cadence (and the database is not
+    empty), then add the scan's descriptor at slot ``n``.  Returns the
+    [3] row, the sentinel (-1, inf, 0) where no query ran."""
+    desc, dist, shift = sc.descriptor_and_query(
+        db, db_keys, points, mask, key - c.exclude_recent_keys,
+        n_rings=c.n_rings, n_sectors=c.n_sectors,
+        max_radius_m=c.max_radius_m, z_offset_m=c.z_offset_m)
+    row = sc.best_row(dist, shift, db_keys, c.n_sectors)
+    do_q = (key % max(c.detect_every, 1) == 0) & (n > 0)
+    # Filled on the device: a host tensor would be a blocking copy.
+    sentinel = torch.zeros_like(row)
+    sentinel[0], sentinel[1] = -1.0, float('inf')
+    row = torch.where(do_q, row, sentinel)
+    db[n] = desc
+    db_keys[n] = key
+    return row
 
 
 def online_solve(state: OnlineState, config: EstimatorConfig
@@ -626,13 +831,150 @@ def online_loop_closure(state: OnlineState, key_a: int, key_b: int,
     converted to the relative frame of key_a exactly as
     incremental_estimator.cpp:83-87.
     """
-    T_w_a = state.traj_poses[key_a]
-    T_w_b = state.traj_poses[key_b]
-    a_T_a_b = se3.compose(se3.inverse(T_w_a),
-                          se3.compose(se3.normalize(w_T_a_b), T_w_b))
-    return _append_lc_and_solve(state, key_a, key_b, a_T_a_b, config,
-                                remove_prior_slot, use_association,
-                                align_mask)
+    return _append_lc_and_solve(
+        state, key_a, key_b, _relative_guess(state, key_a, key_b, w_T_a_b),
+        config, remove_prior_slot, use_association, align_mask)
+
+
+def _relative_guess(state: OnlineState, key_a, key_b, w_T_a_b):
+    """The world-frame alignment in key_a's frame (incremental_estimator.
+    cpp:83-87): T_w_a^-1 w_T_a_b T_w_b."""
+    return se3.compose(se3.inverse(state.traj_poses[key_a]),
+                       se3.compose(se3.normalize(w_T_a_b),
+                                   state.traj_poses[key_b]))
+
+
+def online_loop_closure_cached(state: OnlineState, cache: sv.WoodburyCache,
+                               key_a: int, key_b: int,
+                               w_T_a_b: torch.Tensor,
+                               config: EstimatorConfig,
+                               remove_prior_slot: int = -1,
+                               use_association: bool = False,
+                               align_mask=None):
+    """:func:`online_loop_closure` with a persisted solver cache: the new
+    factor extends the cached capacitance factor instead of a rebuild.
+    Returns (state, cache, info)."""
+    return _append_lc_and_solve_cached(
+        state, cache, key_a, key_b,
+        _relative_guess(state, key_a, key_b, w_T_a_b), config,
+        remove_prior_slot, use_association, align_mask)
+
+
+def _gather_submap(state: OnlineState, archive: ScanArchive, center_key,
+                   frame_T_inv: torch.Tensor, radius: int):
+    """Submap around a key from the archive, in ``frame_T_inv``'s frame
+    (buildSubMapAroundTime, laser_track.cpp:602-651): the ``radius``
+    preceding and following scans OF THE CENTER KEY'S TRACK, moved by
+    their current pose estimates.  Returns (cloud [(2R+1)*M], normals).
+    Every index is clamped: JAX clamps its out-of-range gathers, torch
+    would raise."""
+    A = archive.points.shape[0]
+    dev = archive.points.device
+    track = archive.track[center_key].long()
+    tid = torch.clamp(track, min=0)
+    ps = (archive.track_pos[center_key].long()
+          + torch.arange(-radius, radius + 1, device=dev))
+    ks = archive.track_keys[tid, torch.clamp(ps, 0, A - 1)].long()
+    ksc = torch.clamp(ks, 0, A - 1)
+    valid_k = ((ps >= 0) & (ps < archive.track_count[tid]) &
+               (ks >= 0) & (ks < state.n_poses) & (track >= 0))
+    msk = archive.mask[ksc] & valid_k[:, None]
+    rel = se3.compose(frame_T_inv, state.traj_poses[ksc])      # [2R+1,7]
+    wpts = se3.apply(rel[:, None, :], archive.points[ksc])
+    wnrm = se3.quat_rotate(rel[:, None, :4], archive.normals[ksc])
+    cloud = pc.Cloud(torch.where(msk[..., None], wpts,
+                                 torch.full_like(wpts, pc.SENTINEL)
+                                 ).reshape(-1, 3), msk.reshape(-1))
+    return cloud, wnrm.reshape(-1, 3)
+
+
+def _closure_icp(state: OnlineState, archive: ScanArchive, key_a, key_b,
+                 w_T_a_b, config: EstimatorConfig):
+    """Submap ICP of a closure candidate (incremental_estimator.cpp:
+    90-115): radius submaps around both keys from the archive, key_b's
+    compacted to the reading budget and registered point-to-plane onto
+    key_a's, from the candidate's alignment.  Returns (guess, reading,
+    icp result)."""
+    R = config.loop_closures_sub_maps_radius
+    guess = _relative_guess(state, key_a, key_b, w_T_a_b)
+    submap_a, normals_a = _gather_submap(
+        state, archive, key_a, se3.inverse(state.traj_poses[key_a]), R)
+    submap_b, _ = _gather_submap(
+        state, archive, key_b, se3.inverse(state.traj_poses[key_b]), R)
+    icp_cfg = config.laser_track.icp
+    reading = pc.compact(submap_b, icp_cfg.reading_capacity)
+    res = icp_mod.icp_point_to_plane(reading, submap_a, normals_a, guess,
+                                     icp_cfg)
+    return guess, reading, res
+
+
+def _refine_lc_meas(state: OnlineState, archive: ScanArchive, key_a, key_b,
+                    w_T_a_b, config: EstimatorConfig):
+    """Submap-ICP refinement of a closure alignment; a failed ICP falls
+    back to the guess (the reference's ConvergenceError path,
+    laser_track.cpp:495-502).  Returns (meas, icp result)."""
+    guess, _, res = _closure_icp(state, archive, key_a, key_b, w_T_a_b,
+                                 config)
+    return torch.where(res.valid, res.T, guess), res
+
+
+def online_loop_closure_refined(state: OnlineState, archive: ScanArchive,
+                                key_a: int, key_b: int,
+                                w_T_a_b: torch.Tensor,
+                                config: EstimatorConfig,
+                                remove_prior_slot: int = -1,
+                                use_association: bool = False,
+                                align_mask=None
+                                ) -> Tuple[OnlineState, StepInfo]:
+    """Loop closure with submap-ICP refinement of the alignment (see
+    :func:`_refine_lc_meas`), solved cold."""
+    meas, res = _refine_lc_meas(state, archive, key_a, key_b, w_T_a_b,
+                                config)
+    state, info = _append_lc_and_solve(state, key_a, key_b, meas, config,
+                                       remove_prior_slot, use_association,
+                                       align_mask)
+    return state, info._replace(icp_valid=res.valid,
+                                icp_inliers=res.num_inliers)
+
+
+def online_loop_closure_refined_cached(state: OnlineState,
+                                       archive: ScanArchive,
+                                       cache: sv.WoodburyCache,
+                                       key_a: int, key_b: int,
+                                       w_T_a_b: torch.Tensor,
+                                       config: EstimatorConfig,
+                                       remove_prior_slot: int = -1,
+                                       use_association: bool = False,
+                                       align_mask=None):
+    """:func:`online_loop_closure_refined` with a persisted solver cache
+    (see :func:`online_loop_closure_cached`).  Returns (state, cache,
+    info)."""
+    meas, res = _refine_lc_meas(state, archive, key_a, key_b, w_T_a_b,
+                                config)
+    state, cache, info = _append_lc_and_solve_cached(
+        state, cache, key_a, key_b, meas, config, remove_prior_slot,
+        use_association, align_mask)
+    return state, cache, info._replace(icp_valid=res.valid,
+                                       icp_inliers=res.num_inliers)
+
+
+def verify_closure(state: OnlineState, archive: ScanArchive, key_a, key_b,
+                   w_T_a_b: torch.Tensor,
+                   config: EstimatorConfig) -> torch.Tensor:
+    """Geometric verification of a loop-closure CANDIDATE (no state
+    change): submap ICP from the candidate alignment, scored by fit.
+    The reference trusts whatever segmatch sends (incremental_estimator.
+    cpp:63-149); with in-tree detection a gate is needed, since descriptor
+    matching is subject to perceptual aliasing.
+
+    Returns [4] f32 on the device: (icp_valid, mean |p2pl residual| m,
+    inlier fraction of the reading, reading point count)."""
+    _, reading, res = _closure_icp(state, archive, key_a, key_b, w_T_a_b,
+                                   config)
+    n_read = torch.clamp(torch.sum(reading.mask), min=1).to(torch.float32)
+    frac = res.num_inliers.to(torch.float32) / n_read
+    return torch.stack([res.valid.to(torch.float32), res.mean_error, frac,
+                        n_read])
 
 
 def extract_trajectory(state: OnlineState) -> np.ndarray:
@@ -646,19 +988,29 @@ class OnlineRunner:
     everything else on the device.  Single track; scans come as xyz
     points or, after :meth:`enable_packed_ingest`, as uint16 range
     images, one at a time (:meth:`process_scan`) or in chunks
-    (:meth:`process_scans`).  The multi-robot bookkeeping, scan archive,
-    device map and place recognition of the JAX runner come in later
-    slices."""
+    (:meth:`process_scans`).  With a scan archive and a place-recognition
+    detector it finds, verifies and injects loop closures itself.  The
+    multi-robot bookkeeping and the device map of the JAX runner come
+    with slice 4."""
 
     def __init__(self, config: EstimatorConfig, pose_capacity: int = 4096,
                  factor_capacity: int = 8192,
                  minimum_distance_to_add_pose: float = 0.0, seed: int = 0,
-                 use_odometry_information: bool = True, device='cuda'):
+                 use_odometry_information: bool = True,
+                 archive_points: int = 0, place_recognition=None,
+                 device='cuda'):
         """``seed`` seeds the runner's ``torch.Generator`` (the JAX
         runner's ``rng_key``).  ``use_odometry_information=False``
         switches to the constant-velocity odometry-free mode (pass
-        ``odom_pose7=None``).  ``device`` is the card unless the caller
-        names another (``'cpu'`` for the CPU)."""
+        ``odom_pose7=None``).  ``archive_points`` > 0 keeps a per-key scan
+        archive of that many points a scan on the device: closures can
+        then be verified, and are refined by submap ICP when
+        ``config.do_icp_step_on_loop_closures`` is set.
+        ``place_recognition`` (a PlaceRecognitionConfig) attaches the
+        scan-context detector, so loop closures are detected and injected
+        automatically (pair it with ``archive_points``).  ``device`` is
+        the card unless the caller names another (``'cpu'`` for the
+        CPU)."""
         self.config = config
         self.device = resolve_device(device)
         self.state = init_state(config, pose_capacity, factor_capacity,
@@ -668,7 +1020,22 @@ class OnlineRunner:
         self.min_dist = minimum_distance_to_add_pose
         self.use_odometry = use_odometry_information
         self._last_odom: Optional[np.ndarray] = None
-        # time_ns per key, in key order.
+        self.archive = (init_archive(pose_capacity, archive_points,
+                                     device=self.device)
+                        if archive_points > 0 else None)
+        self.detector = None
+        if place_recognition is not None:
+            from laser_slam_tpu_torch.pipeline.place_recognition import (
+                ScanContextDetector)
+            self.detector = ScanContextDetector(place_recognition,
+                                                device=self.device)
+        self.detections: list = []       # (key_a, key_b, distance, yaw)
+        # Candidates that failed a gate: (key_a, key_b, distance,
+        # inlier_fraction, mean_residual_m); a fraction of -1 marks the
+        # odometry-consistency gate, with the separation in metres last.
+        self.rejected_detections: list = []
+        self._pr_pending: list = []      # unfetched (keys, device rows)
+        # (track_id, time_ns) per key, in key order.
         self.key_info: list = []
         self.scan_cap = config.laser_track.input_filters.scan_capacity
         self._tracks_seen: set = set()
@@ -679,6 +1046,11 @@ class OnlineRunner:
         # Packed (uint16 range-image) ingest — see enable_packed_ingest.
         self._beam_table = None
         self._range_unit_m = None
+        # Persisted closure-solve cache (solver.WoodburyCache): built on
+        # the first closure, extended rank-6 per closure, rebuilt after
+        # cache_rebuild_after appended factors or any growth.
+        self._solver_cache = None
+        self._cache_rel_count = 0
 
     def enable_packed_ingest(self, elev_deg, n_azimuth: int,
                              range_unit_m: Optional[float] = None) -> None:
@@ -724,6 +1096,12 @@ class OnlineRunner:
                                        self._n_priors_seen + new_priors)
         if kw:
             self.state = grow_state(self.state, **kw)
+            if self.archive is not None and 'pose_capacity' in kw:
+                self.archive = grow_archive(self.archive,
+                                            kw['pose_capacity'])
+            # The solver cache's chain factorization is sized to the old
+            # pose capacity.
+            self._solver_cache = None
 
     def _gate(self, odom_pose7) -> Optional[np.ndarray]:
         """The odometry to integrate a frame with, or None when the frame
@@ -746,13 +1124,15 @@ class OnlineRunner:
                      track_id: int = 0) -> bool:
         """Gate on travelled distance and integrate one scan (xyz
         ``[N, 3]`` or, with packed ingest, uint16 ``[B, A]``); returns
-        whether it was integrated."""
+        whether it was integrated.  Timed as ``online.process_scan`` when
+        the benchmarker is on (host time: the card runs asynchronously)."""
         if track_id != 0:
-            raise NotImplementedError('multi-track runs come with slice 3')
-        odom = self._gate(odom_pose7)
-        if odom is None:
-            return False
-        return self._integrate_one(time_ns, points, odom, track_id)
+            raise NotImplementedError('multi-track runs ' + SLICE4)
+        with bench.scoped_timer('online.process_scan'):
+            odom = self._gate(odom_pose7)
+            if odom is None:
+                return False
+            return self._integrate_one(time_ns, points, odom, track_id)
 
     def process_scans(self, frames, track_id: int = 0,
                       chunk_size: int = 8) -> int:
@@ -761,34 +1141,38 @@ class OnlineRunner:
         one transfer and run by :func:`online_chunk`; a remainder runs
         through the per-scan step.  Gives the same result as
         :meth:`process_scan` per frame; returns the number of scans
-        accepted (min-distance gating applies)."""
+        accepted (min-distance gating applies).  Timed as
+        ``online.process_scans``."""
         if track_id != 0:
-            raise NotImplementedError('multi-track runs come with slice 3')
+            raise NotImplementedError('multi-track runs ' + SLICE4)
         frames = [(f.time_ns, f.points, f.odom_pose7)
                   if hasattr(f, 'points') else f for f in frames]
-        accepted = []
-        for t, p, o in frames:
-            odom = self._gate(o)
-            if odom is not None:
-                accepted.append((t, p, odom))
-        chunk_size = max(int(chunk_size), 1)
-        # Chunks are payload-homogeneous (one uint16 [C,B,A] or one f32
-        # [C,N,3] upload), so a mixed stream is split into same-kind runs.
-        runs = []
-        for frame in accepted:
-            kind = self._is_packed_scan(frame[1])
-            if runs and runs[-1][0] == kind:
-                runs[-1][1].append(frame)
-            else:
-                runs.append((kind, [frame]))
-        for _, run in runs:
-            n_chunks = len(run) // chunk_size if chunk_size > 1 else 0
-            for ci in range(n_chunks):
-                self._dispatch_chunk(
-                    run[ci * chunk_size:(ci + 1) * chunk_size], track_id)
-            for t, p, o in run[n_chunks * chunk_size:]:
-                self._integrate_one(t, p, o, track_id)
-        return len(accepted)
+        with bench.scoped_timer('online.process_scans'):
+            accepted = []
+            for t, p, o in frames:
+                odom = self._gate(o)
+                if odom is not None:
+                    accepted.append((t, p, odom))
+            chunk_size = max(int(chunk_size), 1)
+            # Chunks are payload-homogeneous (one uint16 [C,B,A] or one
+            # f32 [C,N,3] upload), so a mixed stream is split into
+            # same-kind runs.
+            runs = []
+            for frame in accepted:
+                kind = self._is_packed_scan(frame[1])
+                if runs and runs[-1][0] == kind:
+                    runs[-1][1].append(frame)
+                else:
+                    runs.append((kind, [frame]))
+            for _, run in runs:
+                n_chunks = len(run) // chunk_size if chunk_size > 1 else 0
+                for ci in range(n_chunks):
+                    self._dispatch_chunk(
+                        run[ci * chunk_size:(ci + 1) * chunk_size],
+                        track_id)
+                for t, p, o in run[n_chunks * chunk_size:]:
+                    self._integrate_one(t, p, o, track_id)
+            return len(accepted)
 
     def _pad_xyz(self, points) -> Tuple[np.ndarray, int]:
         pts = np.asarray(points, np.float32)
@@ -827,19 +1211,41 @@ class OnlineRunner:
                 self.device)
             nv = torch.tensor([n for _, n in padded], dtype=torch.int32,
                               device=self.device)
-        self.state, _, _ = online_chunk(
-            self.state, None, pts, nv, odos, [track_id] * C, self.config,
-            odometry_free=not self.use_odometry, first_scan=first,
-            generator=self.generator)
-        self.key_info.extend(t for t, _, _ in chunk)
+        pr_kw = {}
+        if self.detector is not None:
+            # The detector cadence runs inside the chunk (adds, and every
+            # detect_every-th key's query); its rows come back as one
+            # [C,3] device tensor, read at the flush.
+            self.detector.ensure_room(C)
+            pr_kw = dict(pr_db=self.detector.db,
+                         pr_keys=self.detector.db_keys, pr_n=self.detector.n,
+                         pr_config=self.detector.config)
+        out = online_chunk(
+            self.state, self.archive, pts, nv, odos, [track_id] * C,
+            self.config, odometry_free=not self.use_odometry,
+            with_archive=self.archive is not None, first_scan=first,
+            generator=self.generator, **pr_kw)
+        self.state, self.archive = out[0], out[1]
+        base_key = len(self.key_info)
+        self.key_info.extend((track_id, t) for t, _, _ in chunk)
+        if self.detector is not None:
+            _, _, self.detector.n, pr_rows = out[3]
+            self._pr_pending.append((list(range(base_key, base_key + C)),
+                                     pr_rows))
+            de = max(self.detector.config.detect_every, 1)
+            n_queries = sum(1 for ks, _ in self._pr_pending for k in ks
+                            if k % de == 0)
+            if n_queries >= max(self.detector.config.fetch_every, 1):
+                self.flush_detections()
 
     def _integrate_one(self, time_ns: int, points: np.ndarray,
                        odom_pose7: np.ndarray, track_id: int = 0) -> bool:
-        """Single online_step for an already-gated frame."""
+        """Single online_step for an already-gated frame, then the
+        archive append and the detector stage."""
         first = self._begin(1, track_id)
         odom = torch.tensor(odom_pose7, device=self.device)
         if self._is_packed_scan(points):
-            self.state, _ = online_step_ranges(
+            self.state, info = online_step_ranges(
                 self.state, spherical.words_to_device(points, self.device),
                 self._beam_table, odom, self.config, first_scan=first,
                 track_id=track_id, generator=self.generator,
@@ -847,13 +1253,112 @@ class OnlineRunner:
                 range_unit_m=self._range_unit_m)
         else:
             padded, n = self._pad_xyz(points)
-            self.state, _ = online_step(
+            self.state, info = online_step(
                 self.state, torch.from_numpy(padded).to(self.device), n,
                 odom, self.config, first_scan=first, track_id=track_id,
                 generator=self.generator,
                 odometry_free=not self.use_odometry)
-        self.key_info.append(time_ns)
+        if self.archive is not None:
+            self.archive = archive_append(
+                self.archive, self.state.ring_points[track_id, -1],
+                self.state.ring_mask[track_id, -1],
+                self.state.ring_normals[track_id, -1], info.key, track_id)
+        self.key_info.append((track_id, time_ns))
+        if self.detector is not None:
+            self._pr_scan(track_id, len(self.key_info) - 1)
         return True
+
+    def _pr_scan(self, track_id: int, key: int) -> None:
+        """Feed the newest filtered scan (sensor frame, on the device in
+        the submap ring) to the detector.  A query runs on the
+        ``detect_every`` cadence outside the cooldown; its row stays on
+        the device, and ``fetch_every`` rows are read in one transfer."""
+        pts = self.state.ring_points[track_id, -1]
+        msk = self.state.ring_mask[track_id, -1]
+        pr_cfg = self.detector.config
+        cooldown = (self.detections and key - self.detections[-1][1]
+                    < pr_cfg.min_keys_between_detections)
+        if (key % max(pr_cfg.detect_every, 1) != 0 or self.detector.n == 0
+                or cooldown):
+            self.detector.add(pts, msk, key)
+            return
+        res = self.detector.query_async(pts, msk, key, add=True)
+        self._pr_pending.append(([key], res[None]))
+        if len(self._pr_pending) >= max(pr_cfg.fetch_every, 1):
+            self.flush_detections()
+
+    def flush_detections(self) -> None:
+        """Read every pending query row in ONE device-to-host transfer and
+        inject the closures that pass the threshold, the cooldown and the
+        verification gates.  Runs by itself every ``fetch_every`` queries;
+        call it to drain before reading final results.  Timed as
+        ``online.flush_detections``."""
+        if not self._pr_pending:
+            return
+        with bench.scoped_timer('online.flush_detections'):
+            pending, self._pr_pending = self._pr_pending, []
+            keys = [k for ks, _ in pending for k in ks]
+            rows = torch.cat([r for _, r in pending]).cpu().numpy()
+            pr_cfg = self.detector.config
+            for key, row in zip(keys, rows):
+                det = self.detector.to_detection(row)
+                if det is None:
+                    continue
+                if (self.detections and key - self.detections[-1][1]
+                        < pr_cfg.min_keys_between_detections):
+                    continue
+                self._inject_detection(det, key)
+
+    def _inject_detection(self, det, key: int) -> None:
+        """Gate one detection and add it as a loop closure.  Reads the two
+        keys' poses (one transfer) and, to verify, four floats."""
+        pr_cfg = self.detector.config
+        pair = self.state.traj_poses[[det.key, key]].cpu()
+        # Odometry-consistency gate: a same-track candidate asserts
+        # co-location, so the implied correction (the keys' estimated
+        # separation) must be explainable by odometry drift.  It catches
+        # perfect aliasing, which registers with zero ICP residual.
+        k_sig = pr_cfg.odom_consistency_sigmas
+        if k_sig > 0 and self.key_info[det.key][0] == self.key_info[key][0]:
+            sigma_t = max(self.config.laser_track.odometry_noise_model[3:6])
+            allowed = k_sig * sigma_t * float(np.sqrt(abs(key - det.key)))
+            sep_m = float(np.linalg.norm(pair[0, 4:].numpy()
+                                         - pair[1, 4:].numpy()))
+            if sep_m > allowed:
+                self.rejected_detections.append(
+                    (det.key, key, det.distance, -1.0, sep_m))
+                return
+        # a_T_a_b ~= Rz(yaw) (same place, another heading), so w_T_a_b =
+        # T_w_a Rz(yaw) T_w_b^-1 (incremental_estimator.cpp:83-87).
+        half = 0.5 * det.yaw_rad
+        rz = torch.tensor([np.cos(half), 0.0, 0.0, np.sin(half), 0.0, 0.0,
+                           0.0], dtype=torch.float32)
+        w_T_a_b = se3.compose(pair[0], se3.compose(rz, se3.inverse(pair[1])))
+        if pr_cfg.verify_with_icp and self.archive is not None:
+            if not self._verify(det.key, key, w_T_a_b,
+                                pr_cfg.min_inlier_fraction,
+                                pr_cfg.max_mean_residual_m, det.distance):
+                return
+        self.detections.append((det.key, key, det.distance, det.yaw_rad))
+        self.add_loop_closure(det.key, key, w_T_a_b.numpy())
+
+    def _verify(self, key_a: int, key_b: int, w_T_a_b, min_inlier_fraction,
+                max_mean_residual_m, distance) -> bool:
+        """Score a candidate with :func:`verify_closure` (one read of its
+        four floats, timed as ``online.verify_closure``); record it in
+        ``rejected_detections`` and return False when it fails."""
+        with bench.scoped_timer('online.verify_closure'):
+            ok, mean_err, frac, _ = verify_closure(
+                self.state, self.archive, key_a, key_b,
+                torch.tensor(np.asarray(w_T_a_b, np.float32),
+                             device=self.device),
+                self.config).cpu().numpy()
+        if (ok > 0.5 and frac >= min_inlier_fraction
+                and mean_err <= max_mean_residual_m):
+            return True
+        self.rejected_detections.append(
+            (key_a, key_b, distance, float(frac), float(mean_err)))
+        return False
 
     def refine(self, iterations: int = 1,
                gn_iterations: Optional[int] = None,
@@ -880,22 +1385,110 @@ class OnlineRunner:
 
     def add_loop_closure(self, key_a: int, key_b: int,
                          w_T_a_b: np.ndarray,
-                         verify_with_icp: bool = False) -> bool:
+                         verify_with_icp: bool = False,
+                         min_inlier_fraction: float = 0.3,
+                         max_mean_residual_m: float = 0.3) -> bool:
         """Inject a loop closure between two keys of the track and solve
-        the full graph (the uncached, unrefined path of the JAX runner).
-        ``verify_with_icp`` needs the scan archive of slice 3."""
+        the full graph.  With a scan archive and
+        ``do_icp_step_on_loop_closures`` the alignment is first refined by
+        submap ICP (incremental_estimator.cpp:90-115); with
+        ``preconditioner='woodbury'`` the solve extends the persisted
+        cache instead of building its preconditioner cold.  The solve is
+        timed as ``online.lc_solve_dispatch``.
+
+        ``verify_with_icp`` (needs the archive): score the closure with
+        :func:`verify_closure` against the given thresholds first, and
+        drop it (recorded in ``rejected_detections``, returns False) when
+        the submaps do not align.  Returns True when injected."""
+        key_a, key_b = int(key_a), int(key_b)
         if verify_with_icp:
-            raise NotImplementedError('verify_with_icp needs the scan '
-                                      'archive, which comes with slice 3')
+            if self.archive is None:
+                raise ValueError('verify_with_icp needs a scan archive '
+                                 '(archive_points > 0)')
+            if not self._verify(key_a, key_b, w_T_a_b, min_inlier_fraction,
+                                max_mean_residual_m, float('nan')):
+                return False
         self._ensure_capacity(new_rels=1)
         self._n_rel_host += 1
         w_T = torch.tensor(np.asarray(w_T_a_b, np.float32),
                            device=self.device)
-        self.state, _ = online_loop_closure(
-            self.state, int(key_a), int(key_b), w_T, self.config)
+        cache = self._lc_solver_cache()
+        with bench.scoped_timer('online.lc_solve_dispatch'):
+            self.state, self._solver_cache = self._closure(
+                self.state, cache, key_a, key_b, w_T)
         return True
 
-    def trajectory(self) -> dict:
-        """{time_ns: pose7}."""
+    def _closure(self, state: OnlineState, cache, key_a: int, key_b: int,
+                 w_T: torch.Tensor):
+        """The closure program this runner's config calls for: refined
+        (archive + ``do_icp_step_on_loop_closures``) or not, cached
+        (a Woodbury cache) or cold.  Returns (state, cache)."""
+        refined = (self.archive is not None
+                   and self.config.do_icp_step_on_loop_closures)
+        if cache is not None and refined:
+            state, cache, _ = online_loop_closure_refined_cached(
+                state, self.archive, cache, key_a, key_b, w_T, self.config)
+        elif cache is not None:
+            state, cache, _ = online_loop_closure_cached(
+                state, cache, key_a, key_b, w_T, self.config)
+        elif refined:
+            state, _ = online_loop_closure_refined(
+                state, self.archive, key_a, key_b, w_T, self.config)
+        else:
+            state, _ = online_loop_closure(state, key_a, key_b, w_T,
+                                           self.config)
+        return state, cache
+
+    def warmup_closure_path(self) -> None:
+        """Run the closure programs once, so the first real closure of a
+        stream does not pay the first-call costs (library handles, kernel
+        loads, allocator growth): the verification (when a detector with
+        ``verify_with_icp`` is attached) and the refined / cached / plain
+        closure solve :meth:`add_loop_closure` will call, on keys 0 and
+        1.  It builds the solver cache when ``preconditioner='woodbury'``
+        and keeps it, as the first closure would.  The closure programs
+        write the state and the cache in place, so they run on clones
+        that are then dropped; the archive is only read.  The runner's
+        state is untouched.  Needs >= 2 keys."""
+        if len(self.key_info) < 2:
+            raise ValueError('warmup_closure_path needs >= 2 keys '
+                             '(process some scans first)')
+        ident = se3.identity(device=self.device)
+        if (self.archive is not None and self.detector is not None
+                and self.detector.config.verify_with_icp):
+            verify_closure(self.state, self.archive, 0, 1, ident,
+                           self.config)
+        cache = self._lc_solver_cache()
+        self._closure(OnlineState(*(t.clone() for t in self.state)),
+                      None if cache is None else sv.clone_cache(cache),
+                      0, 1, ident)
+
+    def _lc_solver_cache(self):
+        """The persisted WoodburyCache for closure solves, or None when
+        the preconditioner is not 'woodbury' (the cold solve builds its
+        own).  Built on first use and rebuilt once more than
+        ``cache_rebuild_after`` factors were appended since the last build
+        (appended chain factors ride identity rows of the cached chain
+        factorization: stale, but PCG still converges).  Timed as
+        ``online.lc_cache_build``."""
+        s = self.config.solver
+        if s.preconditioner != 'woodbury':
+            return None
+        if (self._solver_cache is None
+                or self._n_rel_host - self._cache_rel_count
+                > max(s.cache_rebuild_after, 0)):
+            with bench.scoped_timer('online.lc_cache_build'):
+                self._solver_cache = sv.build_cache(
+                    _graph_view(self.state), self.state.traj_poses,
+                    _pose_mask(self.state), s)
+            self._cache_rel_count = self._n_rel_host
+        return self._solver_cache
+
+    def trajectory(self, track_id: Optional[int] = None) -> dict:
+        """{time_ns: pose7}, after applying any pending detections; pass
+        ``track_id`` to select one track."""
+        if self.detector is not None:
+            self.flush_detections()
         poses = extract_trajectory(self.state)
-        return {t: poses[i] for i, t in enumerate(self.key_info)}
+        return {t: poses[i] for i, (tid, t) in enumerate(self.key_info)
+                if track_id is None or tid == track_id}

@@ -201,9 +201,10 @@ def test_runner_gating_and_later_slices():
     odom = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)
     assert runner.process_scan(0, pts * 10, odom)
     assert not runner.process_scan(1, pts * 10, odom)   # has not moved
-    with pytest.raises(NotImplementedError, match='slice 3'):
+    with pytest.raises(NotImplementedError, match='slice 4'):
         runner.process_scan(2, pts, odom, track_id=1)
-    with pytest.raises(NotImplementedError, match='slice 3'):
+    # Verification came with slice 3; it needs the scan archive.
+    with pytest.raises(ValueError, match='archive'):
         runner.add_loop_closure(0, 0, odom, verify_with_icp=True)
     # The window solve came with slice 2: a windowed runner integrates.
     windowed = dataclasses.replace(
@@ -213,7 +214,7 @@ def test_runner_gating_and_later_slices():
     assert wrun.process_scan(0, pts * 10, odom)
     assert wrun.process_scan(1, pts * 10, odom)
     assert np.all(np.isfinite(np.stack(list(wrun.trajectory().values()))))
-    with pytest.raises(NotImplementedError, match='slice 3'):
+    with pytest.raises(NotImplementedError, match='slice 4'):
         wrun.process_scans([(2, pts, odom)], track_id=1)
 
 
@@ -248,6 +249,9 @@ def test_port_imports_no_jax():
         'from laser_slam_tpu_torch.ops import range_image, spherical\n'
         'from laser_slam_tpu_torch.pipeline import velodyne_sim\n'
         'from laser_slam_tpu_torch.experiments import nn_shootout\n'
+        'from laser_slam_tpu_torch.ops import scan_context\n'
+        'from laser_slam_tpu_torch.pipeline import place_recognition\n'
+        'from laser_slam_tpu_torch.core import benchmarker\n'
         "runpy.run_path({smoke!r}, run_name='chip_smoke')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'yaml' or m == 'laser_slam_tpu'"

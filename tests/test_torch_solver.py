@@ -252,18 +252,19 @@ def test_linearization_and_helpers_match_jax(rng):
 
 
 def test_dense_and_woodbury_wait_for_later_slices(rng):
-    """The dense method came with slice 2 and runs (held to JAX in
-    test_dense_solve_matches_jax); Woodbury still waits for slice 3."""
+    """The dense method came with slice 2 and Woodbury with slice 3: both
+    run on an exact chain and leave it where it is (held to JAX in
+    test_dense_solve_matches_jax and the Woodbury tests below)."""
     g, gt = build_chain(rng, n=4)
     poses, mask = pad_poses(gt)
     graph = to_torch_graph(g.to_device())
-    res = tsv.solve(graph, torch.tensor(poses), torch.tensor(mask),
-                    dataclasses.replace(SolverConfig(), method='dense'))
-    np.testing.assert_allclose(res.poses.numpy(), poses, atol=1e-5)
-    with pytest.raises(NotImplementedError, match='slice 3'):
+    for variant in (dict(method='dense'), dict(preconditioner='woodbury')):
+        res = tsv.solve(graph, torch.tensor(poses), torch.tensor(mask),
+                        dataclasses.replace(SolverConfig(), **variant))
+        np.testing.assert_allclose(res.poses.numpy(), poses, atol=1e-5)
+    with pytest.raises(ValueError, match='preconditioner'):
         tsv.solve(graph, torch.tensor(poses), torch.tensor(mask),
-                  dataclasses.replace(SolverConfig(),
-                                      preconditioner='woodbury'))
+                  dataclasses.replace(SolverConfig(), preconditioner='nope'))
     with pytest.raises(ValueError, match='method'):
         tsv.solve(graph, torch.tensor(poses), torch.tensor(mask),
                   dataclasses.replace(SolverConfig(), method='nope'))
@@ -322,3 +323,144 @@ def test_dense_factor_not_positive_definite_gives_nan():
         free=torch.ones(2))
     chol = tsv._dense_factor(lin, -1.0)
     assert bool(torch.all(torch.isnan(chol)))
+
+
+# Woodbury: the preconditioner, its cache, the rank-6 extension and the
+# cached solve.  The capacitance and its inverse factor are held within
+# rtol 1e-4 of their largest entry (a [6L,6L] Cholesky in another
+# order); poses after a solve within POSE_ATOL.
+WOODBURY = dict(BUDGET, preconditioner='woodbury')
+
+
+@pytest.mark.parametrize('graph', ['chain_perturbed', 'loop_closure',
+                                   'robust_outlier'])
+@pytest.mark.parametrize('init', ['zero', 'precond'])
+def test_woodbury_solve_matches_jax(rng, graph, init):
+    g, poses, mask = GRAPHS[graph](rng)
+    solve_both(g, poses, mask, pcg_init=init, **WOODBURY)
+
+
+def graph_two_closures(rng):
+    """A noisy 20-pose chain with closures (3, 19) and (3, 12): two
+    off-chain factors on one key.  Returns (graph, poses, mask, index of
+    the second closure)."""
+    n = 20
+    g, gt = build_chain(rng, n=n, noise=0.01)
+    for b in (19, 12):
+        T = jse3.compose(jse3.inverse(jnp.asarray(gt[3])), jnp.asarray(gt[b]))
+        idx = g.add_relative(3, b, np.asarray(T), SIG * 0.1)
+    return (g, *pad_poses(gt), idx)
+
+
+def assert_caches_match(tc, jc):
+    for name in ('Ua', 'Ub'):
+        np.testing.assert_allclose(getattr(tc, name).numpy(),
+                                   np.asarray(getattr(jc, name)), atol=1e-5,
+                                   err_msg=name)
+    for name in ('ka', 'kb', 'n_used'):
+        np.testing.assert_array_equal(getattr(tc, name).numpy(),
+                                      np.asarray(getattr(jc, name)),
+                                      err_msg=name)
+    want = np.asarray(jc.chol_inv)
+    np.testing.assert_allclose(tc.chol_inv.numpy(), want,
+                               atol=1e-4 * np.abs(want).max())
+
+
+def test_woodbury_cache_and_apply_match_jax(rng):
+    g, poses, mask, _ = graph_two_closures(rng)
+    jg = g.to_device()
+    cfg = dict(WOODBURY, offchain_capacity=8)
+    jc = jsv.build_cache(jg, jnp.asarray(poses), jnp.asarray(mask),
+                         JSolverConfig(**cfg))
+    tc = tsv.build_cache(to_torch_graph(jg), torch.tensor(poses),
+                         torch.tensor(mask), SolverConfig(**cfg))
+    assert int(tc.n_used) == 3             # (0, 1) on the frozen key, 2 closures
+    assert_caches_match(tc, jc)
+    r = rng.normal(size=(CAP, 6)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda c, x: jsv._apply_from_cache(c)(x))(
+        jc, jnp.asarray(r)))
+    got = tsv._apply_from_cache(tc)(torch.tensor(r)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize('capacity', [8, 2], ids=['append', 'full'])
+def test_extend_cache_and_solve_cached_match_jax(rng, capacity):
+    """Build on the graph without its second closure on key 3, extend the
+    cache with it, solve with the extended cache.  With capacity 2 the
+    cache is full after the build, and the extension writes the last
+    slot's own values back: the cache is unchanged."""
+    g, poses, mask, idx = graph_two_closures(rng)
+    jg = g.to_device()
+    jg_build = jg._replace(rel_weight=jg.rel_weight.at[idx].set(0.0))
+    cfg = dict(WOODBURY, offchain_capacity=capacity)
+    jcfg_, tcfg_ = JSolverConfig(**cfg), SolverConfig(**cfg)
+    jp, jm = jnp.asarray(poses), jnp.asarray(mask)
+    tp, tm = torch.tensor(poses), torch.tensor(mask)
+    tg = to_torch_graph(jg)
+    jc = jsv.build_cache(jg_build, jp, jm, jcfg_)
+    tc = tsv.build_cache(to_torch_graph(jg_build), tp, tm, tcfg_)
+    assert int(tc.n_used) == 2
+    before = tsv.clone_cache(tc)
+    jc = jsv.extend_cache(jg, jp, jm, jc, jnp.int32(idx), jcfg_)
+    tc = tsv.extend_cache(tg, tp, tm, tc, torch.tensor(idx), tcfg_)
+    assert_caches_match(tc, jc)
+    if capacity == 2:
+        assert int(tc.n_used) == 2
+        for name in ('Ua', 'Ub', 'ka', 'kb', 'chol_inv'):
+            assert torch.equal(getattr(tc, name), getattr(before, name)), name
+    else:
+        assert int(tc.n_used) == 3
+        assert tc.ka.tolist()[:3] == [0, 3, 3]
+    jres = jsv.solve_cached(jg, jp, jm, jc, jcfg_)
+    tres = tsv.solve_cached(tg, tp, tm, tc, tcfg_)
+    np.testing.assert_allclose(tres.poses.numpy(), np.asarray(jres.poses),
+                               atol=POSE_ATOL)
+    # The same fixed point as a cold solve.
+    cold = tsv.solve(tg, tp, tm, tcfg_)
+    np.testing.assert_allclose(tres.poses.numpy(), cold.poses.numpy(),
+                               atol=POSE_ATOL)
+
+
+def test_failed_capacitance_falls_back_to_the_chain(rng):
+    """A capacitance that is not positive definite factors to NaN in both
+    packages (torch's cholesky_ex reports it without raising), and
+    apply_M then equals the chain preconditioner's apply."""
+    g, poses, mask, _ = graph_two_closures(rng)
+    jg = g.to_device()
+    cfg = dict(WOODBURY, offchain_capacity=8)
+    jc = jsv.build_cache(jg, jnp.asarray(poses), jnp.asarray(mask),
+                         JSolverConfig(**cfg))
+    tc = tsv.build_cache(to_torch_graph(jg), torch.tensor(poses),
+                         torch.tensor(mask), SolverConfig(**cfg))
+    K = tc.chol_inv.shape[0]
+    not_pd = -np.eye(K, dtype=np.float32)
+    t_inv = torch.linalg.solve_triangular(
+        tsv._factor_or_nan(torch.tensor(not_pd)), torch.eye(K), upper=False)
+    j_inv = jax.scipy.linalg.solve_triangular(
+        jnp.linalg.cholesky(jnp.asarray(not_pd)), jnp.eye(K), lower=True)
+    assert bool(torch.all(torch.isnan(t_inv)))
+    assert bool(jnp.all(jnp.isnan(j_inv)))
+    r = rng.normal(size=(CAP, 6)).astype(np.float32)
+    got = tsv._apply_from_cache(tc._replace(chol_inv=t_inv))(
+        torch.tensor(r)).numpy()
+    want = np.asarray(jsv._apply_from_cache(jc._replace(chol_inv=j_inv))(
+        jnp.asarray(r)))
+    chain = tsv._tridiag_apply(tc.factors, torch.tensor(r)).numpy()
+    np.testing.assert_array_equal(got, chain)
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())
+
+
+def test_cholesky6_helpers_match_jax(rng):
+    X = rng.normal(size=(4, 9, 6))
+    H = (np.einsum('nki,nkj->nij', X, X) + np.eye(6)).astype(np.float32)
+    jl = np.asarray(jax.jit(jsv._chol6_matrix)(jnp.asarray(H)))
+    tl = tsv._chol6_matrix(torch.tensor(H)).numpy()
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tl @ np.swapaxes(tl, -1, -2), H, rtol=1e-4,
+                               atol=1e-4)
+    ti = tsv._lower6_inverse(torch.tensor(tl)).numpy()
+    np.testing.assert_allclose(
+        ti, np.asarray(jax.jit(jsv._lower6_inverse)(jnp.asarray(tl))),
+        rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ti @ tl, np.broadcast_to(np.eye(6), H.shape),
+                               atol=1e-4)
