@@ -94,10 +94,44 @@ result line):
    under ``torch.profiler`` (a closure in it, detected or else added and
    verified by hand), one synchronized verification and closure solve,
    cached and cold.  K1/K2 must not launch in phase 9.
+10. Multi-robot SLAM (slice 4: forced-prior tracks, cross-track linking
+   with group alignment, per-track device maps, marginal covariances)
+   through ``OnlineRunner(multirobot_config(), **MULTIROBOT_RUNNER,
+   map_config=WorkerConfig(), device='cuda')``.  No hand-written kernel
+   (the JAX package computes it outside Pallas).  (a) bench.py's
+   two-robot leg (bench.py:1112-1207): two 64-scan streams of 64 x 256
+   beams, one lap each of a 20 m circle centred at (6t, 4t), seeds 31 +
+   t, in one scene, interleaved.  Per scan (scans/s after 8 warm-up
+   pairs) and, cut to 32 scans a track, in chunks of 8 a track (the last
+   chunk pair under ``torch.profiler``), within 1 cm / 0.1 deg of
+   per-scan calls in the chunks' key order (the interleaved run gives
+   the scans other keys, and with them other window solves).  Then the
+   rendezvous link at the closest ground-truth co-location after
+   ``warmup_closure_path(use_association=True)`` (synchronized ms) and
+   ``refine(2, gn_iterations=6, pcg_iterations=128, pcg_tolerance=1e-8)``
+   (ms).  The absorbed prior's weight must be 0; the linked-map ATE
+   (track 1 against its expected places, anchored at track 0's closure
+   key) mean < 0.10 m and max < 0.35 m; each track's error to its own
+   ground truth (anchored at its first pose) max < 0.35 m and final <
+   0.15 m; each track's map after the link its map before moved by
+   that track's own correction (1 mm), the absorbed one by ~100 m.  (b)
+   Four robots, 16 scans each (seeds 31-34): links A-B, C-D, then B-C
+   at each pair's closest co-location; one group and only track 0's
+   prior remain, and after a refine every pose lies within 0.5 m of its
+   place in track 0's frame.  (c) On (a)'s linked graph,
+   ``marginal_covariances`` for 8 and 64 keys in one call each, probes
+   (at the config's 32 PCG iterations) and exact, synchronized ms a call
+   and a key; finite, the exact ones symmetric and positive
+   semi-definite; probes at 4096 PCG iterations (no factor of the
+   interleaved tracks lies on the preconditioner's chain) symmetric and
+   within rtol 2e-3 / atol 1e-5 of the exact ones on the keys within 8
+   scans of track 0's anchor or of a link key on its track (the
+   32-iteration probes' gap and the largest gap elsewhere reported).
+   K1/K2 must not launch in phase 10.
 
 The kernel counters are reset right before phase 5 (K2), phase 6 (K1),
-the shootout run of phase 7 and the production and flagship runs of
-phases 8 and 9, the main-path runs, and read right after; launches made to compare a kernel
+the shootout run of phase 7 and the production, flagship and multi-robot
+runs of phases 8-10, the main-path runs, and read right after; launches made to compare a kernel
 with its plain version are not counted.  Each kernel's bound is the larger of its bytes (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the
 card's rate for their type: f32 lane instructions over SMs x 128 lanes x
@@ -166,6 +200,19 @@ PREFETCH = {
     'flagship_kitti': dict(n_scans=KITTI_STREAM, n_azimuth=2048, seed=22,
                            **FLAG_CIRCLE),
 }
+# Phase 10, multi-robot SLAM (bench.py:1112-1207).  (a) two 64-scan
+# tracks: 8 warm-up scan pairs, then per scan; the chunked run cut to 32
+# scans a track (8 warm-up pairs, 2 timed chunk pairs, 1 profiled) to
+# keep the script inside 750 s.  (b) four 16-scan tracks.
+MR_SCANS, MR_WARM, MR_CHUNK, MR4_SCANS = 64, 8, 8, 16
+MR_CHUNKED = 32
+# (c) the probes' PCG budget for the gate (the config runs 32).
+MR_COV_PCG = 4096
+MR_CIRCLE = dict(n_beams=64, n_azimuth=256, trajectory='circle',
+                 radius_m=20.0, laps=1, world_size_m=80.0,
+                 range_noise_m=0.01, odom_noise=0.005)
+MR_PREFETCH = {'multirobot': dict(n_tracks=2, n_scans=MR_SCANS),
+               'multirobot4': dict(n_tracks=4, n_scans=MR4_SCANS)}
 _POOL = []
 
 
@@ -179,14 +226,29 @@ def beam_frames(n_take=None, **stream):
     return list(itertools.islice(vs.BeamStream(**stream), n_take))
 
 
+def multirobot_frames(n_tracks, n_scans):
+    """bench.py's multi-robot streams: one lap each of a 20 m circle
+    centred at (6t, 4t), seed 31 + t, all in the scene of seed 31."""
+    from laser_slam_tpu_torch.pipeline import velodyne_sim as vs
+    scene = vs.make_beam_scene(seed=31, world_size_m=80.0)
+    return [list(vs.BeamStream(n_scans=n_scans, center_m=(6.0 * t, 4.0 * t),
+                               seed=31 + t, scene=scene, **MR_CIRCLE))
+            for t in range(n_tracks)]
+
+
 def start_prefetch():
-    """Start making the PREFETCH streams in spawned helper processes (the
-    script's exit terminates them); returns {name: async result}."""
+    """Start making the PREFETCH and MR_PREFETCH streams in spawned
+    helper processes (the script's exit terminates them); returns {name:
+    async result}."""
     import multiprocessing
-    pool = multiprocessing.get_context('spawn').Pool(len(PREFETCH))
+    pool = multiprocessing.get_context('spawn').Pool(
+        len(PREFETCH) + len(MR_PREFETCH))
     _POOL.append(pool)
-    return {name: pool.apply_async(beam_frames, kwds=kw)
-            for name, kw in PREFETCH.items()}
+    out = {name: pool.apply_async(beam_frames, kwds=kw)
+           for name, kw in PREFETCH.items()}
+    out.update({name: pool.apply_async(multirobot_frames, kwds=kw)
+                for name, kw in MR_PREFETCH.items()})
+    return out
 
 
 def fetched(streams, name):
@@ -830,6 +892,325 @@ def flagship_phase(nk, streams):
     log('  flagship: ' + json.dumps(out))
 
 
+def in_frame(anchor_est, anchor_gt, gts):
+    """Where the poses of ground truth ``gts`` [n,7] belong in the frame
+    in which the pose of ground truth ``anchor_gt`` is estimated at
+    ``anchor_est``: anchor_est anchor_gt^-1 gts (bench.py:1196-1205)."""
+    from laser_slam_tpu_torch.ops import se3
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+    C = se3.compose(t(anchor_est), se3.inverse(t(anchor_gt)))
+    return se3.compose(C[None], t(gts).reshape(-1, 7)).numpy()
+
+
+def rendezvous(runner, gts, ta, tb):
+    """The link of bench.py:1166-1181 between tracks ta and tb: their
+    closest ground-truth co-location and its world-frame alignment from
+    the true relative pose and the estimates.  Returns (key_a, key_b,
+    index of key_a in track ta, w_T_a_b)."""
+    from laser_slam_tpu_torch.ops import se3
+    from laser_slam_tpu_torch.pipeline import online
+    keys = [[k for k, (t, _) in enumerate(runner.key_info) if t == tid]
+            for tid in range(runner.n_tracks)]
+    d = np.linalg.norm(gts[ta][:, None, 4:] - gts[tb][None, :, 4:], axis=-1)
+    ia, ib = np.unravel_index(np.argmin(d), d.shape)
+    ka, kb = keys[ta][ia], keys[tb][ib]
+    poses = online.extract_trajectory(runner.state)
+    target = in_frame(poses[ka], gts[ta][ia], gts[tb][ib])[0]
+    w_T = se3.compose(torch.tensor(target),
+                      se3.inverse(torch.tensor(poses[kb]))).numpy()
+    return ka, kb, ia, w_T
+
+
+def mr_feed(runner, streams, lo, hi, chunk=None, per_scan=False):
+    """Scans lo..hi-1 of every track, interleaved per scan, or in chunks
+    of ``chunk`` a track (bench.py:1128-1155); ``per_scan`` feeds the
+    chunks' scans one call each, in the chunks' key order."""
+    step = chunk or 1
+    for k in range(lo, hi, step):
+        for t, s in enumerate(streams):
+            frames = [(f.time_ns + t, f.points, f.odom_pose7)
+                      for f in s[k:k + step]]
+            if chunk and not per_scan:
+                runner.process_scans(frames, track_id=t, chunk_size=chunk)
+            else:
+                for frame in frames:
+                    runner.process_scan(*frame, track_id=t)
+
+
+def multirobot_phase(nk, streams, dev='cuda'):
+    """Phase 10: multi-robot SLAM (slice 4) through OnlineRunner: (a)
+    bench.py's two-robot leg with a map per track, its rendezvous link
+    and refine, (b) four robots with chained links, (c) marginal
+    covariances on (a)'s linked graph."""
+    from laser_slam_tpu_torch.config import (MULTIROBOT_RUNNER, WorkerConfig,
+                                             multirobot_config)
+    from laser_slam_tpu_torch.ops import se3
+    from laser_slam_tpu_torch.pipeline import online
+    cfg = multirobot_config()
+    map_cfg = WorkerConfig()
+    out = {}
+    t_phase = time.perf_counter()
+
+    def new_runner(n_tracks=2, maps=True):
+        return online.OnlineRunner(
+            cfg, **dict(MULTIROBOT_RUNNER, n_tracks=n_tracks),
+            map_config=map_cfg if maps else None, device=dev)
+
+    def track_poses(runner, tid):
+        return np.stack(list(runner.trajectory(tid).values()))
+
+    # (a) Two robots at 16k density: per scan, then in chunks.
+    st, waited = fetched(streams, 'multirobot')
+    gts = [np.stack([f.gt_pose7 for f in s]) for s in st]
+    log(f'multirobot (a): 2 x {MR_SCANS} beam scans of 64 x 256 (one lap '
+        'of a 20 m circle centred at (6t, 4t), seeds 31-32, one scene), '
+        f'made by a helper process ({waited:.1f} s waited for them)')
+    nk.nn_indices.launches = 0
+    nk.nn_indices_pruned.launches = 0
+    runner = new_runner()
+    mr_feed(runner, st, 0, MR_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mr_feed(runner, st, MR_WARM, MR_SCANS)
+    torch.cuda.synchronize()
+    rate = 2 * (MR_SCANS - MR_WARM) / (time.perf_counter() - t0)
+    chunked = new_runner()
+    mr_feed(chunked, st, 0, MR_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mr_feed(chunked, st, MR_WARM, MR_CHUNKED - MR_CHUNK, MR_CHUNK)
+    torch.cuda.synchronize()
+    n_chunked = 2 * (MR_CHUNKED - MR_CHUNK - MR_WARM)
+    rate_c = n_chunked / (time.perf_counter() - t0)
+    # Device activity only, as in phases 8 and 9.
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        mr_feed(chunked, st, MR_CHUNKED - MR_CHUNK, MR_CHUNKED, MR_CHUNK)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    log(f'  scans/s over {2 * (MR_SCANS - MR_WARM)} scans per scan after '
+        f'{MR_WARM} warm-up scan pairs: {rate:.4f} ({1000 / rate:.3f} ms a '
+        f'scan); in chunks of {MR_CHUNK} a track, over {n_chunked} scans '
+        f'after the same warm-up: {rate_c:.4f}')
+    prof_out = profile_summary(prof, prof_wall,
+                               range(2 * MR_CHUNKED - 2 * MR_CHUNK,
+                                     2 * MR_CHUNKED), top=8)
+    # The chunks give their scans other keys than the interleaved run
+    # (8 a track at a time), so the window solves see other poses: the
+    # chunked run is held to per-scan calls in its own key order.
+    ordered = new_runner(maps=False)
+    mr_feed(ordered, st, 0, MR_WARM)
+    mr_feed(ordered, st, MR_WARM, MR_CHUNKED, MR_CHUNK, per_scan=True)
+    gap = [pose_gaps(track_poses(ordered, t), track_poses(chunked, t))
+           for t in range(2)]
+    log(f'  chunked vs per scan in the same key order (m, deg) by track: '
+        f'{gap}')
+    if max(g[0] for g in gap) > CHUNK_ATOL_M or \
+            max(g[1] for g in gap) > CHUNK_ATOL_DEG:
+        raise AssertionError('multirobot (a): chunked and per-scan runs '
+                             'differ')
+
+    # The rendezvous link on the per-scan run, then the refine.
+    ka, kb, ia, w_T = rendezvous(runner, gts, 0, 1)
+    runner.warmup_closure_path(use_association=True)
+    lasts = runner.state.track_last_key.long()
+    old_lasts = runner.state.traj_poses[lasts].cpu()
+    maps = [runner.mapper.full_map(t) for t in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not runner.add_loop_closure(ka, kb, w_T):
+        raise AssertionError('multirobot (a): the link was not injected')
+    torch.cuda.synchronize()
+    link_ms = 1e3 * (time.perf_counter() - t0)
+    new_lasts = runner.state.traj_poses[lasts].cpu()
+    absorbed_w = float(runner.state.prior_weight[1])
+    moved, map_err = [], []
+    for t in range(2):
+        C = se3.compose(new_lasts[t], se3.inverse(old_lasts[t]))
+        want = se3.apply(C, torch.tensor(maps[t])).numpy()
+        got = runner.mapper.full_map(t)
+        map_err.append(float(np.abs(got - want).max()))
+        moved.append(float(np.linalg.norm(want - maps[t], axis=1).mean()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.refine(2, gn_iterations=6, pcg_iterations=128, pcg_tolerance=1e-8)
+    torch.cuda.synchronize()
+    refine_ms = 1e3 * (time.perf_counter() - t0)
+    # The link's cold solve alone (3 GN x 32 PCG, the scatter matvec:
+    # no factor of interleaved tracks lies on the chain) as refine(1) on
+    # a clone of the linked state, under the profiler.
+    linked_state = runner.state
+    runner.state = clone_state(linked_state)
+    prof_s = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof_s:
+        t0 = time.perf_counter()
+        runner.refine(1)
+        torch.cuda.synchronize()
+        solve_wall = time.perf_counter() - t0
+    runner.state = linked_state
+    log(f'  one cold solve of the linked graph (refine(1) on a clone, '
+        f'{1e3 * solve_wall:.3f} ms with the profiler on):')
+    solve_prof = profile_summary(
+        prof_s, solve_wall, range(1), top=8,
+        focus=(('index_add_ (the scatter matvec, gradient, blocks)',
+                ('indexFunc',)),
+               ('gathers', ('index_elementwise', 'gather'))))
+    poses = online.extract_trajectory(runner.state)
+    keys = [[k for k, (t, _) in enumerate(runner.key_info) if t == tid]
+            for tid in range(2)]
+    linked = np.linalg.norm(in_frame(poses[ka], gts[0][ia], gts[1])[:, 4:]
+                            - poses[keys[1]][:, 4:], axis=1)
+    own = []
+    for t in range(2):
+        est = poses[keys[t]]
+        own.append(np.linalg.norm(in_frame(est[0], gts[t][0], gts[t])[:, 4:]
+                                  - est[:, 4:], axis=1))
+    log(f'  link ({ka}, {kb}) at the closest co-location: {link_ms:.3f} ms '
+        f'(synchronized, after warmup_closure_path); refine {refine_ms:.3f} '
+        f'ms; absorbed prior weight {absorbed_w}')
+    log(f'  linked-map ATE: mean {linked.mean():.6f} m, max '
+        f'{linked.max():.6f} m; own error by track (mean, max, final): '
+        + str([(float(e.mean()), float(e.max()), float(e[-1])) for e in own]))
+    log(f'  maps after the link against their own correction: max '
+        f'{map_err} m over {[len(m) for m in maps]} points; mean move '
+        f'{moved} m')
+    if absorbed_w != 0.0:
+        raise AssertionError('multirobot (a): the absorbed prior is active')
+    if not (linked.mean() < 0.10 and linked.max() < 0.35):
+        raise AssertionError('multirobot (a): linked-map ATE out of bounds')
+    for e in own:
+        if not (e.max() < 0.35 and e[-1] < 0.15):
+            raise AssertionError('multirobot (a): a track\'s error is out '
+                                 'of bounds')
+    if max(map_err) > 1e-3 or not (moved[0] < 1.0
+                                   and 50.0 < moved[1] < 150.0):
+        raise AssertionError('multirobot (a): a map did not follow its '
+                             'own track')
+    out.update(scans_per_s=rate, chunked_scans_per_s=rate_c,
+               link_ms=link_ms, refine_ms=refine_ms,
+               linked_ate_mean_m=float(linked.mean()),
+               linked_ate_max_m=float(linked.max()),
+               own_err_max_m=[float(e.max()) for e in own],
+               own_err_final_m=[float(e[-1]) for e in own],
+               map_err_m=max(map_err), chunked_gap_m=max(g[0] for g in gap))
+    if prof_out is not None:
+        out.update(prof_out)
+    if solve_prof is not None:
+        out['solve_profile'] = solve_prof
+    log(f'  phase 10 (a) took {time.perf_counter() - t_phase:.1f} s')
+
+    # (b) Four robots, chained links A-B, C-D, B-C.
+    t_b = time.perf_counter()
+    st4, _ = fetched(streams, 'multirobot4')
+    gts4 = [np.stack([f.gt_pose7 for f in s]) for s in st4]
+    r4 = new_runner(4, maps=False)
+    mr_feed(r4, st4, 0, MR4_SCANS)
+    for ta, tb in ((0, 1), (2, 3), (1, 2)):
+        a, b, _, w = rendezvous(r4, gts4, ta, tb)
+        if not r4.add_loop_closure(a, b, w):
+            raise AssertionError(f'multirobot (b): link {ta}-{tb} refused')
+        log(f'  link {ta}-{tb} at keys ({a}, {b}): groups '
+            f'{r4._linked_groups}')
+    r4.refine(2, gn_iterations=6, pcg_iterations=128, pcg_tolerance=1e-8)
+    weights = r4.state.prior_weight[:4].cpu().numpy()
+    p4 = online.extract_trajectory(r4.state)
+    keys4 = [[k for k, (t, _) in enumerate(r4.key_info) if t == tid]
+             for tid in range(4)]
+    err4 = [float(np.linalg.norm(
+        in_frame(p4[keys4[0][0]], gts4[0][0], gts4[t])[:, 4:]
+        - p4[keys4[t]][:, 4:], axis=1).max()) for t in range(4)]
+    log(f'  four robots: prior weights {weights.tolist()}, max error by '
+        f'track in track 0\'s frame {err4} m ({time.perf_counter() - t_b:.1f}'
+        ' s)')
+    if len(r4._linked_groups) != 1 or weights.tolist() != [1, 0, 0, 0]:
+        raise AssertionError('multirobot (b): the links did not merge all '
+                             'tracks under track 0\'s prior')
+    if max(err4) >= 0.5:
+        raise AssertionError('multirobot (b): a track is off its place')
+    out.update(four_robot_err_max_m=max(err4))
+
+    # (c) Marginal covariances on (a)'s linked graph.  The well-observed
+    # keys: track 0's first 9 scans and the scans within 8 of a link key
+    # on its own track.  The probes at the config's 32 PCG iterations
+    # are timed and their gap reported; no factor of interleaved tracks
+    # lies on the preconditioner's chain, so the gate holds the probes
+    # at MR_COV_PCG iterations, enough to converge them on this graph,
+    # to the exact path.
+    n = len(runner.key_info)
+    pos = {k: i for t in range(2) for i, k in enumerate(keys[t])}
+    track = {k: t for t in range(2) for k in keys[t]}
+    near = [k for k in range(n)
+            if (track[k] == 0 and pos[k] <= 8)
+            or any(track[k] == track[c] and abs(pos[k] - pos[c]) <= 8
+                   for c in (ka, kb))]
+    keys8 = np.array(sorted({keys[0][1], keys[0][4], keys[0][8], ka,
+                             keys[0][pos[ka] - 4], kb, keys[1][pos[kb] - 1],
+                             keys[1][min(pos[kb] + 4, MR_SCANS - 1)]}))
+    keys64 = np.unique(np.linspace(1, n - 1, 64).round().astype(int))
+    cov_out = {}
+    for keys_c in (keys8, keys64):
+        K = len(keys_c)
+        probe = runner.marginal_covariances(keys_c)
+        exact = runner.marginal_covariances(keys_c, exact=True)
+        p_ms = sync_ms(lambda: runner.marginal_covariances(keys_c), 3)
+        e_ms = sync_ms(lambda: runner.marginal_covariances(keys_c,
+                                                           exact=True), 3)
+        runner.config = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, pcg_iterations=MR_COV_PCG))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conv = runner.marginal_covariances(keys_c)
+        c_ms = 1e3 * (time.perf_counter() - t0)
+        runner.config = cfg
+        if not all(np.all(np.isfinite(c)) for c in (probe, exact, conv)):
+            raise AssertionError('multirobot (c): non-finite covariance')
+        scale = np.abs(exact).max(axis=(1, 2), keepdims=True)
+        asym = {label: float((np.abs(c - np.swapaxes(c, -1, -2))
+                              / scale).max())
+                for label, c in (('probes', probe), ('converged', conv),
+                                 ('exact', exact))}
+        min_eig = float(min(np.linalg.eigvalsh(c).min() / np.abs(c).max()
+                            for c in exact))
+        good = np.isin(keys_c, near)
+
+        def excess(c):
+            return float((np.abs(c[good] - exact[good])
+                          - 2e-3 * np.abs(exact[good])).max())
+
+        gap_out = (float((np.abs(conv[~good] - exact[~good])
+                          / scale[~good]).max()) if (~good).any() else 0.0)
+        log(f'  K = {K} ({int(good.sum())} well-observed): probes '
+            f'{p_ms:.3f} ms a call ({p_ms / K:.4f} ms a key), exact '
+            f'{e_ms:.3f} ms ({e_ms / K:.4f} ms a key), probes at '
+            f'{MR_COV_PCG} PCG iterations {c_ms:.3f} ms (one call); '
+            f'excess over rtol 2e-3 on the well-observed keys: probes '
+            f'{excess(probe):.3e}, at {MR_COV_PCG} iterations '
+            f'{excess(conv):.3e} (limit atol 1e-5); largest gap elsewhere '
+            f'at {MR_COV_PCG} iterations {gap_out:.3e} of the key\'s '
+            f'largest entry; asymmetry {asym}; exact min eigenvalue '
+            f'{min_eig:.3e} of the largest entry')
+        if (max(asym['converged'], asym['exact']) > 1e-3 or min_eig < -1e-9
+                or excess(conv) > 1e-5):
+            raise AssertionError(f'multirobot (c): covariances at K = {K} '
+                                 'out of bounds')
+        cov_out[K] = dict(probe_ms=p_ms, exact_ms=e_ms, converged_ms=c_ms,
+                          probe_ms_per_key=p_ms / K,
+                          exact_ms_per_key=e_ms / K,
+                          probe_excess=excess(probe),
+                          converged_excess=excess(conv),
+                          gap_elsewhere=gap_out)
+    out['covariances'] = cov_out
+    nn_launches = nk.nn_indices.launches + nk.nn_indices_pruned.launches
+    if nn_launches:
+        raise AssertionError(f'multirobot: K1/K2 launched {nn_launches} '
+                             'times')
+    log(f'  phase 10 took {time.perf_counter() - t_phase:.1f} s')
+    log('  multirobot: ' + json.dumps(out))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: chip_smoke.py runs on a GPU')
@@ -1283,7 +1664,12 @@ def main():
     flagship_phase(nk, streams)
     log(f'phase 9 took {time.perf_counter() - t0:.1f} s')
 
-    # 9. Records -------------------------------------------------------
+    # 10. Multi-robot SLAM (slice 4) ------------------------------------
+    t0 = time.perf_counter()
+    multirobot_phase(nk, streams)
+    log(f'phase 10 took {time.perf_counter() - t0:.1f} s')
+
+    # Records ----------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'
     record = {'kernels': [
         dict(name='K1 nn_indices', route='cuda', source=source,

@@ -5,10 +5,10 @@ an obvious counterpart:
 
   ops/       SE(3), point clouds, nearest neighbours, normals, ICP,
              scan-context descriptors
-  graph/     factor-graph arrays, the Gauss-Newton/PCG solver and its
-             Woodbury cache
-  pipeline/  the online SLAM step, its host runner, place recognition,
-             replay streams
+  graph/     factor-graph arrays, the Gauss-Newton/PCG solver, its
+             Woodbury cache and marginal covariances
+  pipeline/  the online SLAM step, its host runner (multi-robot tracks
+             included), device maps, place recognition, replay streams
   core/      the benchmarker (host timers)
   csrc/      hand-written CUDA kernels (built with nvcc at first use)
 

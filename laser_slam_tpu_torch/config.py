@@ -14,6 +14,8 @@ allocates fixed-size device buffers and grows them by doubling.
 end to end: the reference-equivalent online path with the exact-NN
 kernels as the ICP matcher.  :func:`production_config` is the second
 slice's: the projective matcher, image-PCA normals and the window solve.
+:func:`flagship_config` is the third's (closures through the Woodbury
+cache) and :func:`multirobot_config` the fourth's (forced-prior tracks).
 """
 
 from __future__ import annotations
@@ -623,3 +625,25 @@ def flagship_place_recognition() -> PlaceRecognitionConfig:
     return PlaceRecognitionConfig(detect_every=2, fetch_every=4,
                                   exclude_recent_keys=24,
                                   min_keys_between_detections=10)
+
+
+# The multi-robot runner's capacities (bench.py:1125-1127): a 2048-key
+# pose table, 8192 factors, two tracks and a 1024-point archive row.
+MULTIROBOT_RUNNER = dict(pose_capacity=2048, factor_capacity=8192,
+                         n_tracks=2, archive_points=1024)
+
+
+def multirobot_config(scan_capacity: int = 16384, store_capacity: int = 16384,
+                      range_image_cols: int = 512,
+                      normal_image_cols: int = 256,
+                      **production_kw) -> EstimatorConfig:
+    """Multi-robot SLAM, as ``bench.py``'s multi-robot leg runs it
+    (bench.py:1112-1127, BASELINE config 4: 2-4 LaserTracks jointly
+    optimized): :func:`production_config` with forced priors, which park
+    track t at y = 100 t m until a rendezvous closure links it
+    (laser_track.cpp:166-170).  Run it with ``OnlineRunner(cfg,
+    **MULTIROBOT_RUNNER)``; the defaults are bench.py's 16k cell."""
+    cfg = production_config(scan_capacity, store_capacity, range_image_cols,
+                            normal_image_cols, **production_kw)
+    return dataclasses.replace(cfg, laser_track=dataclasses.replace(
+        cfg.laser_track, force_priors=True))

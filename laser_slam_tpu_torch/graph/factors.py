@@ -6,8 +6,9 @@ weight write, never a reshape.  Relative factors have residual
 log(meas^-1 * Ta^-1 * Tb); prior factors log(meas^-1 * T).  Noise models
 are diagonal sqrt-information 6-vectors ([rot, trans]).
 
-``HostGraph`` (the host-side factor store of the object API) comes with
-slice 4; the online path keeps its factors in ``OnlineState``.
+``HostGraph`` (the host-side factor store of the object API) is still
+to be ported (ROADMAP queue 1); the online path keeps its factors in
+``OnlineState``.
 """
 
 from __future__ import annotations

@@ -17,13 +17,18 @@ Port notes: JAX's out-of-bounds ``mode='drop'`` scatters become writes
 into one extra overflow row that is cut off; duplicate-index ``.at[].add``
 becomes ``index_add_``.  The PCG ``lax.while_loop`` runs its full
 iteration count with the state frozen once converged (no device read per
-iteration); the ``lax.cond`` between the chain and scatter matvecs reads
-one flag per linearization.  The GN early-out (``gn_tolerance``) masks
-the later steps' results instead of skipping them, so every step runs.
-The dense method and the Woodbury capacitance factor with ``cholesky_ex``
-(no error check, no device read; a failed factor becomes NaN, as JAX's).
-Not ported yet: marginal covariances (slice 4) and the delta closure
-solve ``solve_closure_cached`` (ROADMAP, "Do not port").
+iteration).  The ``lax.cond`` between the chain and scatter matvecs is
+decided on the host from ``offchain``, the caller's upper bound on the
+active off-chain factors (the online runner knows every factor's keys);
+a call without it reads one count per linearization.  The GN early-out
+(``gn_tolerance``) masks the later steps' results instead of skipping
+them, so every step runs.  The dense method and the Woodbury capacitance
+factor with ``cholesky_ex`` (no error check, no device read; a failed
+factor becomes NaN, as JAX's).  Marginal covariances: the f32 probes run
+all K x 6 directions as one batched PCG; the exact path factors the
+Hessian densely in float64 with torch where JAX calls scipy's sparse LU.
+Not ported: the delta closure solve ``solve_closure_cached`` and
+``marginal_covariance_cached`` (ROADMAP, "Do not port").
 """
 
 from __future__ import annotations
@@ -42,6 +47,13 @@ GAUGE_FIX_THRESHOLD = 1.0e5
 
 def _eye6(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(6, dtype=like.dtype, device=like.device)
+
+
+def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-row vector [n] shaped to broadcast over ``like`` [n, 6, ...]
+    (the matvecs and preconditioners take [N,6] states or [N,6,B]
+    batches of them)."""
+    return v.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +158,9 @@ def _linearize(graph: FactorGraphData, poses, pose_mask,
 def _free(graph: FactorGraphData, poses, pose_mask):
     """[N] f32: 1 for optimizable poses; 0 for masked-out poses and for
     poses that a gauge-fixing prior freezes (they are snapped, not
-    weighted).  JAX's ``.at[keys].max(flag)``: a sum of 0/1 flags is > 0
-    exactly when the max is 1, and index_add_ handles the duplicate
-    padding keys."""
+    weighted); the JAX package's ``_free_mask`` too.  JAX's
+    ``.at[keys].max(flag)``: a sum of 0/1 flags is > 0 exactly when the
+    max is 1, and index_add_ handles the duplicate padding keys."""
     gauge = torch.any(graph.prior_sqrt_info > GAUGE_FIX_THRESHOLD, dim=-1)
     hits = torch.zeros(poses.shape[0], dtype=poses.dtype,
                        device=poses.device)
@@ -162,23 +174,26 @@ def _free(graph: FactorGraphData, poses, pose_mask):
 # ---------------------------------------------------------------------------
 
 def _hessian_matvec(lin: _LinearizedGraph, x, damping):
-    """y = (J^T W J + damping*I) x with frozen poses passed through."""
+    """y = (J^T W J + damping*I) x with frozen poses passed through; ``x``
+    is [N,6] or a batch [N,6,B]."""
     ka, kb = lin.keys[:, 0], lin.keys[:, 1]
-    xa = x[ka] * lin.free[ka, None]
-    xb = x[kb] * lin.free[kb, None]
-    Jx = (torch.einsum('fij,fj->fi', lin.Ja, xa) +
-          torch.einsum('fij,fj->fi', lin.Jb, xb)) * lin.w_rel[:, None]
+    xa = x[ka] * _rows(lin.free[ka], x)
+    xb = x[kb] * _rows(lin.free[kb], x)
+    Jx = (torch.einsum('fij,fj...->fi...', lin.Ja, xa) +
+          torch.einsum('fij,fj...->fi...', lin.Jb, xb)) * _rows(lin.w_rel, x)
     y = torch.zeros_like(x)
-    y.index_add_(0, ka, torch.einsum('fji,fj->fi', lin.Ja, Jx))
-    y.index_add_(0, kb, torch.einsum('fji,fj->fi', lin.Jb, Jx))
+    y.index_add_(0, ka, torch.einsum('fji,fj...->fi...', lin.Ja, Jx))
+    y.index_add_(0, kb, torch.einsum('fji,fj...->fi...', lin.Jb, Jx))
 
-    xp = x[lin.prior_keys] * lin.free[lin.prior_keys, None]
-    Jpx = torch.einsum('pij,pj->pi', lin.Jp, xp) * lin.w_prior[:, None]
-    y.index_add_(0, lin.prior_keys, torch.einsum('pji,pj->pi', lin.Jp, Jpx))
+    xp = x[lin.prior_keys] * _rows(lin.free[lin.prior_keys], x)
+    Jpx = (torch.einsum('pij,pj...->pi...', lin.Jp, xp)
+           * _rows(lin.w_prior, x))
+    y.index_add_(0, lin.prior_keys,
+                 torch.einsum('pji,pj...->pi...', lin.Jp, Jpx))
 
-    y = y * lin.free[:, None] + damping * x
+    y = y * _rows(lin.free, x) + damping * x
     # Frozen/invalid poses: identity row keeps the operator SPD.
-    return y + (1.0 - lin.free)[:, None] * x
+    return y + _rows(1.0 - lin.free, x) * x
 
 
 def _chain_mask(lin: _LinearizedGraph):
@@ -237,15 +252,21 @@ def _offchain_blocks(lin: _LinearizedGraph, sel, valid):
     return Ua, Ub, ka, kb
 
 
-def _make_matvec(lin: _LinearizedGraph, damping, config):
+def _make_matvec(lin: _LinearizedGraph, damping, config, offchain=None):
     """Build ``mv(x) = (H + damping I) x`` once per linearization.
 
     'scatter': the general :func:`_hessian_matvec`.  'chain' (default):
     H = T + U U^T exactly, T the block-tridiagonal chain part applied as
     batched [N,6,6] contractions and two shifts, U the compact off-chain
     blocks.  Exact when every active off-chain factor fits in
-    ``offchain_capacity``; otherwise the scatter form is used (JAX picks
-    with a ``lax.cond``; here one flag is read per linearization).
+    ``offchain_capacity``; otherwise the scatter form is used.  JAX picks
+    with a ``lax.cond`` on the device.  Here ``offchain`` (a host int, an
+    upper bound on the active off-chain factors: those with key_b !=
+    key_a + 1 or on a gauge-frozen key) picks without a device read: the
+    chain form when it fits, the scatter form otherwise.  The two forms
+    are the same operator, so a bound above the true count changes only
+    the rounding.  Without ``offchain`` the count is read back (one sync
+    per linearization), which a direct call may accept.
     """
     if getattr(config, 'matvec', 'chain') != 'chain':
         return lambda x: _hessian_matvec(lin, x, damping)
@@ -253,7 +274,9 @@ def _make_matvec(lin: _LinearizedGraph, damping, config):
     F = lin.keys.shape[0]
     L = min(config.offchain_capacity, F)
     off = _offchain_mask(lin)
-    if int(torch.sum(off)) > L:
+    if offchain is None:
+        offchain = int(torch.sum(off))
+    if offchain > L:
         return lambda x: _hessian_matvec(lin, x, damping)
     sel, valid = _first_true_indices(off, L)
     # T excludes the selected off-chain factors entirely; their diagonal
@@ -266,16 +289,16 @@ def _make_matvec(lin: _LinearizedGraph, damping, config):
     A_up = torch.cat([A[1:].transpose(-1, -2), zero])
 
     def mv_chain(x):
-        zrow = torch.zeros((1, 6), dtype=x.dtype, device=x.device)
+        zrow = torch.zeros((1,) + x.shape[1:], dtype=x.dtype, device=x.device)
         x_prev = torch.cat([zrow, x[:-1]])
         x_next = torch.cat([x[1:], zrow])
-        y = (torch.einsum('nij,nj->ni', B, x)
-             + torch.einsum('nij,nj->ni', A, x_prev)
-             + torch.einsum('nij,nj->ni', A_up, x_next))
-        t = (torch.einsum('lsc,ls->lc', Ua, x[ka]) +
-             torch.einsum('lsc,ls->lc', Ub, x[kb]))
-        y.index_add_(0, ka, torch.einsum('lsc,lc->ls', Ua, t))
-        y.index_add_(0, kb, torch.einsum('lsc,lc->ls', Ub, t))
+        y = (torch.einsum('nij,nj...->ni...', B, x)
+             + torch.einsum('nij,nj...->ni...', A, x_prev)
+             + torch.einsum('nij,nj...->ni...', A_up, x_next))
+        t = (torch.einsum('lsc,ls...->lc...', Ua, x[ka]) +
+             torch.einsum('lsc,ls...->lc...', Ub, x[kb]))
+        y.index_add_(0, ka, torch.einsum('lsc,lc...->ls...', Ua, t))
+        y.index_add_(0, kb, torch.einsum('lsc,lc...->ls...', Ub, t))
         return y
 
     return mv_chain
@@ -608,14 +631,16 @@ def _apply_from_cache(cache: WoodburyCache):
     Ua, Ub, ka, kb = cache.Ua, cache.Ub, cache.ka, cache.kb
 
     def apply_M(r):
+        batch = r.shape[2:]
         t1 = _tridiag_apply(cache.factors, r)
-        c = (torch.einsum('lsc,ls->lc', Ua, t1[ka]) +
-             torch.einsum('lsc,ls->lc', Ub, t1[kb])).reshape(6 * L)
+        c = (torch.einsum('lsc,ls...->lc...', Ua, t1[ka]) +
+             torch.einsum('lsc,ls...->lc...', Ub, t1[kb])
+             ).reshape((6 * L,) + batch)
         # C^-1 c = L^-T (L^-1 c): two products with the prebuilt inverse.
-        y = (cache.chol_inv.T @ (cache.chol_inv @ c)).reshape(L, 6)
+        y = (cache.chol_inv.T @ (cache.chol_inv @ c)).reshape((L, 6) + batch)
         z = torch.zeros_like(r)
-        z.index_add_(0, ka, torch.einsum('lsc,lc->ls', Ua, y))
-        z.index_add_(0, kb, torch.einsum('lsc,lc->ls', Ub, y))
+        z.index_add_(0, ka, torch.einsum('lsc,lc...->ls...', Ua, y))
+        z.index_add_(0, kb, torch.einsum('lsc,lc...->ls...', Ub, y))
         out = t1 - _tridiag_apply(cache.factors, z)
         # A failed capacitance factorization degrades to the chain
         # preconditioner, never poisons the trajectory.
@@ -629,7 +654,7 @@ def _make_preconditioner(lin: _LinearizedGraph, damping, config):
     kind = config.preconditioner
     if kind == 'jacobi':
         Minv = _block_jacobi(lin, damping)
-        return lambda r: torch.einsum('nij,nj->ni', Minv, r)
+        return lambda r: torch.einsum('nij,nj...->ni...', Minv, r)
     if kind == 'tridiagonal':
         factors = _tridiag_factor(*_build_tridiag(lin, damping))
         return lambda r: _tridiag_apply(factors, r)
@@ -681,12 +706,17 @@ def _dense_apply(chol, b):
 # ---------------------------------------------------------------------------
 
 def _dot(u, v):
-    return torch.sum(u * v)
+    """<u, v> of [N,6] states; one per problem for a batch [N,6,B]."""
+    if u.dim() == 2:
+        return torch.sum(u * v)
+    return torch.sum(u * v, dim=(0, 1))
 
 
 def _pcg(lin: _LinearizedGraph, b, damping, iterations, tol, apply_M,
          matvec=None, x0=None):
-    """Preconditioned CG for H x = b over [N,6] states.
+    """Preconditioned CG for H x = b over [N,6] states, or B independent
+    problems at once over [N,6,B] (JAX's ``vmap`` of the solve: each
+    problem keeps its own step sizes and its own stop).
 
     Runs ``iterations`` steps; once the residual is within ``tol`` of
     ``|b|`` the state is frozen, which is where JAX's while loop stops.
@@ -762,14 +792,15 @@ def _snap_gauge(graph: FactorGraphData, poses):
     return poses_ext[:N]
 
 
-def _pcg_step(graph: FactorGraphData, pose_mask, config, damping, apply_M):
+def _pcg_step(graph: FactorGraphData, pose_mask, config, damping, apply_M,
+              offchain=None):
     """One GN step's linear solve by PCG with the fresh linearization's
     matvec and a preconditioner ``apply_M`` built before the loop.
     Returns ``step(poses) -> (lin, delta, pcg iterations)``."""
     def step(poses):
         lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
         b = -_gradient(lin)
-        mv = _make_matvec(lin, damping, config)
+        mv = _make_matvec(lin, damping, config, offchain)
         x0 = apply_M(b) if config.pcg_init == 'precond' else None
         delta, pcg_it = _pcg(lin, b, damping, config.pcg_iterations,
                              config.pcg_tolerance, apply_M, matvec=mv,
@@ -779,10 +810,13 @@ def _pcg_step(graph: FactorGraphData, pose_mask, config, damping, apply_M):
 
 
 def solve(graph: FactorGraphData, poses, pose_mask,
-          config: SolverConfig) -> SolveResult:
+          config: SolverConfig, offchain=None) -> SolveResult:
     """Run ``config.gn_iterations`` Gauss-Newton steps from ``poses``
     (warm-started; the incremental deployment calls this once per scan,
-    mirroring IncrementalEstimator::estimate)."""
+    mirroring IncrementalEstimator::estimate).  ``offchain``: the
+    caller's bound on the off-chain factors, which picks the matvec
+    without a device read (:func:`_make_matvec`); without it each
+    linearization reads one count back."""
     if config.method not in ('pcg', 'dense'):
         raise ValueError(f'unknown solver method {config.method!r}')
     damping = float(config.damping)
@@ -803,7 +837,8 @@ def solve(graph: FactorGraphData, poses, pose_mask,
         # iterations).
         lin0 = _linearize(graph, poses, pose_mask, config.cauchy_k)
         step = _pcg_step(graph, pose_mask, config, damping,
-                         _make_preconditioner(lin0, damping, config))
+                         _make_preconditioner(lin0, damping, config),
+                         offchain)
     return _gauss_newton(graph, poses, pose_mask, config, step, e0)
 
 
@@ -977,18 +1012,18 @@ def extend_cache(graph: FactorGraphData, poses, pose_mask,
 
 
 def solve_cached(graph: FactorGraphData, poses, pose_mask,
-                 cache: WoodburyCache,
-                 config: SolverConfig) -> SolveResult:
+                 cache: WoodburyCache, config: SolverConfig,
+                 offchain=None) -> SolveResult:
     """Gauss-Newton with a PREBUILT preconditioner, the incremental fast
     path: the same fixed point as :func:`solve` (the matvec and gradient
     use the fresh linearization; only the preconditioner is cached),
     without the chain factorization and capacitance build of a cold
-    solve."""
+    solve.  ``offchain`` as in :func:`solve`."""
     damping = float(config.damping)
     poses = _snap_gauge(graph, poses)
     e0 = _error(graph, poses, config)
     step = _pcg_step(graph, pose_mask, config, damping,
-                     _apply_from_cache(cache))
+                     _apply_from_cache(cache), offchain)
     return _gauss_newton(graph, poses, pose_mask, config, step, e0)
 
 
@@ -998,3 +1033,117 @@ def clone_cache(cache: WoodburyCache) -> WoodburyCache:
     return cache._replace(**{k: getattr(cache, k).clone()
                              for k in WoodburyCache._fields
                              if k != 'factors'})
+
+
+# ---------------------------------------------------------------------------
+# Marginal covariances (gtsam::Marginals, laser_track.cpp:421-429)
+# ---------------------------------------------------------------------------
+
+def marginal_covariance(graph: FactorGraphData, poses, pose_mask, keys,
+                        config: SolverConfig, offchain=None) -> torch.Tensor:
+    """Approximate per-key 6x6 marginal covariances: H X = E_k solved by
+    PCG for the 6 canonical directions of each requested key (the probe
+    method).  ``keys`` [K] int -> [K,6,6] on the graph's device.
+
+    The configured preconditioner and the fresh linearization's matvec
+    (``offchain`` as in :func:`solve`); all K x 6 directions run as ONE
+    batched PCG, so every iteration is a single batched matvec and
+    preconditioner apply, not 6K solves.  The f32 probes are accurate
+    for well-observed modes (near the gauge anchor, tied down by
+    closures) and saturate on weakly observed ones (JAX package's
+    accuracy envelope); :func:`marginal_covariance_exact` is the
+    float64 path for those."""
+    lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
+    damping = float(config.damping)
+    apply_M = _make_preconditioner(lin, damping, config)
+    # The chain-exact preconditioners converge in a few iterations; only
+    # the local block-Jacobi needs the generous budget.
+    iters = config.pcg_iterations * (
+        4 if config.preconditioner == 'jacobi' else 1)
+    return _marginal_probes(lin, damping, apply_M, iters, config, keys,
+                            poses, offchain)
+
+
+def _marginal_probes(lin: _LinearizedGraph, damping, apply_M, iters,
+                     config: SolverConfig, keys, poses, offchain=None):
+    """The probe core: unit right-hand sides E [N,6,6K] (column 6k+d is
+    direction d of key k), one batched PCG, and cov[k, d, :] = X[key_k,
+    :, 6k+d].  Gauge-frozen keys report 0 (their PCG identity row would
+    report I)."""
+    n = poses.shape[0]
+    keys = torch.as_tensor(keys, device=poses.device).long().reshape(-1)
+    K = keys.shape[0]
+    dev = poses.device
+    mv = _make_matvec(lin, damping, config, offchain)
+    cols = torch.arange(6 * K, device=dev)
+    E = torch.zeros((n, 6, 6 * K), dtype=poses.dtype, device=dev)
+    E.index_put_((keys.repeat_interleave(6), cols % 6, cols),
+                 torch.ones(6 * K, dtype=poses.dtype, device=dev))
+    x0 = apply_M(E) if config.pcg_init == 'precond' else None
+    X, _ = _pcg(lin, E, damping, iters, config.pcg_tolerance, apply_M,
+                matvec=mv, x0=x0)
+    Xk = X[keys].reshape(K, 6, K, 6)            # [k, state, k', direction]
+    idx = torch.arange(K, device=dev)
+    cov = Xk[idx, :, idx, :].transpose(-1, -2)  # [k, direction, state]
+    return cov * lin.free[keys][:, None, None]
+
+
+def marginal_covariance_exact(graph: FactorGraphData, poses, pose_mask,
+                              keys, config: SolverConfig,
+                              n_used=None):
+    """Exact per-key 6x6 marginal covariances in float64, the tool class
+    of the reference's ``gtsam::Marginals`` (laser_track.cpp:421-429).
+    Returns a host ``np.ndarray`` [K,6,6] float64.
+
+    The f32 linearization is taken to float64 and the damped, free-gated
+    Hessian of the first ``n_used`` poses (all rows by default) is
+    assembled densely and Cholesky-factored on the graph's device; the
+    6K unit columns are solved against it.  The rows past ``n_used`` are
+    identity rows that no active factor touches, so leaving them out
+    changes nothing.  The JAX package factors the same matrix with
+    scipy's sparse LU on the host.  With interleaved multi-robot keys the
+    Hessian is far from block-tridiagonal, so a chain factor with a
+    low-rank update would not stay low-rank; the dense factor serves the
+    online runner's pose tables: [6n,6n] float64 is 1.2 GB and about
+    6e11 flops at n = 2048, and grows as n^2 and n^3 beyond."""
+    import numpy as np
+    lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
+    n = poses.shape[0] if n_used is None else int(n_used)
+    f64 = torch.float64
+    free = lin.free.to(f64)
+    ka, kb = lin.keys[:, 0], lin.keys[:, 1]
+    w = lin.w_rel.to(f64)[:, None, None]
+    # Free-gated whitened Jacobians, exactly as _hessian_matvec gates.
+    Jaf = lin.Ja.to(f64) * free[ka][:, None, None]
+    Jbf = lin.Jb.to(f64) * free[kb][:, None, None]
+    Haa = torch.einsum('fji,fjk->fik', Jaf, Jaf * w)
+    Hbb = torch.einsum('fji,fjk->fik', Jbf, Jbf * w)
+    Hab = torch.einsum('fji,fjk->fik', Jaf, Jbf * w)
+    pk = lin.prior_keys
+    Jpf = lin.Jp.to(f64) * free[pk][:, None, None]
+    Hpp = torch.einsum('pji,pjk->pik', Jpf,
+                       Jpf * lin.w_prior.to(f64)[:, None, None])
+    H4 = torch.zeros((n, n, 6, 6), dtype=f64, device=poses.device)
+    for (ia, ib), blocks in (((ka, ka), Haa), ((kb, kb), Hbb),
+                             ((ka, kb), Hab),
+                             ((kb, ka), Hab.transpose(-1, -2)),
+                             ((pk, pk), Hpp)):
+        # Padding factors and priors sit on key 0 with zero weight; keys
+        # past n_used belong to no active factor.
+        inside = (ia < n) & (ib < n)
+        H4.index_put_((torch.where(inside, ia, 0), torch.where(inside, ib, 0)),
+                      blocks * inside[:, None, None], accumulate=True)
+    H = H4.permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
+    # Damping on free states, identity rows for frozen or invalid ones.
+    dvals = torch.where(free[:n] > 0, float(config.damping), 1.0)
+    H = H + torch.diag(torch.repeat_interleave(dvals, 6))
+    chol = torch.linalg.cholesky(H)
+    kq = torch.as_tensor(np.asarray(keys), device=poses.device).long()
+    K = kq.shape[0]
+    cols = torch.arange(6 * K, device=poses.device)
+    E = torch.zeros((6 * n, 6 * K), dtype=f64, device=poses.device)
+    E[6 * kq.repeat_interleave(6) + cols % 6, cols] = 1.0
+    X = torch.cholesky_solve(E, chol).reshape(n, 6, K, 6)
+    idx = torch.arange(K, device=poses.device)
+    out = X[kq, :, idx, :].transpose(-1, -2) * free[kq][:, None, None]
+    return out.cpu().numpy()

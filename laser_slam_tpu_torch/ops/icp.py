@@ -10,8 +10,9 @@ Here the loop runs its full ``max_iterations`` count with the state
 frozen by a ``done`` mask once it would have exited, which reaches the
 same fixed point without reading a flag back to the host each
 iteration (on the CPU, where that read is free, the loop stops at the
-same point as JAX's).  On failure (too few correspondences) the initial guess is
-returned and ``IcpResult.valid`` is False.
+same point as JAX's; ``early_break=False`` runs the card's frozen
+iterations there too).  On failure (too few correspondences) the initial
+guess is returned and ``IcpResult.valid`` is False.
 """
 
 from __future__ import annotations
@@ -99,7 +100,8 @@ def icp_point_to_plane(reading: Cloud, reference: Cloud,
                        ref_normals: torch.Tensor,
                        initial_guess: torch.Tensor,
                        config: IcpConfig,
-                       prebuilt_image=None) -> IcpResult:
+                       prebuilt_image=None,
+                       early_break: bool = True) -> IcpResult:
     """Align ``reading`` to ``reference`` starting from ``initial_guess``.
 
     ``ref_normals`` are per-reference-point unit normals in the reference
@@ -108,6 +110,8 @@ def icp_point_to_plane(reading: Cloud, reference: Cloud,
     without), 'brute' the plain torch search, 'projective' the range
     image of ``ops/range_image.py`` (``prebuilt_image`` supplies one
     built beforehand, for many readings against one reference).
+    ``early_break=False`` keeps a CPU run in the loop past convergence,
+    through the frozen iterations the card runs; the result is the same.
     """
     if config.matcher not in ('brute', 'pallas', 'projective'):
         raise ValueError(f'unknown ICP matcher {config.matcher!r}; expected '
@@ -222,7 +226,7 @@ def icp_point_to_plane(reading: Cloud, reference: Cloud,
             mean_err = torch.where(running, err_b, mean_err)
             n_in = torch.where(running, n_new, n_in)
             done = torch.where(running, done_b, done)
-            if dev.type == 'cpu' and bool(done):
+            if early_break and dev.type == 'cpu' and bool(done):
                 # A host read costs nothing on the CPU: stop where JAX's
                 # while loop stops (every later iteration would leave the
                 # frozen state as it is).

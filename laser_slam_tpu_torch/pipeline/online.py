@@ -34,11 +34,18 @@ Port notes:
   descriptor is added on the device, every ``detect_every``-th key is
   queried, and the rows are fetched ``fetch_every`` queries at a time
   (:meth:`OnlineRunner.flush_detections`).
-* Not ported yet (ROADMAP queue 1, slice 4): device maps
-  (``return_scans``), multi-robot linking (``track_id > 0``,
-  ``force_priors``, ``align_mask``) and marginal covariances.  The JAX
-  runner's background growth precompile hides XLA recompiles and has no
-  counterpart here; neither has the delta closure solve
+* Multi-robot SLAM: N tracks share the pose table and the graph; a
+  track's first scan takes a forced prior parked ``d * track_id`` along
+  y, and a closure that links two groups of tracks drops the absorbed
+  group's prior, uses the first-association sigmas and rigidly
+  pre-aligns the absorbed group (:func:`_apply_group_alignment`).  Each
+  track keeps its own device map (``pipeline/device_map.py``), fed from
+  the ring per scan or from ``online_chunk(return_scans=True)``.
+* The full-graph solves take ``offchain``, the runner's host count of
+  the factors that may lie off the block-tridiagonal chain, so choosing
+  the matvec reads nothing back (solver port notes).
+* The JAX runner's background growth precompile hides XLA recompiles and
+  has no counterpart here; neither has the delta closure solve
   (``closure_solve='delta'``, ROADMAP "Do not port").
 """
 
@@ -61,8 +68,6 @@ from laser_slam_tpu_torch.ops import scan_context as sc
 from laser_slam_tpu_torch.ops import se3
 from laser_slam_tpu_torch.ops import spherical
 from laser_slam_tpu_torch.ops.range_image import compute_normals
-
-SLICE4 = 'comes with slice 4 of the port'
 
 
 class OnlineState(NamedTuple):
@@ -488,26 +493,25 @@ def online_step(state: OnlineState, points: torch.Tensor,
                 config: EstimatorConfig, first_scan: bool,
                 track_id: int = 0,
                 generator: Optional[torch.Generator] = None,
-                odometry_free: bool = False
+                odometry_free: bool = False, offchain: Optional[int] = None
                 ) -> Tuple[OnlineState, StepInfo]:
     """Integrate one scan of one track.  ``points`` padded to capacity,
     the first ``n_valid`` (a host int or a 0-d device tensor) valid.
 
     ``first_scan`` (host bool) selects the prior branch for a track's
-    first scan — the JAX step's ``lax.cond(prev_key < 0, ...)``.
-    ``generator`` feeds the random-sampling filters when their ratio is
-    below 1.  ``odometry_free``: ignore ``odom_pose7`` after the first
-    scan and propagate by constant velocity — the relative motion between
-    the last two solved poses is replayed as the pseudo-odometry
-    measurement (laser_slam_worker.cpp:135-162).  Forced priors
-    (multi-robot) come with slice 4.
+    first scan — the JAX step's ``lax.cond(prev_key < 0, ...)``.  With
+    ``force_priors`` that prior parks the track at y = d * track_id
+    (laser_track.cpp:166-170).  ``generator`` feeds the random-sampling
+    filters when their ratio is below 1.  ``odometry_free``: ignore
+    ``odom_pose7`` after the first scan and propagate by constant
+    velocity — the relative motion between the last two solved poses is
+    replayed as the pseudo-odometry measurement (laser_slam_worker.cpp:
+    135-162).  ``offchain``: the full-graph solve's off-chain bound
+    (:func:`solver.solve`); the window solve needs none.
     """
     lt = config.laser_track
     dev = points.device
     f32 = torch.float32
-    if lt.force_priors:
-        raise NotImplementedError('force_priors (multi-robot placement) '
-                                  + SLICE4)
 
     scan, normals = ingest(points, n_valid, config, generator)
 
@@ -515,9 +519,16 @@ def online_step(state: OnlineState, points: torch.Tensor,
     odom = se3.normalize(odom_pose7)
 
     if first_scan:
-        _put(state.traj_poses, i, odom)
+        prior_T = odom
+        if lt.force_priors:
+            # Offset tracks along y (laser_track.cpp:166-170), the f32
+            # product of the JAX step.
+            prior_T = se3.identity(device=dev)
+            prior_T[5] = float(np.float32(lt.distance_between_prior_poses_m)
+                               * np.float32(track_id))
+        _put(state.traj_poses, i, prior_T)
         _put(state.pose_meas, i, odom)
-        _put(state.prior_meas, state.n_prior, odom)
+        _put(state.prior_meas, state.n_prior, prior_T)
         _put(state.prior_keys, state.n_prior, i)
         _put(state.prior_sqrt_info, state.n_prior,
              1.0 / config.prior_noise_sigma)
@@ -588,7 +599,7 @@ def online_step(state: OnlineState, points: torch.Tensor,
         pose_mask = (torch.arange(state.traj_poses.shape[0], device=dev)
                      < (i + 1))
         result = sv.solve(_graph_view(state), state.traj_poses, pose_mask,
-                          config.solver)
+                          config.solver, offchain)
         traj, error = result.poses, result.error_final
     # Ring push for this track (newest scan last).
     for ring, value in ((state.ring_points, scan.points),
@@ -633,19 +644,46 @@ def _append_lc_factor(state: OnlineState, key_a: int, key_b: int,
     return state._replace(n_rel=n_rel + 1), n_rel
 
 
+def _apply_group_alignment(state: OnlineState, key_a, key_b,
+                           a_T_a_b: torch.Tensor,
+                           align_mask: torch.Tensor) -> OnlineState:
+    """Rigidly pre-align the absorbed group's poses so that the new
+    linking factor holds when the solve starts.
+
+    A cross-track link asks for a ~100 m move of every pose of the
+    absorbed track; from the parked state that is a valley of near-zero
+    curvature, and with interleaved keys no factor of the track lies on
+    the chain the preconditioner carries (the JAX package's docstring).
+    The correction C = T_a meas T_b^-1 (or its reverse, when key_a's side
+    is the absorbed one: ``align_mask[key_b]`` picks on the device) is
+    applied to every pose of the group, as the reference shifts a
+    worker's whole odom frame (laser_slam_worker.cpp:522-540)."""
+    T_w_a = state.traj_poses[key_a]
+    T_w_b = state.traj_poses[key_b]
+    C_b = se3.compose(T_w_a, se3.compose(a_T_a_b, se3.inverse(T_w_b)))
+    C_a = se3.compose(T_w_b, se3.compose(se3.inverse(a_T_a_b),
+                                         se3.inverse(T_w_a)))
+    C = torch.where(align_mask[key_b], C_b, C_a)
+    aligned = se3.normalize(se3.compose(C[None], state.traj_poses))
+    return state._replace(traj_poses=torch.where(
+        align_mask[:, None], aligned, state.traj_poses))
+
+
 def _append_lc_and_solve(state: OnlineState, key_a: int, key_b: int,
                          a_T_a_b: torch.Tensor, config: EstimatorConfig,
                          remove_prior_slot: int, use_association: bool,
-                         align_mask=None) -> Tuple[OnlineState, StepInfo]:
+                         align_mask=None, offchain: Optional[int] = None
+                         ) -> Tuple[OnlineState, StepInfo]:
     """Append one loop-closure factor and full-solve (the preconditioner
-    is built cold each time)."""
+    is built cold each time).  ``align_mask`` ([C] bool, linking
+    closures): the absorbed group, pre-aligned first."""
     if align_mask is not None:
-        raise NotImplementedError('align_mask (multi-robot group alignment) '
-                                  + SLICE4)
+        state = _apply_group_alignment(state, key_a, key_b, a_T_a_b,
+                                       align_mask)
     state, _ = _append_lc_factor(state, key_a, key_b, a_T_a_b, config,
                                  remove_prior_slot, use_association)
     result = sv.solve(_graph_view(state), state.traj_poses,
-                      _pose_mask(state), config.solver)
+                      _pose_mask(state), config.solver, offchain)
     return _lc_result(state, key_b, result)
 
 
@@ -673,27 +711,28 @@ def _append_lc_and_solve_cached(state: OnlineState, cache: sv.WoodburyCache,
                                 a_T_a_b: torch.Tensor,
                                 config: EstimatorConfig,
                                 remove_prior_slot: int,
-                                use_association: bool, align_mask=None):
+                                use_association: bool, align_mask=None,
+                                offchain: Optional[int] = None):
     """Cached-preconditioner closure solve: absorb the new factor into the
     persisted WoodburyCache (a rank-6 extension of its capacitance
     factor) and solve with it, as iSAM2 updates its Bayes tree instead
     of refactoring (incremental_estimator.cpp:151-163).  Returns (state,
     cache, info); the cache is extended in place."""
-    if align_mask is not None:
-        raise NotImplementedError('align_mask (multi-robot group alignment) '
-                                  + SLICE4)
     if config.solver.closure_solve != 'full':
         raise NotImplementedError(
             f"closure_solve={config.solver.closure_solve!r}: the port runs "
             "'full' only; the delta solve (solve_closure_cached) is on the "
             "ROADMAP's \"Do not port\" list")
+    if align_mask is not None:
+        state = _apply_group_alignment(state, key_a, key_b, a_T_a_b,
+                                       align_mask)
     state, idx = _append_lc_factor(state, key_a, key_b, a_T_a_b, config,
                                    remove_prior_slot, use_association)
     graph, pose_mask = _graph_view(state), _pose_mask(state)
     cache = sv.extend_cache(graph, state.traj_poses, pose_mask, cache, idx,
                             config.solver)
     result = sv.solve_cached(graph, state.traj_poses, pose_mask, cache,
-                             config.solver)
+                             config.solver, offchain)
     state, info = _lc_result(state, key_b, result)
     return state, cache, info
 
@@ -704,7 +743,8 @@ def online_step_ranges(state: OnlineState, words: torch.Tensor,
                        track_id: int = 0,
                        generator: Optional[torch.Generator] = None,
                        odometry_free: bool = False,
-                       range_unit_m: Optional[float] = None
+                       range_unit_m: Optional[float] = None,
+                       offchain: Optional[int] = None
                        ) -> Tuple[OnlineState, StepInfo]:
     """:func:`online_step` fed by the sensor's native encoding: integer
     range words ``[B, A]`` on the device (0 = no echo;
@@ -718,7 +758,7 @@ def online_step_ranges(state: OnlineState, words: torch.Tensor,
     points, n_valid = spherical.decode_and_pack(words, table, range_unit_m)
     return online_step(state, points, n_valid, odom_pose7, config,
                        first_scan, track_id, generator,
-                       odometry_free=odometry_free)
+                       odometry_free=odometry_free, offchain=offchain)
 
 
 def decode_ranges_chunk(words: torch.Tensor, table: spherical.BeamTable,
@@ -736,7 +776,8 @@ def online_chunk(state: OnlineState, archive, points: torch.Tensor,
                  odometry_free: bool = False, with_archive: bool = False,
                  return_scans: bool = False, pr_db=None, pr_keys=None,
                  pr_n=None, pr_config=None, first_scan: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 offchain=None):
     """Integrate C scans from device-resident stacks: points [C,N,3],
     n_valid [C], odom_pose7s [C,7]; ``track_ids`` host ints [C].
 
@@ -755,23 +796,31 @@ def online_chunk(state: OnlineState, archive, points: torch.Tensor,
     (matched key, distance, yaw), or the sentinel (-1, inf, 0) where no
     query ran, stay on the device as one [C,3] tensor.  Cooldown
     filtering waits for the flush (OnlineRunner.flush_detections).
-    ``return_scans`` (device maps) comes with slice 4.
+    ``return_scans``: also stack each scan's stored points and mask and
+    the pose solved at that step, for ``DeviceMapper.accumulate_chunk``
+    (the ring keeps only the last few scans).  ``offchain``: each step's
+    off-chain bound (host ints [C], :func:`online_step`).
 
-    Returns (state, archive, infos[, (pr_db, pr_keys, pr_n, pr_rows)])
-    with the infos' fields stacked."""
-    if return_scans:
-        raise NotImplementedError('return_scans (device maps) ' + SLICE4)
+    Returns (state, archive, infos[, (scan_pts [C,N,3], scan_msk [C,N],
+    pose7s [C,7])][, (pr_db, pr_keys, pr_n, pr_rows)]) with the infos'
+    fields stacked."""
     use_pr = pr_config is not None
-    infos, rows = [], []
+    infos, rows, scans = [], [], []
     for c in range(points.shape[0]):
         tid = int(track_ids[c])
         state, info = online_step(
             state, points[c], n_valid[c], odom_pose7s[c], config,
             first_scan=first_scan and c == 0, track_id=tid,
-            generator=generator, odometry_free=odometry_free)
+            generator=generator, odometry_free=odometry_free,
+            offchain=None if offchain is None else offchain[c])
         infos.append(info)
         scan_pts = state.ring_points[tid, -1]
         scan_msk = state.ring_mask[tid, -1]
+        if return_scans:
+            # Copies: the ring and the pose table are written in place by
+            # the next steps.
+            scans.append((scan_pts.clone(), scan_msk.clone(),
+                          state.traj_poses[info.key.long()].clone()))
         if with_archive:
             archive = archive_append(archive, scan_pts, scan_msk,
                                      state.ring_normals[tid, -1], info.key,
@@ -782,6 +831,8 @@ def online_chunk(state: OnlineState, archive, points: torch.Tensor,
             pr_n += 1
     out = (state, archive,
            StepInfo(*(torch.stack(v) for v in zip(*infos))))
+    if return_scans:
+        out += (tuple(torch.stack(v) for v in zip(*scans)),)
     if use_pr:
         out += ((pr_db, pr_keys, pr_n, torch.stack(rows)),)
     return out
@@ -807,15 +858,18 @@ def _pr_stage(db, db_keys, n: int, points, mask, key, c) -> torch.Tensor:
     return row
 
 
-def online_solve(state: OnlineState, config: EstimatorConfig
+def online_solve(state: OnlineState, config: EstimatorConfig,
+                 offchain: Optional[int] = None
                  ) -> Tuple[OnlineState, torch.Tensor]:
     """Re-run the full-graph solve on the current state (no new factors).
-    Returns (state, final solve error)."""
+    A cross-track link's ~100 m correction leaves chain rotations that
+    one solve's trust region does not absorb; extra passes (``refine``)
+    polish them.  Returns (state, final solve error)."""
     dev = state.traj_poses.device
     pose_mask = (torch.arange(state.traj_poses.shape[0], device=dev)
                  < state.n_poses)
     result = sv.solve(_graph_view(state), state.traj_poses, pose_mask,
-                      config.solver)
+                      config.solver, offchain)
     return state._replace(traj_poses=result.poses,
                           last_error=result.error_final), result.error_final
 
@@ -824,16 +878,19 @@ def online_loop_closure(state: OnlineState, key_a: int, key_b: int,
                         w_T_a_b: torch.Tensor, config: EstimatorConfig,
                         remove_prior_slot: int = -1,
                         use_association: bool = False,
-                        align_mask=None) -> Tuple[OnlineState, StepInfo]:
+                        align_mask=None, offchain: Optional[int] = None
+                        ) -> Tuple[OnlineState, StepInfo]:
     """Add a loop-closure factor between two existing keys and re-solve.
 
     ``w_T_a_b`` is the world-frame alignment from place recognition; it is
     converted to the relative frame of key_a exactly as
-    incremental_estimator.cpp:83-87.
+    incremental_estimator.cpp:83-87.  Linking closures pass
+    ``remove_prior_slot``, ``use_association`` and ``align_mask`` (the
+    absorbed group, rigidly pre-aligned: :func:`_apply_group_alignment`).
     """
     return _append_lc_and_solve(
         state, key_a, key_b, _relative_guess(state, key_a, key_b, w_T_a_b),
-        config, remove_prior_slot, use_association, align_mask)
+        config, remove_prior_slot, use_association, align_mask, offchain)
 
 
 def _relative_guess(state: OnlineState, key_a, key_b, w_T_a_b):
@@ -850,14 +907,15 @@ def online_loop_closure_cached(state: OnlineState, cache: sv.WoodburyCache,
                                config: EstimatorConfig,
                                remove_prior_slot: int = -1,
                                use_association: bool = False,
-                               align_mask=None):
+                               align_mask=None,
+                               offchain: Optional[int] = None):
     """:func:`online_loop_closure` with a persisted solver cache: the new
     factor extends the cached capacitance factor instead of a rebuild.
     Returns (state, cache, info)."""
     return _append_lc_and_solve_cached(
         state, cache, key_a, key_b,
         _relative_guess(state, key_a, key_b, w_T_a_b), config,
-        remove_prior_slot, use_association, align_mask)
+        remove_prior_slot, use_association, align_mask, offchain)
 
 
 def _gather_submap(state: OnlineState, archive: ScanArchive, center_key,
@@ -924,7 +982,8 @@ def online_loop_closure_refined(state: OnlineState, archive: ScanArchive,
                                 config: EstimatorConfig,
                                 remove_prior_slot: int = -1,
                                 use_association: bool = False,
-                                align_mask=None
+                                align_mask=None,
+                                offchain: Optional[int] = None
                                 ) -> Tuple[OnlineState, StepInfo]:
     """Loop closure with submap-ICP refinement of the alignment (see
     :func:`_refine_lc_meas`), solved cold."""
@@ -932,7 +991,7 @@ def online_loop_closure_refined(state: OnlineState, archive: ScanArchive,
                                 config)
     state, info = _append_lc_and_solve(state, key_a, key_b, meas, config,
                                        remove_prior_slot, use_association,
-                                       align_mask)
+                                       align_mask, offchain)
     return state, info._replace(icp_valid=res.valid,
                                 icp_inliers=res.num_inliers)
 
@@ -945,7 +1004,8 @@ def online_loop_closure_refined_cached(state: OnlineState,
                                        config: EstimatorConfig,
                                        remove_prior_slot: int = -1,
                                        use_association: bool = False,
-                                       align_mask=None):
+                                       align_mask=None,
+                                       offchain: Optional[int] = None):
     """:func:`online_loop_closure_refined` with a persisted solver cache
     (see :func:`online_loop_closure_cached`).  Returns (state, cache,
     info)."""
@@ -953,7 +1013,7 @@ def online_loop_closure_refined_cached(state: OnlineState,
                                 config)
     state, cache, info = _append_lc_and_solve_cached(
         state, cache, key_a, key_b, meas, config, remove_prior_slot,
-        use_association, align_mask)
+        use_association, align_mask, offchain)
     return state, cache, info._replace(icp_valid=res.valid,
                                        icp_inliers=res.num_inliers)
 
@@ -985,20 +1045,23 @@ def extract_trajectory(state: OnlineState) -> np.ndarray:
 
 class OnlineRunner:
     """Host loop of the online path: distance gating on host odometry,
-    everything else on the device.  Single track; scans come as xyz
-    points or, after :meth:`enable_packed_ingest`, as uint16 range
-    images, one at a time (:meth:`process_scan`) or in chunks
-    (:meth:`process_scans`).  With a scan archive and a place-recognition
-    detector it finds, verifies and injects loop closures itself.  The
-    multi-robot bookkeeping and the device map of the JAX runner come
-    with slice 4."""
+    everything else on the device.  N tracks (robots) share one pose
+    table and graph; each track's scans come as xyz points or, after
+    :meth:`enable_packed_ingest`, as uint16 range images, one at a time
+    (:meth:`process_scan`) or in chunks (:meth:`process_scans`).  A
+    closure that links two groups of tracks follows the reference's
+    linked-worker semantics (incremental_estimator.cpp:165-266) through
+    host bookkeeping and device writes.  With a scan archive and a
+    place-recognition detector it finds, verifies and injects loop
+    closures itself; with a map config it keeps a device map per
+    track."""
 
     def __init__(self, config: EstimatorConfig, pose_capacity: int = 4096,
                  factor_capacity: int = 8192,
                  minimum_distance_to_add_pose: float = 0.0, seed: int = 0,
                  use_odometry_information: bool = True,
                  archive_points: int = 0, place_recognition=None,
-                 device='cuda'):
+                 n_tracks: int = 1, map_config=None, device='cuda'):
         """``seed`` seeds the runner's ``torch.Generator`` (the JAX
         runner's ``rng_key``).  ``use_odometry_information=False``
         switches to the constant-velocity odometry-free mode (pass
@@ -1008,21 +1071,30 @@ class OnlineRunner:
         ``config.do_icp_step_on_loop_closures`` is set.
         ``place_recognition`` (a PlaceRecognitionConfig) attaches the
         scan-context detector, so loop closures are detected and injected
-        automatically (pair it with ``archive_points``).  ``device`` is
-        the card unless the caller names another (``'cpu'`` for the
-        CPU)."""
+        automatically (pair it with ``archive_points``).  ``n_tracks``
+        robots share the graph (``config.laser_track.force_priors`` parks
+        each at its own prior).  ``map_config`` (a WorkerConfig) attaches
+        a device map per track (:class:`device_map.DeviceMapper`).
+        ``device`` is the card unless the caller names another (``'cpu'``
+        for the CPU)."""
         self.config = config
         self.device = resolve_device(device)
+        self.n_tracks = n_tracks
         self.state = init_state(config, pose_capacity, factor_capacity,
-                                device=self.device)
+                                n_tracks=n_tracks, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.min_dist = minimum_distance_to_add_pose
         self.use_odometry = use_odometry_information
-        self._last_odom: Optional[np.ndarray] = None
+        self._last_odom: list = [None] * n_tracks
         self.archive = (init_archive(pose_capacity, archive_points,
-                                     device=self.device)
+                                     n_tracks, device=self.device)
                         if archive_points > 0 else None)
+        self.mapper = None
+        if map_config is not None:
+            from laser_slam_tpu_torch.pipeline.device_map import DeviceMapper
+            self.mapper = DeviceMapper(map_config, n_tracks=n_tracks,
+                                       device=self.device)
         self.detector = None
         if place_recognition is not None:
             from laser_slam_tpu_torch.pipeline.place_recognition import (
@@ -1038,11 +1110,22 @@ class OnlineRunner:
         # (track_id, time_ns) per key, in key order.
         self.key_info: list = []
         self.scan_cap = config.laser_track.input_filters.scan_capacity
+        # Multi-robot bookkeeping (IncrementalEstimator's): the groups of
+        # linked tracks and the prior slot of each unlinked track > 0.
+        self._linked_groups: list = []
+        self._prior_slot_of_track: dict = {}
         self._tracks_seen: set = set()
         self._n_priors_seen = 0
         # Host mirror of the device factor counter (2 per normal scan,
         # 1 per loop closure) for capacity guarding.
         self._n_rel_host = 0
+        # Host bound on the factors off the block-tridiagonal chain (key_b
+        # != key_a + 1, or a prior's key), which picks the solver's matvec
+        # without a device read; the keys of the priors and each track's
+        # last key feed it.
+        self._n_offchain_host = 0
+        self._prior_keys: set = set()
+        self._last_key: dict = {}
         # Packed (uint16 range-image) ingest — see enable_packed_ingest.
         self._beam_table = None
         self._range_unit_m = None
@@ -1103,33 +1186,38 @@ class OnlineRunner:
             # pose capacity.
             self._solver_cache = None
 
-    def _gate(self, odom_pose7) -> Optional[np.ndarray]:
+    def _check_track(self, track_id: int) -> None:
+        if not 0 <= track_id < self.n_tracks:
+            raise ValueError(f'track_id {track_id} outside the runner\'s '
+                             f'n_tracks={self.n_tracks}')
+
+    def _gate(self, odom_pose7, track_id: int) -> Optional[np.ndarray]:
         """The odometry to integrate a frame with, or None when the frame
-        has not moved far enough since the last one."""
+        has not moved far enough since the track's last one."""
         if odom_pose7 is None:
             if self.use_odometry:
                 raise ValueError('odometry pose required when '
                                  'use_odometry_information is set')
             return se3.identity().numpy()
         odom_pose7 = np.asarray(odom_pose7, np.float32)
-        last = self._last_odom
+        last = self._last_odom[track_id]
         if last is not None and self.min_dist > 0:
             if np.linalg.norm(odom_pose7[4:] - last[4:]) <= self.min_dist:
                 return None
-        self._last_odom = odom_pose7
+        self._last_odom[track_id] = odom_pose7
         return odom_pose7
 
     def process_scan(self, time_ns: int, points: np.ndarray,
                      odom_pose7: Optional[np.ndarray] = None,
                      track_id: int = 0) -> bool:
         """Gate on travelled distance and integrate one scan (xyz
-        ``[N, 3]`` or, with packed ingest, uint16 ``[B, A]``); returns
-        whether it was integrated.  Timed as ``online.process_scan`` when
-        the benchmarker is on (host time: the card runs asynchronously)."""
-        if track_id != 0:
-            raise NotImplementedError('multi-track runs ' + SLICE4)
+        ``[N, 3]`` or, with packed ingest, uint16 ``[B, A]``) of track
+        ``track_id``; returns whether it was integrated.  Timed as
+        ``online.process_scan`` when the benchmarker is on (host time:
+        the card runs asynchronously)."""
+        self._check_track(track_id)
         with bench.scoped_timer('online.process_scan'):
-            odom = self._gate(odom_pose7)
+            odom = self._gate(odom_pose7, track_id)
             if odom is None:
                 return False
             return self._integrate_one(time_ns, points, odom, track_id)
@@ -1137,20 +1225,20 @@ class OnlineRunner:
     def process_scans(self, frames, track_id: int = 0,
                       chunk_size: int = 8) -> int:
         """Chunked ingestion of ``(time_ns, points, odom_pose7)`` tuples
-        (or ScanFrame-likes): ``chunk_size`` scans a chunk, uploaded in
-        one transfer and run by :func:`online_chunk`; a remainder runs
-        through the per-scan step.  Gives the same result as
-        :meth:`process_scan` per frame; returns the number of scans
-        accepted (min-distance gating applies).  Timed as
-        ``online.process_scans``."""
-        if track_id != 0:
-            raise NotImplementedError('multi-track runs ' + SLICE4)
+        (or ScanFrame-likes) of one track: ``chunk_size`` scans a chunk,
+        uploaded in one transfer and run by :func:`online_chunk`; a
+        remainder runs through the per-scan step.  Gives the same result
+        as :meth:`process_scan` per frame; returns the number of scans
+        accepted (min-distance gating applies).  An attached mapper
+        accumulates each chunk from its ``return_scans`` outputs.  Timed
+        as ``online.process_scans``."""
+        self._check_track(track_id)
         frames = [(f.time_ns, f.points, f.odom_pose7)
                   if hasattr(f, 'points') else f for f in frames]
         with bench.scoped_timer('online.process_scans'):
             accepted = []
             for t, p, o in frames:
-                odom = self._gate(o)
+                odom = self._gate(o, track_id)
                 if odom is not None:
                     accepted.append((t, p, odom))
             chunk_size = max(int(chunk_size), 1)
@@ -1181,23 +1269,48 @@ class OnlineRunner:
         padded[:n] = pts[:n]
         return padded, n
 
-    def _begin(self, n_scans: int, track_id: int) -> bool:
-        """Capacity and counters for ``n_scans`` new scans of a track;
-        returns whether the first of them is the track's first."""
+    def _may_be_offchain(self, key_a: int, key_b: int) -> bool:
+        """Whether a factor between two keys may land off the solver's
+        block-tridiagonal chain: keys not consecutive, or a key a prior
+        may freeze."""
+        return (key_b != key_a + 1 or key_a in self._prior_keys
+                or key_b in self._prior_keys)
+
+    def _begin(self, n_scans: int, track_id: int):
+        """Capacity and counters for ``n_scans`` new scans of a track.
+        Returns whether the first of them is the track's first, and the
+        off-chain bound at each of them."""
         first = track_id not in self._tracks_seen
         self._tracks_seen.add(track_id)
         new_rels = 2 * n_scans - (2 if first else 0)
         self._ensure_capacity(new_poses=n_scans, new_rels=new_rels,
                               new_priors=1 if first else 0)
         self._n_rel_host += new_rels
-        if first:
-            self._n_priors_seen += 1
-        return first
+        bounds = []
+        prev = self._last_key.get(track_id)
+        for key in range(len(self.key_info), len(self.key_info) + n_scans):
+            if prev is None:
+                self._prior_keys.add(key)
+            elif self._may_be_offchain(prev, key):
+                self._n_offchain_host += 2
+            bounds.append(self._n_offchain_host)
+            prev = key
+        self._last_key[track_id] = prev
+        return first, bounds
+
+    def _register_track(self, track_id: int) -> None:
+        """A track's first scan is in: prior slots are allocated in
+        first-scan order (registerPrior, incremental_estimator.cpp:
+        268-291) and the track starts a group of its own."""
+        if track_id > 0:
+            self._prior_slot_of_track[track_id] = self._n_priors_seen
+        self._n_priors_seen += 1
+        self._linked_groups.append([track_id])
 
     def _dispatch_chunk(self, chunk, track_id: int) -> None:
         """One online_chunk call over pre-gated frames."""
         C = len(chunk)
-        first = self._begin(C, track_id)
+        first, bounds = self._begin(C, track_id)
         odos = torch.from_numpy(np.stack([o for _, _, o in chunk]).astype(
             np.float32)).to(self.device)
         if self._is_packed_scan(chunk[0][1]):
@@ -1220,16 +1333,20 @@ class OnlineRunner:
             pr_kw = dict(pr_db=self.detector.db,
                          pr_keys=self.detector.db_keys, pr_n=self.detector.n,
                          pr_config=self.detector.config)
-        out = online_chunk(
+        out = list(online_chunk(
             self.state, self.archive, pts, nv, odos, [track_id] * C,
             self.config, odometry_free=not self.use_odometry,
-            with_archive=self.archive is not None, first_scan=first,
-            generator=self.generator, **pr_kw)
+            with_archive=self.archive is not None,
+            return_scans=self.mapper is not None, first_scan=first,
+            generator=self.generator, offchain=bounds, **pr_kw))
+        if self.detector is not None:
+            _, _, self.detector.n, pr_rows = out.pop()
         self.state, self.archive = out[0], out[1]
+        if self.mapper is not None:
+            self.mapper.accumulate_chunk(*out[3], track_id=track_id)
         base_key = len(self.key_info)
         self.key_info.extend((track_id, t) for t, _, _ in chunk)
         if self.detector is not None:
-            _, _, self.detector.n, pr_rows = out[3]
             self._pr_pending.append((list(range(base_key, base_key + C)),
                                      pr_rows))
             de = max(self.detector.config.detect_every, 1)
@@ -1237,12 +1354,15 @@ class OnlineRunner:
                             if k % de == 0)
             if n_queries >= max(self.detector.config.fetch_every, 1):
                 self.flush_detections()
+        # After the flush, as the JAX runner does.
+        if first:
+            self._register_track(track_id)
 
     def _integrate_one(self, time_ns: int, points: np.ndarray,
                        odom_pose7: np.ndarray, track_id: int = 0) -> bool:
         """Single online_step for an already-gated frame, then the
-        archive append and the detector stage."""
-        first = self._begin(1, track_id)
+        archive append, the map and the detector stage."""
+        first, (bound,) = self._begin(1, track_id)
         odom = torch.tensor(odom_pose7, device=self.device)
         if self._is_packed_scan(points):
             self.state, info = online_step_ranges(
@@ -1250,20 +1370,24 @@ class OnlineRunner:
                 self._beam_table, odom, self.config, first_scan=first,
                 track_id=track_id, generator=self.generator,
                 odometry_free=not self.use_odometry,
-                range_unit_m=self._range_unit_m)
+                range_unit_m=self._range_unit_m, offchain=bound)
         else:
             padded, n = self._pad_xyz(points)
             self.state, info = online_step(
                 self.state, torch.from_numpy(padded).to(self.device), n,
                 odom, self.config, first_scan=first, track_id=track_id,
                 generator=self.generator,
-                odometry_free=not self.use_odometry)
+                odometry_free=not self.use_odometry, offchain=bound)
         if self.archive is not None:
             self.archive = archive_append(
                 self.archive, self.state.ring_points[track_id, -1],
                 self.state.ring_mask[track_id, -1],
                 self.state.ring_normals[track_id, -1], info.key, track_id)
+        if self.mapper is not None:
+            self.mapper.accumulate(self.state, track_id)
         self.key_info.append((track_id, time_ns))
+        if first:
+            self._register_track(track_id)
         if self.detector is not None:
             self._pr_scan(track_id, len(self.key_info) - 1)
         return True
@@ -1309,6 +1433,7 @@ class OnlineRunner:
                     continue
                 self._inject_detection(det, key)
 
+
     def _inject_detection(self, det, key: int) -> None:
         """Gate one detection and add it as a loop closure.  Reads the two
         keys' poses (one transfer) and, to verify, four floats."""
@@ -1335,9 +1460,13 @@ class OnlineRunner:
                            0.0], dtype=torch.float32)
         w_T_a_b = se3.compose(pair[0], se3.compose(rz, se3.inverse(pair[1])))
         if pr_cfg.verify_with_icp and self.archive is not None:
-            if not self._verify(det.key, key, w_T_a_b,
-                                pr_cfg.min_inlier_fraction,
-                                pr_cfg.max_mean_residual_m, det.distance):
+            # Only the detector's check is timed, as in the JAX runner.
+            with bench.scoped_timer('online.verify_closure'):
+                passed = self._verify(det.key, key, w_T_a_b,
+                                      pr_cfg.min_inlier_fraction,
+                                      pr_cfg.max_mean_residual_m,
+                                      det.distance)
+            if not passed:
                 return
         self.detections.append((det.key, key, det.distance, det.yaw_rad))
         self.add_loop_closure(det.key, key, w_T_a_b.numpy())
@@ -1345,14 +1474,13 @@ class OnlineRunner:
     def _verify(self, key_a: int, key_b: int, w_T_a_b, min_inlier_fraction,
                 max_mean_residual_m, distance) -> bool:
         """Score a candidate with :func:`verify_closure` (one read of its
-        four floats, timed as ``online.verify_closure``); record it in
-        ``rejected_detections`` and return False when it fails."""
-        with bench.scoped_timer('online.verify_closure'):
-            ok, mean_err, frac, _ = verify_closure(
-                self.state, self.archive, key_a, key_b,
-                torch.tensor(np.asarray(w_T_a_b, np.float32),
-                             device=self.device),
-                self.config).cpu().numpy()
+        four floats); record it in ``rejected_detections`` and return
+        False when it fails."""
+        ok, mean_err, frac, _ = verify_closure(
+            self.state, self.archive, key_a, key_b,
+            torch.tensor(np.asarray(w_T_a_b, np.float32),
+                         device=self.device),
+            self.config).cpu().numpy()
         if (ok > 0.5 and frac >= min_inlier_fraction
                 and mean_err <= max_mean_residual_m):
             return True
@@ -1360,13 +1488,41 @@ class OnlineRunner:
             (key_a, key_b, distance, float(frac), float(mean_err)))
         return False
 
+    def marginal_covariances(self, keys, exact: bool = False) -> np.ndarray:
+        """Per-key 6x6 marginal covariances of the current graph (the
+        reference's Marginals query, laser_track.cpp:421-429): ``keys``,
+        a sequence of global pose keys -> [K,6,6] numpy, one read.
+
+        The f32 probes (:func:`solver.marginal_covariance`, one batched
+        PCG on the runner's device, ``config.solver``'s budget) serve
+        well-observed modes; ``exact`` takes the float64 dense
+        factorization on the same device
+        (:func:`solver.marginal_covariance_exact`), which weakly anchored
+        modes need.  On interleaved multi-robot keys no factor lies on the
+        chain the preconditioner factors, and the probes need thousands
+        of PCG iterations.  Where the JAX runner holds a live Woodbury
+        cache it takes ``marginal_covariance_cached``; the port always
+        takes the one-shot probes (ROADMAP queue 3)."""
+        graph, traj = _graph_view(self.state), self.state.traj_poses
+        pose_mask = _pose_mask(self.state)
+        if exact:
+            return sv.marginal_covariance_exact(
+                graph, traj, pose_mask, np.asarray(keys, np.int64),
+                self.config.solver, n_used=len(self.key_info))
+        keys = torch.as_tensor(np.asarray(keys, np.int64), device=self.device)
+        return sv.marginal_covariance(
+            graph, traj, pose_mask, keys, self.config.solver,
+            offchain=self._n_offchain_host).cpu().numpy()
+
     def refine(self, iterations: int = 1,
                gn_iterations: Optional[int] = None,
                pcg_iterations: Optional[int] = None,
                pcg_tolerance: Optional[float] = None) -> float:
         """Extra full-graph solve passes (:func:`online_solve`), with
-        optional stronger solver settings than the per-scan config.
-        Returns the last solve's error (one read at the end)."""
+        optional stronger solver settings than the per-scan config (after
+        a cross-track link, e.g. ``refine(2, gn_iterations=6,
+        pcg_iterations=128, pcg_tolerance=1e-8)``).  Returns the last
+        solve's error (one read at the end)."""
         cfg = self.config
         s = cfg.solver
         s = dataclasses.replace(
@@ -1380,7 +1536,8 @@ class OnlineRunner:
         cfg = dataclasses.replace(cfg, solver=s)
         err = None
         for _ in range(max(iterations, 1)):
-            self.state, err = online_solve(self.state, cfg)
+            self.state, err = online_solve(self.state, cfg,
+                                           self._n_offchain_host)
         return float(err)
 
     def add_loop_closure(self, key_a: int, key_b: int,
@@ -1388,13 +1545,18 @@ class OnlineRunner:
                          verify_with_icp: bool = False,
                          min_inlier_fraction: float = 0.3,
                          max_mean_residual_m: float = 0.3) -> bool:
-        """Inject a loop closure between two keys of the track and solve
-        the full graph.  With a scan archive and
+        """Inject a loop closure between two global keys and solve the
+        full graph.  A cross-track closure that links two groups of
+        tracks keeps the group holding track 0, removes the absorbed
+        group's prior, uses the first-association noise model and
+        rigidly pre-aligns the absorbed group (estimateAndRemove,
+        incremental_estimator.cpp:165-266).  With a scan archive and
         ``do_icp_step_on_loop_closures`` the alignment is first refined by
         submap ICP (incremental_estimator.cpp:90-115); with
         ``preconditioner='woodbury'`` the solve extends the persisted
         cache instead of building its preconditioner cold.  The solve is
-        timed as ``online.lc_solve_dispatch``.
+        timed as ``online.lc_solve_dispatch``.  An attached mapper
+        re-rigidifies each track's map by that track's own correction.
 
         ``verify_with_icp`` (needs the archive): score the closure with
         :func:`verify_closure` against the given thresholds first, and
@@ -1410,46 +1572,89 @@ class OnlineRunner:
                 return False
         self._ensure_capacity(new_rels=1)
         self._n_rel_host += 1
+        if self._may_be_offchain(key_a, key_b):
+            self._n_offchain_host += 1
+        remove_slot, use_assoc, align_mask = -1, False, None
+        track_a, track_b = self.key_info[key_a][0], self.key_info[key_b][0]
+        if track_a != track_b:
+            ga, gb = self._find_group(track_a), self._find_group(track_b)
+            if ga is not gb:
+                keep, drop = (ga, gb) if 0 in ga else (gb, ga)
+                for tid in drop:
+                    if tid in self._prior_slot_of_track:
+                        remove_slot = self._prior_slot_of_track.pop(tid)
+                        use_assoc = True
+                # The absorbed group's poses, uploaded once.
+                dropped = set(drop)
+                m = np.zeros((self.state.traj_poses.shape[0],), bool)
+                m[[k for k, (t, _) in enumerate(self.key_info)
+                   if t in dropped]] = True
+                align_mask = torch.from_numpy(m).to(self.device)
+                keep.extend(drop)
+                self._linked_groups.remove(drop)
+        old_lasts = None
+        if self.mapper is not None:
+            # Last pose of EVERY track: the solve moves all linked tracks,
+            # and each map follows its own track's correction (per-worker
+            # updateLocalMap, laser_slam_worker.cpp:522-540).
+            old_lasts = self.state.traj_poses[
+                torch.clamp(self.state.track_last_key, min=0).long()]
         w_T = torch.tensor(np.asarray(w_T_a_b, np.float32),
                            device=self.device)
         cache = self._lc_solver_cache()
         with bench.scoped_timer('online.lc_solve_dispatch'):
             self.state, self._solver_cache = self._closure(
-                self.state, cache, key_a, key_b, w_T)
+                self.state, cache, key_a, key_b, w_T, remove_slot,
+                use_assoc, align_mask, self._n_offchain_host)
+        if self.mapper is not None:
+            new_lasts = self.state.traj_poses[
+                torch.clamp(self.state.track_last_key, min=0).long()]
+            # Tracks without scans have no map; the host knows which.
+            for tid in sorted(self._tracks_seen):
+                self.mapper.rigidify(se3.compose(
+                    new_lasts[tid], se3.inverse(old_lasts[tid])), tid)
         return True
 
     def _closure(self, state: OnlineState, cache, key_a: int, key_b: int,
-                 w_T: torch.Tensor):
+                 w_T: torch.Tensor, remove_prior_slot: int = -1,
+                 use_association: bool = False, align_mask=None,
+                 offchain: Optional[int] = None):
         """The closure program this runner's config calls for: refined
         (archive + ``do_icp_step_on_loop_closures``) or not, cached
         (a Woodbury cache) or cold.  Returns (state, cache)."""
         refined = (self.archive is not None
                    and self.config.do_icp_step_on_loop_closures)
+        kw = dict(remove_prior_slot=remove_prior_slot,
+                  use_association=use_association, align_mask=align_mask,
+                  offchain=offchain)
         if cache is not None and refined:
             state, cache, _ = online_loop_closure_refined_cached(
-                state, self.archive, cache, key_a, key_b, w_T, self.config)
+                state, self.archive, cache, key_a, key_b, w_T, self.config,
+                **kw)
         elif cache is not None:
             state, cache, _ = online_loop_closure_cached(
-                state, cache, key_a, key_b, w_T, self.config)
+                state, cache, key_a, key_b, w_T, self.config, **kw)
         elif refined:
             state, _ = online_loop_closure_refined(
-                state, self.archive, key_a, key_b, w_T, self.config)
+                state, self.archive, key_a, key_b, w_T, self.config, **kw)
         else:
             state, _ = online_loop_closure(state, key_a, key_b, w_T,
-                                           self.config)
+                                           self.config, **kw)
         return state, cache
 
-    def warmup_closure_path(self) -> None:
+    def warmup_closure_path(self, use_association: bool = False) -> None:
         """Run the closure programs once, so the first real closure of a
         stream does not pay the first-call costs (library handles, kernel
         loads, allocator growth): the verification (when a detector with
         ``verify_with_icp`` is attached) and the refined / cached / plain
         closure solve :meth:`add_loop_closure` will call, on keys 0 and
-        1.  It builds the solver cache when ``preconditioner='woodbury'``
-        and keeps it, as the first closure would.  The closure programs
-        write the state and the cache in place, so they run on clones
-        that are then dropped; the archive is only read.  The runner's
-        state is untouched.  Needs >= 2 keys."""
+        1; ``use_association`` warms the linking variant (first-
+        association sigmas and a group alignment, here of no pose).  It
+        builds the solver cache when ``preconditioner='woodbury'`` and
+        keeps it, as the first closure would.  The closure programs write
+        the state and the cache in place, so they run on clones that are
+        then dropped; the archive is only read.  The runner's state is
+        untouched.  Needs >= 2 keys."""
         if len(self.key_info) < 2:
             raise ValueError('warmup_closure_path needs >= 2 keys '
                              '(process some scans first)')
@@ -1458,10 +1663,14 @@ class OnlineRunner:
                 and self.detector.config.verify_with_icp):
             verify_closure(self.state, self.archive, 0, 1, ident,
                            self.config)
+        amask = (torch.zeros((self.state.traj_poses.shape[0],),
+                             dtype=torch.bool, device=self.device)
+                 if use_association else None)
         cache = self._lc_solver_cache()
         self._closure(OnlineState(*(t.clone() for t in self.state)),
                       None if cache is None else sv.clone_cache(cache),
-                      0, 1, ident)
+                      0, 1, ident, use_association=use_association,
+                      align_mask=amask, offchain=self._n_offchain_host + 1)
 
     def _lc_solver_cache(self):
         """The persisted WoodburyCache for closure solves, or None when
@@ -1483,6 +1692,14 @@ class OnlineRunner:
                     _pose_mask(self.state), s)
             self._cache_rel_count = self._n_rel_host
         return self._solver_cache
+
+    def _find_group(self, track_id: int) -> list:
+        for g in self._linked_groups:
+            if track_id in g:
+                return g
+        g = [track_id]
+        self._linked_groups.append(g)
+        return g
 
     def trajectory(self, track_id: Optional[int] = None) -> dict:
         """{time_ns: pose7}, after applying any pending detections; pass

@@ -3,8 +3,8 @@
 Counterpart of ``ScanFrame`` and ``SyntheticStream`` in
 ``laser_slam_tpu/pipeline/replay.py``: the same box-room world, the same
 trajectories and the same numpy random stream, so one seed gives the
-same scans as the JAX package's stream.  The npz and KITTI readers come
-with slice 4.
+same scans as the JAX package's stream.  The npz and KITTI readers are
+still to be ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations

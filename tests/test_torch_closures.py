@@ -312,3 +312,31 @@ def test_refined_closure_matches_jax(jax_run, cached):
                                np.asarray(js.rel_meas[f]), atol=1e-4)
     dt, dr = gaps(ts.traj_poses[:n].numpy(), np.asarray(js.traj_poses[:n]))
     assert dt <= 1e-3 and dr <= 0.01, (dt, dr)
+
+
+def test_only_the_detector_check_is_timed(frames):
+    """As in the JAX runner, 'online.verify_closure' times the detector's
+    verification (_inject_detection) and not add_loop_closure's manual
+    gate: the topic counts one call per verified candidate, and a
+    manual verified closure adds none."""
+    from laser_slam_tpu_torch.core import benchmarker as bench
+    runner = ton.OnlineRunner(est_config(), place_recognition=pr_config(),
+                              device='cpu', **CAPS)
+    bench.enable()
+    try:
+        bench.reset_topic()
+        for f in frames:
+            runner.process_scan(f.time_ns, f.points, f.odom_pose7)
+        runner.flush_detections()
+        verified = len(runner.detections) + sum(
+            1 for r in runner.rejected_detections if r[3] != -1.0)
+        assert verified > 0
+        count = bench.statistics()['online.verify_closure'][2]
+        assert count == verified
+        w_T = candidate(ton.state_to_numpy(runner.state), 2, 3, 0.0)
+        assert runner.add_loop_closure(2, 3, w_T, verify_with_icp=True)
+        assert bench.statistics()['online.verify_closure'][2] == count
+        assert bench.statistics()['online.lc_solve_dispatch'][2] == \
+            len(runner.detections) + 1
+    finally:
+        bench.disable()

@@ -176,3 +176,34 @@ def test_config_fields_pass_through(rng):
     res = ticp.icp(c, c, tpc.estimate_normals(c), torch.tensor(
         [1.0, 0, 0, 0, 0.2, 0, 0]), cfg)
     assert int(res.iterations) <= 3
+
+
+@pytest.mark.parametrize('case', [
+    dict(matcher='brute'), dict(matcher='pallas', pallas_prune=False),
+    dict(matcher='pallas', pallas_prune=True),
+    dict(matcher='projective', range_image_elev_min=-0.8,
+         range_image_elev_max=0.8, range_image_cols=256),
+    dict(matcher='pallas', coarse_capacity=256)],
+    ids=['brute', 'k1-plain', 'k2-plain', 'projective', 'coarse'])
+def test_frozen_iterations_change_nothing(rng, case):
+    """The card runs all max_iterations with the state frozen once the
+    checkers fire; on the CPU the loop breaks there.  early_break=False
+    runs the card's frozen iterations on the CPU: T, the iteration
+    count, the mean error and the inlier count are bit-equal."""
+    pts = synthetic_scene(rng, 1024)
+    xi = np.array([0.01, -0.02, 0.03, 0.2, -0.1, 0.05], np.float32)
+    reading = np.array(jse3.apply(jse3.inverse(jse3.exp(jnp.asarray(xi))),
+                                  jnp.asarray(pts)))
+    reading += rng.normal(size=reading.shape).astype(np.float32) * 0.01
+    ref = tpc.make_cloud(pts)
+    normals = tpc.estimate_normals(ref)
+    read = tpc.make_cloud(reading)
+    cfg = IcpConfig(**case)
+    guess = torch.tensor([1.0, 0, 0, 0, 0, 0, 0])
+    runs = [ticp.icp_point_to_plane(read, ref, normals, guess, cfg,
+                                    early_break=brk) for brk in (True, False)]
+    assert bool(runs[0].valid)
+    assert int(runs[0].iterations) < cfg.max_iterations + (
+        cfg.coarse_max_iterations if cfg.coarse_capacity else 0)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -201,7 +201,8 @@ def test_runner_gating_and_later_slices():
     odom = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)
     assert runner.process_scan(0, pts * 10, odom)
     assert not runner.process_scan(1, pts * 10, odom)   # has not moved
-    with pytest.raises(NotImplementedError, match='slice 4'):
+    # Multi-robot runs came with slice 4: a track past n_tracks raises.
+    with pytest.raises(ValueError, match='n_tracks'):
         runner.process_scan(2, pts, odom, track_id=1)
     # Verification came with slice 3; it needs the scan archive.
     with pytest.raises(ValueError, match='archive'):
@@ -214,8 +215,17 @@ def test_runner_gating_and_later_slices():
     assert wrun.process_scan(0, pts * 10, odom)
     assert wrun.process_scan(1, pts * 10, odom)
     assert np.all(np.isfinite(np.stack(list(wrun.trajectory().values()))))
-    with pytest.raises(NotImplementedError, match='slice 4'):
+    with pytest.raises(ValueError, match='n_tracks'):
         wrun.process_scans([(2, pts, odom)], track_id=1)
+    # Only the delta closure solve is left out (ROADMAP "Do not port").
+    delta = dataclasses.replace(small_config(), solver=dataclasses.replace(
+        small_config().solver, preconditioner='woodbury',
+        closure_solve='delta'))
+    drun = ton.OnlineRunner(delta, device='cpu', **CAPS)
+    drun.process_scan(0, pts * 10, odom)
+    drun.process_scan(1, pts * 10, odom)
+    with pytest.raises(NotImplementedError, match='Do not port'):
+        drun.add_loop_closure(0, 1, odom)
 
 
 def test_entry_points_default_to_the_card():
@@ -251,10 +261,12 @@ def test_port_imports_no_jax():
         'from laser_slam_tpu_torch.experiments import nn_shootout\n'
         'from laser_slam_tpu_torch.ops import scan_context\n'
         'from laser_slam_tpu_torch.pipeline import place_recognition\n'
+        'from laser_slam_tpu_torch.pipeline import device_map\n'
         'from laser_slam_tpu_torch.core import benchmarker\n'
         "runpy.run_path({smoke!r}, run_name='chip_smoke')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'yaml' or m == 'laser_slam_tpu'"
+        " or m == 'yaml' or m == 'scipy' or m.startswith('scipy.')"
+        " or m == 'laser_slam_tpu'"
         " or m.startswith('laser_slam_tpu.') or m == 'experiments'"
         " or m.startswith('experiments.')]\n"
         'assert not bad, bad\n').format(
@@ -265,7 +277,8 @@ def test_port_imports_no_jax():
 
 def test_port_sources_never_import_jax():
     pattern = re.compile(r'^\s*(import|from)\s+'
-                         r'(jax|laser_slam_tpu|experiments)(\.|\s|$)', re.M)
+                         r'(jax|laser_slam_tpu|experiments|scipy)(\.|\s|$)',
+                         re.M)
     files = [os.path.join(REPO, 'chip_smoke.py')]
     for root, _, names in os.walk(os.path.join(REPO, 'laser_slam_tpu_torch')):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]

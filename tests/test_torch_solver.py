@@ -464,3 +464,131 @@ def test_cholesky6_helpers_match_jax(rng):
         rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(ti @ tl, np.broadcast_to(np.eye(6), H.shape),
                                atol=1e-4)
+
+
+def graph_interleaved(rng):
+    """Two noisy 8-pose chains on interleaved keys (track t at keys
+    2i + t), each gauge-anchored, linked between their scans 3: no
+    factor lands on the block-tridiagonal chain (the multi-robot
+    runner's graphs)."""
+    n = 8
+    ga, gta = build_chain(rng, n=n, noise=0.01)
+    gt = np.zeros((2 * n, 7), np.float32)
+    gt[0::2] = gta
+    _, gtb = build_chain(rng, n=n)
+    gt[1::2] = gtb
+    gt[1::2, 5] += 100.0
+    g = fg.HostGraph()
+    g.add_prior(0, gt[0], PRIOR_SIG)
+    g.add_prior(1, gt[1], PRIOR_SIG)
+    for t in range(2):
+        for i in range(n - 1):
+            a, b = 2 * i + t, 2 * i + 2 + t
+            g.add_relative(a, b, np.asarray(jse3.compose(
+                jse3.inverse(jnp.asarray(gt[a])), jnp.asarray(gt[b]))), SIG)
+    g.add_relative(6, 7, np.asarray(jse3.compose(
+        jse3.inverse(jnp.asarray(gt[6])), jnp.asarray(gt[7]))), SIG * 5)
+    return g, *pad_poses(gt)
+
+
+def host_offchain_bound(g):
+    """The online runner's bound, from the factors' keys alone: active
+    factors with key_b != key_a + 1 or on a prior's key."""
+    jg = g.to_device()
+    keys = np.asarray(jg.rel_keys)[np.asarray(jg.rel_weight) > 0]
+    prior_keys = set(np.asarray(jg.prior_keys)[
+        np.asarray(jg.prior_weight) > 0].tolist())
+    return int(sum(b != a + 1 or a in prior_keys or b in prior_keys
+                   for a, b in keys.tolist()))
+
+
+@pytest.mark.parametrize('graph,capacity', [
+    ('loop_closure', 64), ('loop_closure', 2), ('loop_closure', 1),
+    ('interleaved', 64), ('interleaved', 8)])
+def test_matvec_choice_matches_jax_without_a_read(rng, graph, capacity,
+                                                  monkeypatch):
+    """With the runner's host bound the port picks the chain or the
+    scatter matvec as JAX's lax.cond does, on both sides of
+    offchain_capacity (2 is the loop-closure graph's exact count: its
+    closure and the factor on the gauge-frozen key 0), reads nothing
+    back, and applies the same operator."""
+    g, poses, mask = (graph_interleaved(rng) if graph == 'interleaved'
+                      else graph_loop_closure(rng))
+    cfg = dict(offchain_capacity=capacity)
+    jg = g.to_device()
+    jlin = jsv._linearize(jg, jnp.asarray(poses), jnp.asarray(mask), 1.0)
+    covered = int(jnp.sum(jsv._offchain_mask(jlin))) <= capacity
+    bound = host_offchain_bound(g)
+    tlin = tsv._linearize(to_torch_graph(jg), torch.tensor(poses),
+                          torch.tensor(mask), 1.0)
+    assert bound >= int(torch.sum(tsv._offchain_mask(tlin)))
+
+    def no_read(*_):
+        raise AssertionError('device read while picking the matvec')
+    for name in ('__int__', '__bool__', 'item'):
+        monkeypatch.setattr(torch.Tensor, name, no_read)
+    mv = tsv._make_matvec(tlin, 1e-6, SolverConfig(**cfg), offchain=bound)
+    monkeypatch.undo()
+    assert (mv.__name__ == 'mv_chain') == covered
+    x = rng.normal(size=(CAP, 6)).astype(np.float32)
+    want = np.asarray(jsv._make_matvec(jlin, jnp.float32(1e-6),
+                                       JSolverConfig(**cfg))(jnp.asarray(x)))
+    np.testing.assert_allclose(mv(torch.tensor(x)).numpy(), want,
+                               rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    # Without the bound the count is read; the same form is picked.
+    assert (tsv._make_matvec(tlin, 1e-6, SolverConfig(**cfg)).__name__
+            == 'mv_chain') == covered
+
+
+def test_interleaved_solve_matches_jax(rng):
+    g, poses, mask = graph_interleaved(rng)
+    for capacity in (64, 8):
+        solve_both(g, poses, mask, offchain_capacity=capacity, **BUDGET)
+
+
+def test_runner_passes_its_bound_to_every_solve(monkeypatch):
+    """A two-track runner with full-graph per-scan solves, in chunks and
+    per scan, then a link, a refine and a covariance query: every matvec
+    is picked from the runner's host bound, which never falls below the
+    true count of off-chain factors."""
+    from laser_slam_tpu_torch.config import (EstimatorConfig, IcpConfig,
+                                             InputFilterConfig,
+                                             LaserTrackConfig)
+    from laser_slam_tpu_torch.pipeline import online as ton
+    from laser_slam_tpu_torch.pipeline import replay as trep
+    seen = []
+    real = tsv._make_matvec
+
+    def spy(lin, damping, config, offchain=None):
+        seen.append((offchain, int(torch.sum(tsv._offchain_mask(lin)))))
+        return real(lin, damping, config, offchain)
+    monkeypatch.setattr(tsv, '_make_matvec', spy)
+    cfg = EstimatorConfig(
+        laser_track=LaserTrackConfig(
+            nscan_in_sub_map=3, force_priors=True,
+            input_filters=InputFilterConfig(scan_capacity=512),
+            icp=IcpConfig(matcher='brute', reading_capacity=256,
+                          reading_sampling_ratio=1.0)),
+        solver=SolverConfig(gn_iterations=2, pcg_iterations=10,
+                            offchain_capacity=4))
+    runner = ton.OnlineRunner(cfg, pose_capacity=32, factor_capacity=64,
+                              n_tracks=2, device='cpu')
+    streams = [list(trep.SyntheticStream(
+        n_scans=4, points_per_scan=512, trajectory='line', step_m=0.5,
+        seed=5 + t)) for t in range(2)]
+    runner.process_scans(streams[0][:2], track_id=0, chunk_size=2)
+    for i in range(2, 4):
+        for t in range(2):
+            f = streams[t][i]
+            runner.process_scan(f.time_ns + t, f.points, f.odom_pose7,
+                                track_id=t)
+    runner.process_scans(streams[1][:2], track_id=1, chunk_size=2)
+    assert runner.add_loop_closure(0, 2, np.asarray(
+        [1, 0, 0, 0, 0, 100, 0], np.float32))
+    runner.refine(1)
+    runner.marginal_covariances([1, 3])
+    assert len(seen) > 10
+    assert all(bound is not None and bound >= true for bound, true in seen)
+    # The bound crosses the capacity in this run, as the count does.
+    assert {b > 4 for b, _ in seen} == {t > 4 for _, t in seen} == {False,
+                                                                     True}
