@@ -44,9 +44,20 @@ result line):
    (tied rows whose payloads are averaged), and at an awkward shape
    (1000 x 3001, every third reference row at the SENTINEL) by the
    float64 checks of ``laser_slam_tpu_torch/ops/nn_variants.py`` (a d2
-   planted a tenth too large must fail them); then the shootout itself
+   planted a tenth too large must fail them), E2 and every E3 sweep shape
+   with d2 bit-equal to K1's plain version; then the shootout itself
    (``experiments/nn_shootout.run``), timed by CUDA events beside the
-   library calls, where each new kernel must have launched.
+   library calls, where each new kernel must have launched and every E3
+   shape (and E2) launch at least 256 work items.  Each kernel alone
+   beside its call: E1/E4/E5 on reference rows extended once, E6 on
+   tables built once (``nn_variants.pruned_setup``); E6's device launches
+   a call, set-up included, and their device time, counted by
+   ``torch.profiler`` right after phase 4 (later short sessions lose
+   kernel records), and the host's time to issue a call; the share of
+   tiles E6 scans (counted by the kernel, 5 calls) beside the share the
+   Pallas walk visits (``nn_variants.pruned_walk``, whose result must
+   pass the payload check against the kernel's).  Every E3 shape's time
+   is printed on a line before the kernels' record.
 8. The production path (slice 2: projective range-image ICP, image-PCA
    normals, the dense window solve, packed uint16 ingest) through
    ``OnlineRunner(production_config(...), device='cuda')``; it has no
@@ -136,13 +147,16 @@ with its plain version are not counted.  Each kernel's bound is the larger of it
 once, outputs written once) over 3.35 TB/s and its operations over the
 card's rate for their type: f32 lane instructions over SMs x 128 lanes x
 the card's max SM clock (67 TFLOP/s counts an FMA as 2), bf16 tensor-core
-FLOPs over 989 TFLOP/s.  The pruned kernels count the pairs of the tiles
-scanned in this run: E6 counts its own; K2's bound counts those of the
-Pallas walk, replayed in plain torch (``nn_kernels.pruned_visits``),
-since the tiles K2 itself scans depend on block timing (its own share,
-counted by the kernel, stands beside it as ``scanned_share``).  The
-second-to-last line is the kernels' JSON record; the last line is the
-result record.
+FLOPs over 989 TFLOP/s.  The pruned kernels' work depends on the data,
+so their bounds count the pairs that this run's data needs: the fewer of
+the pairs their Pallas walks scan, replayed in plain torch
+(``nn_kernels.pruned_visits`` for K2, ``nn_variants.pruned_walk`` for
+E6, ``walk_share``), and the pairs the kernel itself scanned in the
+least of 5 counted calls (``scanned_share`` is their mean), since both
+compute the function; the share counted is ``bound_share``.  E6's device
+launches a call, set-up included, are counted by ``torch.profiler`` and
+must be at most 12.  The second-to-last line is the kernels' JSON
+record; the last line is the result record.
 """
 
 import dataclasses
@@ -174,7 +188,11 @@ BF16_TENSOR_FLOPS = 989e12
 INSTR_EXACT = 11        # 3 sub, 3 mul, 2 add, compare, 2 selects (K1, K2)
 INSTR_MM = 6            # 3 FMA, compare, 2 selects (E5)
 INSTR_ARGMIN = 3        # compare, 2 selects (E1 bf16, product on tensor cores)
-INSTR_PAYLOAD = 5       # 3 FMA, compare, 1 select (E4, E6)
+INSTR_PAYLOAD = 5       # 3 FMA, compare, 1 select (E4)
+INSTR_MIN_SCORE = 4     # 3 FMA, min: E6's pass 1 (ties and payloads are its
+                        # epilogue's, once a query)
+E6_PROFILED = 5         # E6 calls whose device launches are counted
+E6_MAX_LAUNCHES = 12    # device launches an E6 call may make, set-up included
 # Phase 8, the production path.  (a) 64 scans over 2 laps (3.9 m a step);
 # (b) the first 53 scans of bench.py's 116-scan KITTI-density stream:
 # 8 warm-up, 40 timed, 4 profiled and one for the stage split.
@@ -320,6 +338,16 @@ def check_nn(name, q, ref, d2_k, idx_k, d2_p, idx_p, rows=None,
     log(f'  {name}: ok (d2 bit-equal; {n_diff} index choices differ'
         + (', all exact f32 ties)' if ties else ')'))
     return err
+
+
+def exact_tiled(name, q, ref, got, want):
+    """E2/E3 against K1's plain version: d2 bit-equal, indices equal
+    except at an exact f32 tie (nn_variants.check_exact_indices)."""
+    from laser_slam_tpu_torch.ops import nn_variants as nv
+    if not torch.equal(got[0], want[0]):
+        n = int(torch.sum(got[0] != want[0]))
+        raise AssertionError(f'{name}: {n} d2 differ from the plain version')
+    return nv.check_exact_indices(q, ref, *got, *want)
 
 
 def measured_closure(frames, traj, i, j, se3, torch):
@@ -1385,11 +1413,10 @@ def main():
         f'call, which the host issues in {k2_host:.4f} ms), kernel alone '
         f'(tables built once) {k2_kernel_ms:.4f} ms, plain '
         f'{k2_plain_ms:.4f} ms')
-    # K2's work depends on the data: its bound counts the pairs of the
-    # tiles the Pallas walk scans (replayed in torch), and the walk must
-    # reach the kernel's distances.  The kernel itself scans the tiles
+    # K2's work depends on the data: the Pallas walk (replayed in torch)
+    # must reach the kernel's distances, and the kernel scans the tiles
     # that the bests merged so far do not prune, which varies with block
-    # timing: it counts them.
+    # timing (it counts them).  The bound counts the fewer pairs.
     qb, rb = tables[4], tables[5]
     shares = []
     for _ in range(5):
@@ -1402,20 +1429,58 @@ def main():
     if not torch.equal(walk_d2[inside], room_d2[inside]):
         raise AssertionError('K2: the replayed walk misses the kernel\'s '
                              'distances')
-    k2_pairs = int(visits.sum()) * qb * rb
-    walk_share = k2_pairs / (READING * n_sub)
-    k2_bound = bound(k2_pairs, INSTR_EXACT, nn_bytes(READING, n_sub))
+    walk_share = int(visits.sum()) * qb * rb / (READING * n_sub)
+    k2_share = min(walk_share, min(shares))
+    k2_bound = bound(k2_share * READING * n_sub, INSTR_EXACT,
+                     nn_bytes(READING, n_sub))
     log(f'  the Pallas walk scans {int(visits.sum())} of {visits.numel()} x '
-        f'{pref.tile_lo.shape[0]} tile pairs: {walk_share:.4f} of all pairs '
-        '(the bound counts these)')
+        f'{pref.tile_lo.shape[0]} tile pairs: {walk_share:.4f} of all pairs')
     log(f'  K2 scanned (counted by the kernel, 5 calls): '
-        f'{", ".join(f"{x:.4f}" for x in shares)} of all pairs')
+        f'{", ".join(f"{x:.4f}" for x in shares)} of all pairs; the bound '
+        f'counts {k2_share:.4f}')
     kernels['K2'] = dict(max_abs_err=err2, ms=k2_ms, kernel_ms=k2_kernel_ms,
                          scanned_share=float(np.mean(shares)),
-                         walk_share=walk_share, plain_ms=k2_plain_ms,
+                         walk_share=walk_share, bound_share=k2_share,
+                         plain_ms=k2_plain_ms,
                          bound_ms=k2_bound[0], bound_by=k2_bound[1],
                          library_ms=k1_lib_ms,
                          library=lib_exact + ' (the cutoff is a where)')
+
+    # E6's device launches a call, set-up included, and their device time,
+    # counted on the shootout's scene (phase 7) before phase 5: after its
+    # long profile, short profiler sessions lose kernel records.  A
+    # session whose items kernel shows fewer records than calls lost some
+    # and is taken again; a count still short, or above E6_MAX_LAUNCHES,
+    # fails the run.
+    t_e6 = time.perf_counter()
+    full = tuple(torch.tensor(a, device=dev)
+                 for a in sh.make_scene(SHOOT_Q, SHOOT_R, seed=3))
+    nv.nn_payload_pruned(*full)
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as e6_prof:
+            for _ in range(E6_PROFILED):
+                nv.nn_payload_pruned(*full)
+            torch.cuda.synchronize()
+        e6_rows = device_rows(e6_prof)
+        e6_items = sum(e.count for e in e6_rows
+                       if e.key.startswith('e6_items_kernel'))
+        if e6_items == E6_PROFILED:
+            break
+        log(f'  E6 profile {attempt + 1}: {e6_items} records of its items '
+            f'kernel in {E6_PROFILED} calls, taken again')
+    else:
+        raise AssertionError('E6: the profiler lost kernel records in 3 '
+                             'sessions, launches a call not measured')
+    e6_launches = sum(e.count for e in e6_rows) / E6_PROFILED
+    if e6_launches > E6_MAX_LAUNCHES:
+        raise AssertionError(f'E6: {e6_launches} device launches a call, '
+                             f'above {E6_MAX_LAUNCHES}')
+    e6_split = {e.key.split('(')[0]: getattr(
+        e, 'self_device_time_total', getattr(e, 'self_cuda_time_total', 0))
+        / 1e3 / E6_PROFILED for e in e6_rows}
+    e6_profile_s = time.perf_counter() - t_e6
 
     # 5. The slice -----------------------------------------------------
     elapsed(5)
@@ -1523,10 +1588,9 @@ def main():
 
     # 7. The shootout's kernels (E1-E6) --------------------------------
     elapsed(7)
+    t7 = time.perf_counter()
     log(f'shootout kernels vs plain at {SHOOT_Q} x {SHOOT_R} and 1000 x '
         '3001 (parked reference):')
-    full = tuple(torch.tensor(a, device=dev)
-                 for a in sh.make_scene(SHOOT_Q, SHOOT_R, seed=3))
     odd = [torch.tensor(a, device=dev) for a in sh.make_scene(1000, 3001,
                                                               seed=4)]
     odd[1][::3] = pc.SENTINEL
@@ -1563,14 +1627,15 @@ def main():
             tol_share[key] = max(tol_share[key], c['err_over_tol'])
             log(f'  {key} {label}: ok {c}')
         want = nk.nn_indices_plain(q, r)
-        c = nv.check_exact_indices(q, r, *nv.nn_vpu(q, r), *want)
+        c = exact_tiled('E2', q, r, nv.nn_vpu(q, r), want)
         errs['E2'] = max(errs['E2'], c['max_abs_err'])
-        log(f'  E2 {label}: ok {c}')
+        log(f'  E2 {label}: ok, d2 bit-equal {c}')
         for qb, rb in sh.SWEEP[:-1]:
-            c = nv.check_exact_indices(q, r, *nv.nn_indices_tiled(
-                q, r, qb, rb), *want)
+            c = exact_tiled(f'E3 {qb}x{rb}', q, r,
+                            nv.nn_indices_tiled(q, r, qb, rb), want)
             errs['E3'] = max(errs['E3'], c['max_abs_err'])
-        log(f'  E3 {label}: ok at {len(sh.SWEEP) - 1} tile shapes')
+        log(f'  E3 {label}: ok, d2 bit-equal at {len(sh.SWEEP) - 1} tile '
+            'shapes')
     log(f'  largest d2 error as a share of its limit: {tol_share}')
     # A kernel whose d2 were a tenth too large must fail the checks.
     q, r, pay = full
@@ -1612,7 +1677,47 @@ def main():
     sweep = [r for r in rows.values()
              if r['kernel'] == 'E3' and r['ms'] is not None]
     best3 = min(sweep, key=lambda r: r['ms'])
+    for row in sweep + [rows['vpu']]:
+        if row['items'] < 256:
+            raise AssertionError(f'{row["name"]}: {row["items"]} work items '
+                                 'do not fill the card')
+    sweep_line = [dict(qb=r['qb'], rb=r['rb'], items=r['items'], ms=r['ms'])
+                  for r in sweep]
     q, r, pay = full
+    # Each kernel alone: E1/E4/E5 on reference rows extended once (their
+    # only set-up), E6 on tables built once (pruned_setup); E2/E3 have no
+    # set-up beyond their key fill.
+    r_ext = nv.extend_reference(r)
+    tab6 = nv.pruned_setup(q, r)
+    kernel_ms = dict(
+        E1=cuda_ms(lambda: nv._launch_mm_indices(q, r_ext, 'bf16'), 10),
+        E5=cuda_ms(lambda: nv._launch_mm_indices(q, r_ext, 'highest'), 10),
+        E4=cuda_ms(lambda: nv._launch_payload(q, r_ext, pay), 10),
+        E6=cuda_ms(lambda: nv._launch_pruned(tab6, pay), 20),
+        E2=rows['vpu']['ms'], E3=best3['ms'])
+    e6_host = host_ms(lambda: nv.nn_payload_pruned(q, r, pay), 20)
+    log(f'  E6 with its set-up: {rows["pruned"]["ms"]:.4f} ms in '
+        f'{e6_launches} device launches a call '
+        f'({E6_PROFILED} calls profiled after phase 4; device ms a call: '
+        f'{e6_split}), which the host issues in {e6_host:.4f} ms; alone '
+        f'(tables built once) {kernel_ms["E6"]:.4f} ms')
+    # E6's work depends on the data: the Pallas walk (replayed in torch)
+    # must pass the payload check against the kernel's result, and the
+    # kernel scans the tiles that the bests merged so far do not prune,
+    # which varies with block timing (it counts them).  The bound counts
+    # the fewer tile pairs.
+    walk_visits, walk_d2, walk_pay = nv.pruned_walk(q, r, pay)
+    nv.check_payload(q, r, pay, walk_d2, walk_pay,
+                     *nv.nn_payload_pruned(q, r, pay))
+    e6_tiles = walk_visits.numel() * (SHOOT_R // tab6.rb)
+    walk_share = int(walk_visits.sum()) / e6_tiles
+    scanned6 = [int(nv.nn_payload_pruned(q, r, pay, return_visits=True)[2]
+                    .sum()) / e6_tiles for _ in range(5)]
+    e6_share = min(walk_share, min(scanned6))
+    log(f'  E6: the Pallas walk visits {int(walk_visits.sum())} of '
+        f'{e6_tiles} tile pairs, {walk_share:.4f}; the kernel scanned '
+        f'{", ".join(f"{x:.4f}" for x in scanned6)} (5 calls); the bound '
+        f'counts {e6_share:.4f}')
     plain = dict(
         E1=lambda: nv.nn_indices_mm_plain(q, r, 'bf16'),
         E5=lambda: nv.nn_indices_mm_plain(q, r),
@@ -1624,12 +1729,11 @@ def main():
     pairs = SHOOT_Q * SHOOT_R
     exact_b = nn_bytes(SHOOT_Q, SHOOT_R)
     pay_b = nn_bytes(SHOOT_Q, SHOOT_R, payload=pay.shape[1])
-    share = rows['pruned']['visited_share']
     bounds = dict(
         E1=bound(pairs, INSTR_ARGMIN, exact_b, tensor_flops=8.0 * pairs),
         E5=bound(pairs, INSTR_MM, exact_b),
         E4=bound(pairs, INSTR_PAYLOAD, pay_b),
-        E6=bound(share * pairs, INSTR_PAYLOAD, pay_b),
+        E6=bound(e6_share * pairs, INSTR_MIN_SCORE, pay_b),
         E2=bound(pairs, INSTR_EXACT, exact_b),
         E3=bound(pairs, INSTR_EXACT, exact_b))
     shoot_row = dict(E1=rows['indices-bf16'], E5=rows['indices-hi'],
@@ -1649,10 +1753,18 @@ def main():
             'experiments/pallas_payload_variants.py:322'))
     for key in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6'):
         row = shoot_row[key]
-        log(f'  {key}: {row["ms"]:.4f} ms, plain {plain_ms[key]:.4f} ms, '
-            f'bound {bounds[key][0]:.4f} ms ({bounds[key][1]}), library '
-            f'{row["library_ms"]} ms, launches {launches[key]}')
-    log(f'  E6 visited {share:.4f} of its reference tiles')
+        log(f'  {key}: {row["ms"]:.4f} ms, alone {kernel_ms[key]:.4f} ms, '
+            f'plain {plain_ms[key]:.4f} ms, bound {bounds[key][0]:.4f} ms '
+            f'({bounds[key][1]}), library {row["library_ms"]} ms, launches '
+            f'{launches[key]}')
+    extra = dict(E3=dict(sweep=sweep_line),
+                 E6=dict(launches_a_call=e6_launches, host_ms=e6_host,
+                         device_ms_by_kernel=e6_split,
+                         walk_share=walk_share,
+                         scanned_share=float(np.mean(scanned6)),
+                         bound_share=e6_share))
+    log(f'phase 7 took {time.perf_counter() - t7:.1f} s (and E6\'s '
+        f'profile after phase 4 {e6_profile_s:.1f} s)')
 
     # 8. The production path (slice 2) ---------------------------------
     t0 = time.perf_counter()
@@ -1682,11 +1794,13 @@ def main():
         dict(name=names[key][0], route='cuda', source=variants,
              replaces=names[key][1], launches=launches[key],
              max_abs_err=errs[key], ms=shoot_row[key]['ms'],
-             plain_ms=plain_ms[key], bound_ms=bounds[key][0],
-             bound_by=bounds[key][1],
+             kernel_ms=kernel_ms[key], plain_ms=plain_ms[key],
+             bound_ms=bounds[key][0], bound_by=bounds[key][1],
              library_ms=shoot_row[key]['library_ms'],
-             library=shoot_row[key]['library'])
+             library=shoot_row[key]['library'], **extra.get(key, {}))
         for key in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6')]}
+    print(f'E3 sweep at {SHOOT_Q} x {SHOOT_R}: {json.dumps(sweep_line)}',
+          flush=True)
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -10,17 +10,19 @@
 // mm_indices_bf16_kernel replaces E1 kern at DEFAULT precision (one bf16
 //                        pass of the MXU).
 // mm_payload_kernel      replaces E4 pallas_payload_variants.py _nn_kernel.
-// mm_pruned_kernel       replaces E6 pallas_payload_variants.py
-//                        _pruned_kernel.
-// nn_tiled_kernel<QPT>   replaces E2 pallas_nn_variants.py vpu_kernel and
+// e6_items_kernel and    replace E6 pallas_payload_variants.py
+// e6_epilogue_kernel     _pruned_kernel; e6_morton_kernel and
+//                        e6_gather_kernel are its set-up (the wrapper's
+//                        sort, boxes and unsort at :380-451).
+// nn_tile_items_kernel   replaces E2 pallas_nn_variants.py vpu_kernel and
 //                        E3 pallas_tile_sweep.py nn_tiled (K1's function at
 //                        a chosen tile shape).
 //
 // The matmul form.  Query row (x, y, z, 1) times reference row (-2x, -2y,
-// -2z, |r|^2) is |q-r|^2 - |q|^2, the "score"; the wrapper adds |q|^2 back.
-// The reference rows are built by the wrapper (float4 each) and staged in
-// shared memory a tile at a time; each thread owns one query and keeps its
-// running best in registers.  All index kernels take a strict '<' in
+// -2z, |r|^2) is |q-r|^2 - |q|^2, the "score"; the wrapper adds |q|^2 back
+// (E6's epilogue adds it itself).  The reference rows are built by the
+// wrapper (float4 each; E6's by its gather kernel) and staged in shared
+// memory a tile at a time.  All index kernels take a strict '<' in
 // ascending reference order, which yields the lowest index of the minimum:
 // the Pallas rule (lowest column within a tile, strict '<' across tiles)
 // gives the same index for any tile width.
@@ -34,27 +36,30 @@
 //   * bf16: the product runs on the tensor cores (mma.sync m16n8k16, K
 //     padded 4 -> 16 with zeros, f32 accumulate), so what is left on the
 //     CUDA cores is the argmin pass: a compare and 2 selects per pair.
-//   * payload (E4, E6): the highest scores plus the tie bookkeeping of a
-//     tile (a compare for '<', one for '=='); the Pallas one-hot payload
-//     matmul (16x the scoring work on the TPU) becomes a gather of the
-//     winning row from L2 when a finished tile improves the best.
-//   * tiled exact (E2/E3): K1's 11 instructions per pair
-//     (csrc/nn.cu), at a chosen (queries per block, reference points per
-//     shared-memory tile).
+//   * payload (E4): the highest scores plus the tie bookkeeping of a tile
+//     (a compare for '<', one for '=='); the Pallas one-hot payload matmul
+//     (16x the scoring work on the TPU) becomes a gather of the winning row
+//     from L2 when a finished tile improves the best.
+//   * pruned payload (E6): 3 FMAs and a min a pair over the tiles its
+//     items do not skip; ties and payloads are the epilogue's, once a
+//     query.
+//   * tiled exact (E2/E3): K1's 11 instructions per pair (csrc/nn.cu), at
+//     a chosen (query tile, reference tile) work item.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
-// does not synchronise, and returns cudaGetLastError() after the launch.
+// does not synchronise, and returns cudaGetLastError() after its launches.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
 #include <stdint.h>
+
+#include "nn_common.cuh"
+
+namespace cg = cooperative_groups;
 
 #define MM_THREADS 128
 #define MM_CHUNK 2048          // reference rows staged per pass (32 KB)
 #define MAX_PAYLOAD 8
-#define TILED_THREADS 256
 
 // ---------------------------------------------------------------------------
 // Shared pieces
@@ -235,7 +240,7 @@ mm_indices_bf16_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// E4 / E6: payload of the winning tile, tied rows averaged
+// E4: payload of the winning tile, tied rows averaged
 // ---------------------------------------------------------------------------
 
 // Per query and reference tile: the least score, the first staged row
@@ -345,160 +350,635 @@ mm_payload_kernel(const float* __restrict__ q,
   }
 }
 
-// E6: block i owns the Morton-sorted query tile [i*qb, (i+1)*qb) and visits
-// the nj reference tiles (rb rows each, Morton-sorted) starting at its
-// diagonal tile (j + i*nj/ni) % nj.  Before each tile it computes the
-// squared gap between the two tiles' boxes, summed (gx^2 + gy^2) + gz^2,
-// and skips the tile unless that bound is below the block's largest
-// (best score + |q|^2), which starts at +inf and is refreshed after every
-// visited tile (pallas_payload_variants.py:341-362).  Every branch on it
-// is uniform across the block.  visits[i] counts the tiles visited.
-__global__ void __launch_bounds__(TILED_THREADS)
-mm_pruned_kernel(const float* __restrict__ q_sorted,
-                 const float* __restrict__ q_norm2,
-                 const float4* __restrict__ r_ext,
-                 const float* __restrict__ pay,
-                 const float* __restrict__ q_boxes,
-                 const float* __restrict__ r_boxes, int P, int qb, int rb,
-                 int ni, int nj, float* __restrict__ score_out,
-                 float* __restrict__ pay_out, int* __restrict__ visits) {
-  __shared__ float4 s_r[MM_CHUNK];
-  __shared__ float s_wmax[TILED_THREADS / 32];
-  const int t = threadIdx.x;
-  const int i = blockIdx.x;
-  const bool active = t < qb;
-  const size_t qi = (size_t)i * qb + t;
-  float qx, qy, qz;
-  load_query(q_sorted, qi, active, qx, qy, qz);
-  const float qn2 = active ? q_norm2[qi] : 0.f;
-  const float* qbox = q_boxes + 6 * (size_t)i;
-  float best = INFINITY;
-  float best_pay[MAX_PAYLOAD];
+// ---------------------------------------------------------------------------
+// E6: Morton-sorted, box-pruned payload 1-NN as (query tile x reference
+// tile) work items
+// ---------------------------------------------------------------------------
+//
+// The Pallas kernel walks the reference tiles of one query tile in its
+// rotated visit order, (j + i*nj/ni) % nj, and skips a tile whose box
+// bound reaches the tile's largest best (pallas_payload_variants.py:
+// 322-362).  Here every (query tile i, reference tile) pair is a work item
+// of a persistent grid, and the walk's sequential state becomes one merge
+// key a query:
+//   * Pass 1 (e6_items_kernel) computes each query's least score over the
+//     item's tile (3 FMAs and a min a pair; no index) and lowers the key
+//     (orderable score bits) << 32 | rank with atomicMin, where rank is
+//     the tile's place in query tile i's rotated visit order.  The least
+//     key is the least score with ties to the first tile in visit order:
+//     E6's rule across tiles, whatever order the items run in.  -0 is
+//     made +0 first, so scores that compare equal get one key.
+//   * Before it scans, an item reads the merged keys of its query tile and
+//     skips when its bound reaches their largest (score + |q|^2), as the
+//     Pallas kernel compares its running bests.  A merged best is a real
+//     score of a scanned row, never below the final one, so a skipped tile
+//     holds no better score beyond rounding.  Items start rank-major, each
+//     query tile's tiles in ascending bound (nj <= the block's threads;
+//     else in the visit order), so the nearest tiles publish first.  Which
+//     tiles are scanned depends on block timing; the results do not.
+//   * Pass 2 (e6_epilogue_kernel), a warp a query, decodes the key,
+//     scores the winning tile again with the same FMAs (the same bits),
+//     averages the payload rows that tie with the least (__fdiv_rn, as
+//     E4), and writes d2 and the payload at the caller's row.
+// The set-up runs on the card as well: e6_morton_kernel (a cluster of 16
+// blocks a cloud: the bounds meet in distributed shared memory, then the
+// codes, then a bitonic sort of (code, row) keys in the cluster's shared
+// memory; torch.sort of the codes instead for a cloud of more than
+// 131072 points) and e6_gather_kernel (sorted queries with |q|^2, sorted
+// extended reference rows, both clouds' tile boxes, the keys set to
+// empty): with the two passes, four launches a call.
+
+#define E6_THREADS 512
+#define E6_GROUP 64                  // threads holding a query tile
+#define E6_GROUPS (E6_THREADS / E6_GROUP)
+#define E6_QT (NN_QPT * E6_GROUP)    // 256: the largest query tile
+#define E6_RB 1024                   // the largest reference tile
+#define E6_BLOCKS_PER_SM 2
+#define E6_EMPTY 0xffffffffffffffffULL
+#define E6_MORTON_CLUSTER 16           // blocks a cloud (non-portable)
+#define E6_MORTON_THREADS 1024
+#define E6_SORT_KPT 8                // sort keys a thread at most
+#define E6_GATHER_THREADS 256
+#define E6_EPILOGUE_THREADS 256
+#define E6_PARKED 1.0e5f
+
+// Bits of a score whose unsigned order is the float order (-0 made +0).
+__device__ __forceinline__ unsigned score_bits(float s) {
+  const unsigned u = __float_as_uint(__fadd_rn(s, 0.f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float bits_score(unsigned b) {
+  return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
+}
+
+// Squared gap between two boxes (min xyz, max xyz), summed (gx^2 + gy^2)
+// + gz^2: at most every pair distance between them.
+__device__ __forceinline__ float box_gap2(const float* a, const float* b) {
+  float g[3];
 #pragma unroll
-  for (int p = 0; p < MAX_PAYLOAD; ++p) best_pay[p] = 0.f;
-  float best_max = INFINITY;
-  int visited = 0;
-  const int start = (int)(((long long)i * nj) / (ni > 0 ? ni : 1));
-  TileBest tb;
-  for (int j = 0; j < nj; ++j) {
-    const int tile = (j + start) % nj;
-    const float* rbox = r_boxes + 6 * (size_t)tile;
-    float g[3];
+  for (int d = 0; d < 3; ++d)
+    g[d] = fmaxf(fmaxf(__fsub_rn(a[d], b[3 + d]), __fsub_rn(b[d], a[3 + d])),
+                 0.f);
+  return __fadd_rn(__fadd_rn(__fmul_rn(g[0], g[0]), __fmul_rn(g[1], g[1])),
+                   __fmul_rn(g[2], g[2]));
+}
+
+__device__ __forceinline__ int visit_start(int i, int ni, int nj) {
+  return (int)(((long long)i * nj) / ni);
+}
+
+__device__ __forceinline__ unsigned spread_bits10(unsigned x) {
+  x &= 0x3FFu;
+  x = (x | (x << 16)) & 0x30000FFu;
+  x = (x | (x << 8)) & 0x300F00Fu;
+  x = (x | (x << 4)) & 0x30C30C3u;
+  x = (x | (x << 2)) & 0x9249249u;
+  return x;
+}
+
+__device__ __forceinline__ bool unparked(float x, float y, float z) {
+  return fabsf(x) < E6_PARKED && fabsf(y) < E6_PARKED && fabsf(z) < E6_PARKED;
+}
+
+// Min (d < 3) or max (d >= 3) of v[d] over the block; thread 0 gets it.
+template <int NT>
+__device__ __forceinline__ void block_box(float (&v)[6], float (*s)[NT / 32]) {
 #pragma unroll
-    for (int d = 0; d < 3; ++d)
-      g[d] = fmaxf(fmaxf(__fsub_rn(qbox[d], rbox[3 + d]),
-                         __fsub_rn(rbox[d], qbox[3 + d])), 0.f);
-    const float lb = __fadd_rn(__fadd_rn(__fmul_rn(g[0], g[0]),
-                                         __fmul_rn(g[1], g[1])),
-                               __fmul_rn(g[2], g[2]));
-    if (!(lb < best_max)) continue;
-    ++visited;
-    const size_t first = (size_t)tile * rb;
-    stage_rows(r_ext, (int)first, rb, s_r);
-    __syncthreads();
-    if (active) {
-      tile_scan(qx, qy, qz, s_r, 0, rb, tb);
-      tile_fold(qx, qy, qz, s_r, 0, rb, first, pay, P, tb, best, best_pay);
+  for (int d = 0; d < 6; ++d) {
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[d], off);
+      v[d] = d < 3 ? fminf(v[d], o) : fmaxf(v[d], o);
     }
-    float m = active ? __fadd_rn(best, qn2) : -INFINITY;
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((t & 31) == 0) s_wmax[t >> 5] = m;
-    __syncthreads();
-    best_max = s_wmax[0];
-    for (int w = 1; w < TILED_THREADS / 32; ++w)
-      best_max = fmaxf(best_max, s_wmax[w]);
-    __syncthreads();
+    if ((threadIdx.x & 31) == 0) s[d][threadIdx.x >> 5] = v[d];
   }
-  if (active) {
-    score_out[qi] = best;
-    store_payload(pay_out, qi, P, best_pay);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int d = 0; d < 6; ++d)
+      for (int w = 1; w < NT / 32; ++w)
+        v[d] = d < 3 ? fminf(v[d], s[d][w]) : fmaxf(v[d], s[d][w]);
   }
-  if (t == 0) visits[i] = visited;
+}
+
+// E6's Morton code of point k: clip((p - lo) * inv * 1023, 0, 1023) a
+// coordinate, spread into 30 bits; parked rows 2^30.
+__device__ __forceinline__ unsigned morton_code(const float* __restrict__ p,
+                                                int k, const float (&lo)[3],
+                                                const float (&inv)[3]) {
+  const float c[3] = {p[3 * (size_t)k], p[3 * (size_t)k + 1],
+                      p[3 * (size_t)k + 2]};
+  if (!unparked(c[0], c[1], c[2])) return 1u << 30;
+  unsigned u[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+    u[d] = (unsigned)(int)fminf(
+        fmaxf(__fmul_rn(__fmul_rn(__fsub_rn(c[d], lo[d]), inv[d]), 1023.f),
+              0.f),
+        1023.f);
+  return spread_bits10(u[0]) | (spread_bits10(u[1]) << 1) |
+         (spread_bits10(u[2]) << 2);
+}
+
+// One cluster's bitonic sort of its cloud's (code << 32 | row) keys, E
+// keys a thread in registers (k[e] at position pos0 + e; the block holds
+// positions [base, base + m) of P = 16m): pairs within a thread meet in
+// registers, within a warp by shuffles, across warps in the block's
+// shared memory, across blocks through the partner block's shared memory
+// (both blocks read each other's keys between two cluster barriers).
+template <int E>
+__device__ __forceinline__ void cluster_sort(cg::cluster_group& cluster,
+                                             u64* s_keys, u64 (&k)[E],
+                                             int m, int base, int pos0) {
+  const int t = threadIdx.x;
+  const bool holds = t * E < m;
+  const int P = E6_MORTON_CLUSTER * m;
+  const int lim = min(32 * E, m);    // strides from here on: shared memory
+  const int part = (int)cluster.block_rank();
+  for (int size = 2; size <= P; size <<= 1) {
+    int stride = size >> 1;
+    for (; stride >= m; stride >>= 1) {        // across blocks
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (holds) s_keys[t * E + e] = k[e];
+      cluster.sync();
+      const u64* other =
+          cluster.map_shared_rank(&s_keys[0], part ^ (stride / m));
+      const bool keep_min = ((base & stride) == 0) == ((base & size) == 0);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (holds) {
+          const u64 o = other[t * E + e];
+          k[e] = keep_min ? (o < k[e] ? o : k[e]) : (o > k[e] ? o : k[e]);
+        }
+      }
+      cluster.sync();                // the partner has read this block
+    }
+    if (stride >= lim) {                       // across warps
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (holds) s_keys[t * E + e] = k[e];
+      for (; stride >= lim; stride >>= 1) {
+        __syncthreads();
+        for (int x = t; x < m / 2; x += E6_MORTON_THREADS) {
+          const int i = ((x & ~(stride - 1)) << 1) | (x & (stride - 1));
+          const int j = i + stride;
+          const u64 a = s_keys[i], b = s_keys[j];
+          if ((a > b) == (((base + i) & size) == 0)) {
+            s_keys[i] = b;
+            s_keys[j] = a;
+          }
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (holds) k[e] = s_keys[t * E + e];
+      __syncthreads();               // read before the next store
+    }
+    for (; stride >= E; stride >>= 1) {        // across lanes
+      const bool keep_min = ((pos0 & stride) == 0) == ((pos0 & size) == 0);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const u64 o = __shfl_xor_sync(0xffffffffu, k[e], stride / E);
+        k[e] = keep_min ? (o < k[e] ? o : k[e]) : (o > k[e] ? o : k[e]);
+      }
+    }
+    for (; stride > 0; stride >>= 1) {        // within a thread
+#pragma unroll
+      for (int s = 1; s < E; s <<= 1) {
+        if (s == stride) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const int f = e ^ s;
+            if (f > e) {
+              const u64 a = k[e], b = k[f];
+              if ((a > b) == (((pos0 + e) & size) == 0)) {
+                k[e] = b;
+                k[f] = a;
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// Codes and sort of one cloud for cluster_sort<E>; the sorted rows go to
+// out[0, n).
+template <int E>
+__device__ __forceinline__ void code_and_sort(cg::cluster_group& cluster,
+                                              u64* s_keys,
+                                              const float* __restrict__ p,
+                                              int n, int m,
+                                              const float (&lo)[3],
+                                              const float (&inv)[3],
+                                              int* __restrict__ out) {
+  const int base = (int)cluster.block_rank() * m;
+  const int pos0 = base + (int)threadIdx.x * E;
+  const bool holds = (int)threadIdx.x * E < m;
+  u64 k[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    k[e] = ~0ULL;
+    if (holds && pos0 + e < n)
+      k[e] = ((u64)morton_code(p, pos0 + e, lo, inv) << 32) |
+             (unsigned)(pos0 + e);
+  }
+  cluster_sort<E>(cluster, s_keys, k, m, base, pos0);
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    if (holds && pos0 + e < n)
+      out[pos0 + e] = (int)(unsigned)(k[e] & 0xffffffffULL);
+}
+
+// E6's Morton codes (nn_variants.morton_order) and the stable sort by
+// them.  Blocks 0-15 take the queries, 16-31 the reference; a cloud's 16
+// blocks form a cluster.  Bounds: each block reduces a sixteenth of its
+// cloud over the unparked rows and the blocks read each other's partial
+// bounds from shared memory.  With perm, the cluster then sorts its cloud
+// by (code << 32 | row) keys, which is the stable order since the row
+// breaks ties, in a bitonic network over P = 16m >= n positions (padding
+// ~0 sorts last; cluster_sort), and perm[Q + R] receives the sorted rows:
+// queries, then the reference.  Without perm (a cloud too large for the
+// cluster) the kernel writes codes[Q + R] for torch.sort instead: query
+// codes - 2^31 (negative), then reference codes, so one stable sort
+// orders each cloud and keeps the queries first.
+__global__ void __launch_bounds__(E6_MORTON_THREADS)
+e6_morton_kernel(const float* __restrict__ q, const float* __restrict__ ref,
+                 int Q, int R, int m_q, int m_r, int* __restrict__ codes,
+                 int* __restrict__ perm) {
+  extern __shared__ u64 s_keys[];    // m keys (perm only)
+  __shared__ float s_part[6];
+  __shared__ float s_all[E6_MORTON_CLUSTER][6];
+  __shared__ float s_warp[6][E6_MORTON_THREADS / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int part = (int)cluster.block_rank();
+  const bool is_q = blockIdx.x < E6_MORTON_CLUSTER;
+  const float* p = is_q ? q : ref;
+  const int n = is_q ? Q : R;
+  const int k0 = (int)((long long)n * part / E6_MORTON_CLUSTER);
+  const int k1 = (int)((long long)n * (part + 1) / E6_MORTON_CLUSTER);
+  float v[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY,
+                -INFINITY};
+  for (int k = k0 + threadIdx.x; k < k1; k += E6_MORTON_THREADS) {
+    const float x = p[3 * (size_t)k], y = p[3 * (size_t)k + 1],
+                z = p[3 * (size_t)k + 2];
+    if (unparked(x, y, z)) {
+      v[0] = fminf(v[0], x);
+      v[1] = fminf(v[1], y);
+      v[2] = fminf(v[2], z);
+      v[3] = fmaxf(v[3], x);
+      v[4] = fmaxf(v[4], y);
+      v[5] = fmaxf(v[5], z);
+    }
+  }
+  block_box<E6_MORTON_THREADS>(v, s_warp);
+  if (threadIdx.x == 0)
+    for (int d = 0; d < 6; ++d) s_part[d] = v[d];
+  cluster.sync();
+  if (threadIdx.x < 6 * E6_MORTON_CLUSTER) {
+    const int b = threadIdx.x / 6, d = threadIdx.x % 6;
+    s_all[b][d] = cluster.map_shared_rank(&s_part[0], b)[d];
+  }
+  cluster.sync();                    // no block leaves while others read it
+  float lo[3] = {INFINITY, INFINITY, INFINITY};
+  float hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+  for (int b = 0; b < E6_MORTON_CLUSTER; ++b) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      lo[d] = fminf(lo[d], s_all[b][d]);
+      hi[d] = fmaxf(hi[d], s_all[b][3 + d]);
+    }
+  }
+  float inv[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+    inv[d] = __fdiv_rn(1.f, fmaxf(__fsub_rn(hi[d], lo[d]), 1e-6f));
+  if (perm == nullptr) {
+    for (int k = k0 + threadIdx.x; k < k1; k += E6_MORTON_THREADS) {
+      const unsigned code = morton_code(p, k, lo, inv);
+      codes[is_q ? k : Q + k] = is_q ? (int)(code | 0x80000000u) : (int)code;
+    }
+    return;
+  }
+  const int m = is_q ? m_q : m_r;
+  int* out = perm + (is_q ? 0 : Q);
+  switch (m / E6_MORTON_THREADS) {   // keys a thread; uniform in a cluster
+    case 8: code_and_sort<8>(cluster, s_keys, p, n, m, lo, inv, out); break;
+    case 4: code_and_sort<4>(cluster, s_keys, p, n, m, lo, inv, out); break;
+    case 2: code_and_sort<2>(cluster, s_keys, p, n, m, lo, inv, out); break;
+    default: code_and_sort<1>(cluster, s_keys, p, n, m, lo, inv, out); break;
+  }
+}
+
+// After the sort (perm[Q + R]: sorted rank -> row, the queries' Q, then
+// the reference's R): block b < ni gathers query tile b (x, y, z, |q|^2)
+// and its box and empties its keys; block ni + t gathers reference tile t
+// as extended rows (-2x, -2y, -2z, |r|^2) and its box.  Boxes cover
+// parked rows too, as tile_boxes.
+__global__ void __launch_bounds__(E6_GATHER_THREADS)
+e6_gather_kernel(const float* __restrict__ q, const float* __restrict__ ref,
+                 const int* __restrict__ perm, int Q, int qb, int rb,
+                 int ni, float4* __restrict__ q4, float4* __restrict__ r_ext,
+                 float* __restrict__ q_boxes, float* __restrict__ r_boxes,
+                 u64* __restrict__ keys, u64* __restrict__ counter,
+                 int* __restrict__ visits) {
+  __shared__ float s_warp[6][E6_GATHER_THREADS / 32];
+  const bool is_q = blockIdx.x < ni;
+  const int tile = is_q ? blockIdx.x : blockIdx.x - ni;
+  const int n = is_q ? qb : rb;
+  const size_t first = (size_t)tile * n;
+  float v[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY,
+                -INFINITY};
+  for (int k = threadIdx.x; k < n; k += E6_GATHER_THREADS) {
+    const size_t s = first + k;
+    const float* p = (is_q ? q : ref) + 3 * (size_t)perm[is_q ? s : Q + s];
+    const float x = p[0], y = p[1], z = p[2];
+    v[0] = fminf(v[0], x);
+    v[1] = fminf(v[1], y);
+    v[2] = fminf(v[2], z);
+    v[3] = fmaxf(v[3], x);
+    v[4] = fmaxf(v[4], y);
+    v[5] = fmaxf(v[5], z);
+    const float n2 = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                               __fmul_rn(z, z));
+    if (is_q) {
+      q4[s] = make_float4(x, y, z, n2);
+      keys[s] = E6_EMPTY;
+    } else {
+      r_ext[s] = make_float4(-2.f * x, -2.f * y, -2.f * z, n2);
+    }
+  }
+  block_box<E6_GATHER_THREADS>(v, s_warp);
+  if (threadIdx.x == 0) {
+    float* box = (is_q ? q_boxes : r_boxes) + 6 * (size_t)tile;
+    for (int d = 0; d < 6; ++d) box[d] = v[d];
+    if (is_q) visits[tile] = 0;
+    if (blockIdx.x == 0) *counter = 0;
+  }
+}
+
+// Pass 1.  Items are numbered rank-major (item = j * ni + i) and taken from
+// *counter.  64 threads hold the query tile (4 queries each); group g of
+// the 8 scans every 8th row of the staged reference tile, and the groups'
+// minima meet in shared memory before one atomicMin a query.
+__global__ void __launch_bounds__(E6_THREADS, E6_BLOCKS_PER_SM)
+e6_items_kernel(const float4* __restrict__ q4,
+                const float4* __restrict__ r_ext,
+                const float* __restrict__ q_boxes,
+                const float* __restrict__ r_boxes, int qb, int rb, int ni,
+                int nj, u64* keys, u64* counter, int* __restrict__ visits) {
+  __shared__ float4 s_r[E6_RB];
+  __shared__ float s_min[E6_GROUPS][E6_QT];
+  __shared__ float s_lb[E6_THREADS];
+  __shared__ float s_warp[E6_THREADS / 32];
+  __shared__ int s_item, s_tile;
+  const int t = threadIdx.x;
+  const int group = t / E6_GROUP;
+  const int lane = t % E6_GROUP;
+  const int n_items = ni * nj;
+  const bool by_bound = nj <= E6_THREADS;
+
+  for (;;) {
+    __syncthreads();                 // the last item's shared state is free
+    if (t == 0) {
+      const u64 taken = atomicAdd(counter, 1ULL);
+      s_item = taken < (u64)n_items ? (int)taken : n_items;
+    }
+    __syncthreads();
+    const int item = s_item;
+    if (item >= n_items) return;
+    const int i = item % ni;
+    const int j = item / ni;
+    const int start = visit_start(i, ni, nj);
+    const float* qbox = q_boxes + 6 * (size_t)i;
+    int tile;
+    float lb;
+    if (by_bound) {                  // the tile of bound rank j
+      if (t < nj) s_lb[t] = box_gap2(qbox, r_boxes + 6 * (size_t)t);
+      __syncthreads();
+      if (t < nj) {
+        const float mine = s_lb[t];
+        int rank = 0;
+        for (int k = 0; k < nj; ++k) {
+          const float o = s_lb[k];
+          rank += (o < mine) || (o == mine && k < t);
+        }
+        if (rank == j) s_tile = t;
+      }
+      __syncthreads();
+      tile = s_tile;
+      lb = s_lb[tile];
+    } else {
+      tile = (j + start) % nj;
+      lb = box_gap2(qbox, r_boxes + 6 * (size_t)tile);
+    }
+
+    const size_t q0 = (size_t)i * qb;
+    float m = -INFINITY;
+    for (int s = t; s < qb; s += E6_THREADS) {
+      const u64 key = __ldcg(keys + q0 + s);
+      m = fmaxf(m, key == E6_EMPTY
+                       ? INFINITY
+                       : __fadd_rn(bits_score((unsigned)(key >> 32)),
+                                   q4[q0 + s].w));
+    }
+    m = block_max<E6_THREADS>(m, s_warp);
+    if (!(lb < m)) continue;
+    if (t == 0) atomicAdd(visits + i, 1);
+
+    const float4* src = r_ext + (size_t)tile * rb;
+    for (int k = t; k < rb; k += E6_THREADS) cp_async16(s_r + k, src + k);
+    cp_async_commit();
+    float qx[NN_QPT], qy[NN_QPT], qz[NN_QPT], mn[NN_QPT];
+#pragma unroll
+    for (int u = 0; u < NN_QPT; ++u) {
+      const float4 qq = q4[q0 + min(lane + u * E6_GROUP, qb - 1)];
+      qx[u] = qq.x;
+      qy[u] = qq.y;
+      qz[u] = qq.z;
+      mn[u] = INFINITY;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 4
+    for (int k = group; k < rb; k += E6_GROUPS) {
+      const float4 r = s_r[k];
+#pragma unroll
+      for (int u = 0; u < NN_QPT; ++u)
+        mn[u] = fminf(mn[u], mm_score(qx[u], qy[u], qz[u], r));
+    }
+#pragma unroll
+    for (int u = 0; u < NN_QPT; ++u) s_min[group][lane + u * E6_GROUP] = mn[u];
+    __syncthreads();
+    if (t < qb) {
+      float v = s_min[0][t];
+#pragma unroll
+      for (int g = 1; g < E6_GROUPS; ++g) v = fminf(v, s_min[g][t]);
+      const unsigned rank = (unsigned)((tile - start + nj) % nj);
+      atomicMin(keys + q0 + t, ((u64)score_bits(v) << 32) | rank);
+    }
+  }
+}
+
+// Pass 2, a warp a sorted query s: the winning tile's rows that tie with
+// the least score, their payloads averaged, written at row perm[s].  It
+// leaves the keys empty and the item counter at 0, so the items can run
+// again on the same tables.
+__global__ void __launch_bounds__(E6_EPILOGUE_THREADS)
+e6_epilogue_kernel(const float4* __restrict__ q4,
+                   const float4* __restrict__ r_ext,
+                   const int* __restrict__ perm,
+                   const float* __restrict__ pay, int Q, int P, int qb,
+                   int rb, int ni, int nj, u64* __restrict__ keys,
+                   u64* __restrict__ counter, float* __restrict__ d2_out,
+                   float* __restrict__ pay_out) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * (E6_EPILOGUE_THREADS / 32) + threadIdx.x / 32;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *counter = 0;
+  if (s >= Q) return;
+  const u64 key = keys[s];
+  const size_t row = perm[s];
+  const float4 q = q4[s];
+  float sum[MAX_PAYLOAD];
+#pragma unroll
+  for (int p = 0; p < MAX_PAYLOAD; ++p) sum[p] = 0.f;
+  int count = 0;
+  float best = INFINITY;
+  if (key != E6_EMPTY) {
+    best = bits_score((unsigned)(key >> 32));
+    const int i = s / qb;
+    const int tile =
+        (int)((key & 0xffffffffULL) + (u64)visit_start(i, ni, nj)) % nj;
+    const size_t first = (size_t)tile * rb;
+    for (int k = lane; k < rb; k += 32) {
+      if (mm_score(q.x, q.y, q.z, r_ext[first + k]) == best) {
+        ++count;
+        const float* pr = pay + (size_t)perm[Q + first + k] * P;
+#pragma unroll
+        for (int p = 0; p < MAX_PAYLOAD; ++p)
+          if (p < P) sum[p] = __fadd_rn(sum[p], pr[p]);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    count += __shfl_xor_sync(0xffffffffu, count, off);
+#pragma unroll
+    for (int p = 0; p < MAX_PAYLOAD; ++p)
+      sum[p] = __fadd_rn(sum[p], __shfl_xor_sync(0xffffffffu, sum[p], off));
+  }
+  if (lane == 0) {
+    d2_out[row] = fmaxf(__fadd_rn(best, q.w), 0.f);
+    const float c = (float)max(count, 1);
+    for (int p = 0; p < P; ++p)
+      pay_out[row * P + p] = __fdiv_rn(sum[p], c);
+    keys[s] = E6_EMPTY;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // E2 / E3: K1's exact 1-NN at a chosen tile shape
 // ---------------------------------------------------------------------------
 //
-// A block owns qb = blockDim.x * QPT queries (thread t holds queries
-// t + j*blockDim.x, j < QPT) and stages the reference rb points at a time
-// (dynamic shared memory, SoA, 12*rb bytes).  Distances round exactly as
-// K1's (csrc/nn.cu sq_dist), so the result equals K1's bit for bit.
+// K1's item design (csrc/nn.cu) with the sweep's tile as the work item: a
+// block takes (query tile i of qb queries, reference tile j of rb points)
+// and stages the whole reference tile in shared memory (16-byte rows from
+// cp.async, a chunk of groups * 128 points at a time, two chunks ahead of
+// the scan), so rb is bounded by one block's shared memory as the TPU
+// sweep's tile is by VMEM.  gt threads (a power of two, 32-256) hold up
+// to 4 * gt queries, 4 a thread; the block's NT / gt groups each scan
+// their own 128-point span of every chunk.  A query tile larger than
+// 4 * gt (qb > 1024) takes several passes over the staged tile.  Each
+// thread lowers its queries' keys (d2 bits << 32 | idx) with atomicMin
+// once a pass, and nn_unpack_kernel splits them: d2 bit-equal to K1's
+// and to nn_kernels.nn_indices_plain, ties to the lowest index.
 
-__device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
-                                         float rx, float ry, float rz) {
-  const float dx = __fsub_rn(qx, rx);
-  const float dy = __fsub_rn(qy, ry);
-  const float dz = __fsub_rn(qz, rz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
+#define TL_MAX_GT 256
 
-template <int QPT>
-__global__ void __launch_bounds__(TILED_THREADS)
-nn_tiled_kernel(const float* __restrict__ q, const float* __restrict__ ref,
-                int Q, int R, int rb, float* __restrict__ d2_out,
-                int* __restrict__ idx_out) {
-  extern __shared__ float s_xyz[];
-  float* sx = s_xyz;
-  float* sy = s_xyz + rb;
-  float* sz = s_xyz + 2 * rb;
-  const size_t q0 = (size_t)blockIdx.x * blockDim.x * QPT + threadIdx.x;
-  float qx[QPT], qy[QPT], qz[QPT], best[QPT];
-  int best_i[QPT];
+template <int NT>
+__global__ void __launch_bounds__(NT, 1024 / NT)
+nn_tile_items_kernel(const float* __restrict__ q,
+                     const float* __restrict__ ref, int Q, int R, int qb,
+                     int rb, int nQt, int gt, u64* keys) {
+  extern __shared__ float4 tile[];      // min(rb, R) rows
+  const int t = threadIdx.x;
+  const int group = t / gt;
+  const int lane = t % gt;
+  const int chunk = (NT / gt) * NN_SPAN;
+  const int i = blockIdx.x % nQt;
+  const int j = blockIdx.x / nQt;
+  const int first = j * rb;
+  const int n = min(rb, R - first);
+  const int nchunks = (n + chunk - 1) / chunk;
 #pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    const size_t qi = q0 + (size_t)j * blockDim.x;
-    load_query(q, qi, qi < (size_t)Q, qx[j], qy[j], qz[j]);
-    best[j] = INFINITY;
-    best_i[j] = 0;
+  for (int s = 0; s < NN_STAGES - 1; ++s) {
+    if (s < nchunks)
+      stage_chunk<NT>(tile + s * chunk, ref, (size_t)first + s * chunk,
+                      min(chunk, n - s * chunk));
+    cp_async_commit();
   }
-  for (int c0 = 0; c0 < R; c0 += rb) {
-    const int n = min(rb, R - c0);
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      const float* p = ref + 3 * ((size_t)c0 + k);
-      sx[k] = p[0];
-      sy[k] = p[1];
-      sz[k] = p[2];
-    }
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float rx = sx[k], ry = sy[k], rz = sz[k];
+  const int q_first = i * qb;
+  const int q_n = min(qb, Q - q_first);
+  for (int p0 = 0; p0 < q_n; p0 += NN_QPT * gt) {
+    float qx[NN_QPT], qy[NN_QPT], qz[NN_QPT], best[NN_QPT], published[NN_QPT];
+    int qi[NN_QPT], best_i[NN_QPT];
 #pragma unroll
-      for (int j = 0; j < QPT; ++j) {
-        const float d = sq_dist(qx[j], qy[j], qz[j], rx, ry, rz);
-        if (d < best[j]) {
-          best[j] = d;
-          best_i[j] = c0 + k;
-        }
+    for (int u = 0; u < NN_QPT; ++u) {
+      const int slot = p0 + lane + u * gt;
+      qi[u] = slot < q_n ? q_first + slot : Q;   // Q: no query
+      const size_t row = 3 * (size_t)(qi[u] < Q ? qi[u] : 0);
+      qx[u] = q[row];
+      qy[u] = q[row + 1];
+      qz[u] = q[row + 2];
+      best[u] = INFINITY;
+      published[u] = INFINITY;
+      best_i[u] = 0;
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      if (p0 == 0) {                      // the first pass stages the tile
+        cp_async_wait<NN_STAGES - 2>();   // chunk c has landed (this thread)
+        __syncthreads();                  // ... for every thread
+        const int ahead = c + NN_STAGES - 1;
+        if (ahead < nchunks)
+          stage_chunk<NT>(tile + ahead * chunk, ref,
+                          (size_t)first + ahead * chunk,
+                          min(chunk, n - ahead * chunk));
+        cp_async_commit();
       }
+      const int off = c * chunk + group * NN_SPAN;
+      scan_span(tile + off, min(NN_SPAN, n - off), first + off, qx, qy, qz,
+                best, best_i);
     }
-    __syncthreads();
+    publish(keys, qi, Q, best, best_i, published);
   }
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    const size_t qi = q0 + (size_t)j * blockDim.x;
-    if (qi < (size_t)Q) {
-      d2_out[qi] = best[j];
-      idx_out[qi] = best_i[j];
-    }
-  }
+  cp_async_wait<0>();
 }
 
-template <int QPT>
-static int launch_tiled(const float* q, const float* ref, int Q, int R,
-                        int threads, int rb, float* d2_out, int* idx_out,
-                        cudaStream_t stream) {
-  const size_t smem = 12 * (size_t)rb;
+// (threads that hold a pass's queries, block threads) for a qb-query tile:
+// 4 queries a thread, at least a warp, at most 256; 512-thread blocks
+// where a tile of more than 4096 points lets only one block on an SM.
+static void tile_layout(int qb, int rb, int* gt, int* nt) {
+  int g = 32;
+  while (g < TL_MAX_GT && g * NN_QPT < qb) g *= 2;
+  *gt = g;
+  *nt = rb > 4096 ? 512 : 256;
+}
+
+template <int NT>
+static int launch_tile_items(const float* q, const float* ref, int Q, int R,
+                             int qb, int rb, int gt, u64* keys,
+                             cudaStream_t stream) {
+  const int smem = 16 * min(rb, R);
   cudaError_t err = cudaFuncSetAttribute(
-      nn_tiled_kernel<QPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      nn_tile_items_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
-  const int qb = threads * QPT;
-  const int blocks = (Q + qb - 1) / qb;
-  nn_tiled_kernel<QPT><<<blocks, threads, smem, stream>>>(q, ref, Q, R, rb,
-                                                           d2_out, idx_out);
+  const int nQt = (Q + qb - 1) / qb;
+  const int items = nQt * ((R + rb - 1) / rb);
+  nn_tile_items_kernel<NT><<<items, NT, smem, stream>>>(q, ref, Q, R, qb, rb,
+                                                        nQt, gt, keys);
   return (int)cudaGetLastError();
 }
 
@@ -536,42 +1016,117 @@ int lsl_mm_payload(const float* q, const float* r_ext, const float* pay,
   return (int)cudaGetLastError();
 }
 
-int lsl_mm_payload_pruned(const float* q_sorted, const float* q_norm2,
-                          const float* r_ext, const float* pay,
-                          const float* q_boxes, const float* r_boxes, int Q,
-                          int R, int P, int qb, int rb, int ni, int nj,
-                          float* score_out, float* pay_out, int* visits,
-                          int device, void* stream) {
+// E6 set-up, first half: with perm, both clouds sorted by their codes
+// (perm[Q + R]: the sorted query rows, then the sorted reference rows;
+// m_q, m_r: keys a block, powers of two with 8 m >= the cloud);
+// without, codes[Q + R] for one stable sort.
+int lsl_e6_morton(const float* q, const float* ref, int Q, int R, int m_q,
+                  int m_r, int* codes, int* perm, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (P < 1 || P > MAX_PAYLOAD || qb < 1 || qb > TILED_THREADS ||
-      rb < 1 || rb > MM_CHUNK || ni * qb != Q || nj * rb != R)
+  if (Q < 1 || R < 1 ||
+      (perm != nullptr &&
+       ((long long)E6_MORTON_CLUSTER * m_q < Q ||
+        (long long)E6_MORTON_CLUSTER * m_r < R || (m_q & (m_q - 1)) ||
+        (m_r & (m_r - 1)) || m_q < 1 || m_r < 1 ||
+        max(m_q, m_r) > E6_SORT_KPT * E6_MORTON_THREADS)))
     return (int)cudaErrorInvalidValue;
-  mm_pruned_kernel<<<ni, TILED_THREADS, 0, (cudaStream_t)stream>>>(
-      q_sorted, q_norm2, (const float4*)r_ext, pay, q_boxes, r_boxes, P, qb,
-      rb, ni, nj, score_out, pay_out, visits);
+  const int smem = perm != nullptr ? (int)sizeof(u64) * max(m_q, m_r) : 0;
+  err = cudaFuncSetAttribute(e6_morton_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(e6_morton_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * E6_MORTON_CLUSTER);
+  cfg.blockDim = dim3(E6_MORTON_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = E6_MORTON_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, e6_morton_kernel, q, ref, Q, R, m_q, m_r,
+                           codes, perm);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-int lsl_nn_tiled(const float* q, const float* ref, int Q, int R, int qb,
-                 int rb, float* d2_out, int* idx_out, int device,
-                 void* stream) {
+// E6 set-up, second half, after the sort: q4 [Q] and r_ext [R] float4,
+// q_boxes [ni,6], r_boxes [nj,6]; keys [Q] emptied, *counter and
+// visits [ni] zeroed.
+int lsl_e6_gather(const float* q, const float* ref, const int* perm,
+                  int Q, int R, int qb, int rb, float* q4, float* r_ext,
+                  float* q_boxes, float* r_boxes, u64* keys, u64* counter,
+                  int* visits, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (qb >= 1 && qb <= TILED_THREADS)
-    return launch_tiled<1>(q, ref, Q, R, qb, rb, d2_out, idx_out, s);
-  switch (qb / TILED_THREADS * (qb % TILED_THREADS == 0)) {
-    case 1: return launch_tiled<1>(q, ref, Q, R, 256, rb, d2_out, idx_out, s);
-    case 2: return launch_tiled<2>(q, ref, Q, R, 256, rb, d2_out, idx_out, s);
-    case 4: return launch_tiled<4>(q, ref, Q, R, 256, rb, d2_out, idx_out, s);
-    case 8: return launch_tiled<8>(q, ref, Q, R, 256, rb, d2_out, idx_out, s);
-    case 16:
-      return launch_tiled<16>(q, ref, Q, R, 256, rb, d2_out, idx_out, s);
-    case 32:
-      return launch_tiled<32>(q, ref, Q, R, 256, rb, d2_out, idx_out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (qb < 1 || qb > E6_QT || rb < 1 || rb > E6_RB || Q % qb || R % rb)
+    return (int)cudaErrorInvalidValue;
+  const int ni = Q / qb;
+  e6_gather_kernel<<<ni + R / rb, E6_GATHER_THREADS, 0,
+                     (cudaStream_t)stream>>>(
+      q, ref, perm, Q, qb, rb, ni, (float4*)q4, (float4*)r_ext, q_boxes,
+      r_boxes, keys, counter, visits);
+  return (int)cudaGetLastError();
+}
+
+// E6's two passes on the tables of lsl_e6_gather; d2_out [Q], pay_out
+// [Q,P] at the caller's rows.  visits[i] gains the tiles that query tile i
+// scanned.
+int lsl_e6_pruned(const float* q4, const float* r_ext, const float* q_boxes,
+                  const float* r_boxes, const int* perm,
+                  const float* pay, int Q, int R, int P, int qb, int rb,
+                  u64* keys, u64* counter, int* visits, float* d2_out,
+                  float* pay_out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (P < 1 || P > MAX_PAYLOAD || qb < 1 || qb > E6_QT || rb < 1 ||
+      rb > E6_RB || Q % qb || R % rb)
+    return (int)cudaErrorInvalidValue;
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int ni = Q / qb, nj = R / rb;
+  const int grid = min(ni * nj, E6_BLOCKS_PER_SM * n_sm);
+  e6_items_kernel<<<grid, E6_THREADS, 0, s>>>(
+      (const float4*)q4, (const float4*)r_ext, q_boxes, r_boxes, qb, rb, ni,
+      nj, keys, counter, visits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int per_block = E6_EPILOGUE_THREADS / 32;
+  e6_epilogue_kernel<<<(Q + per_block - 1) / per_block, E6_EPILOGUE_THREADS,
+                       0, s>>>((const float4*)q4, (const float4*)r_ext, perm,
+                               pay, Q, P, qb, rb, ni, nj, keys, counter,
+                               d2_out, pay_out);
+  return (int)cudaGetLastError();
+}
+
+// E2/E3.  keys: Q + 1 entries filled with NN_INIT_KEY.
+int lsl_nn_tiled(const float* q, const float* ref, int Q, int R, int qb,
+                 int rb, u64* keys, float* d2_out, int* idx_out, int device,
+                 void* stream) {
+  if (!(qb >= 1 && qb <= 256) &&
+      !(qb % 256 == 0 && (qb / 256 & (qb / 256 - 1)) == 0 && qb <= 8192))
+    return (int)cudaErrorInvalidValue;
+  if (rb < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int gt, nt;
+  tile_layout(qb, rb, &gt, &nt);
+  const int rc =
+      nt == 512 ? launch_tile_items<512>(q, ref, Q, R, qb, rb, gt, keys, s)
+                : launch_tile_items<256>(q, ref, Q, R, qb, rb, gt, keys, s);
+  if (rc != 0) return rc;
+  return (int)launch_unpack(keys, Q, nullptr, d2_out, idx_out, s);
 }
 
 }  // extern "C"

@@ -11,10 +11,12 @@ events (mean over ``reps`` launches after a warm-up) beside the one
 PyTorch call that computes the same function, where there is one.
 
 Rows: ``brute`` (plain ``nn_brute`` plus the payload gather), ``payload``
-(E4), ``pruned`` (E6, with the share of reference tiles it visits),
+(E4), ``pruned`` (E6 with its set-up, with the share of reference tiles
+its kernel scans),
 ``indices`` (K1 plus the gather), ``idx-kernel`` (K1), ``indices-hi``
 (E5, E1 at ``highest``), ``indices-bf16`` (E1 at one bf16 pass, with its
-max |d2 - exact|), ``vpu`` (E2) and the tile sweep (E3).
+max |d2 - exact|), ``vpu`` (E2) and the tile sweep (E3, with its work
+items a launch).
 
 Run on a machine with a CUDA card:
 
@@ -132,7 +134,7 @@ def run(queries: torch.Tensor, ref_points: torch.Tensor,
     share = float(visits.sum()) / n_tiles
     row('pruned', lambda: nv.nn_payload_pruned(queries, ref_points, payload),
         lambda o: o[0], None, no_payload_call, kernel='E6',
-        visited_share=share)
+        scanned_share=share)
     row('indices', lambda: (lambda d_i: (d_i[0], payload[d_i[1].long()]))(
         nk.nn_indices(queries, ref_points)), lambda o: o[0], lib_exact,
         exact_call + ' and a gather', kernel='K1')
@@ -148,19 +150,21 @@ def run(queries: torch.Tensor, ref_points: torch.Tensor,
         'none: torch.matmul of bf16 tensors rounds its result to bf16',
         kernel='E1')
     row('vpu', lambda: nv.nn_vpu(queries, ref_points), lambda o: o[0],
-        lib_exact, exact_call, kernel='E2')
+        lib_exact, exact_call, kernel='E2',
+        items=nv.tiled_items(Q, R, nv._QB, nv._RB))
     for qb, rb in SWEEP:
         name = f'sweep {qb}x{rb}'
         try:
             row(name, lambda a=qb, b=rb: nv.nn_indices_tiled(
                 queries, ref_points, a, b), lambda o: o[0], lib_exact,
-                exact_call, kernel='E3', qb=qb, rb=rb)
+                exact_call, kernel='E3', qb=qb, rb=rb,
+                items=nv.tiled_items(Q, R, qb, rb))
         except nv.TileTooLarge as exc:
             rows.append(dict(name=name, ms=None, library_ms=lib_exact,
                              library=exact_call, kernel='E3', qb=qb, rb=rb,
                              failed=str(exc)))
             log(f'{name:14s} failed: {exc}')
-    log(f'queries {Q}, reference {R}; E6 visited {share:.4f} of its '
+    log(f'queries {Q}, reference {R}; E6 scanned {share:.4f} of its '
         'reference tiles')
     return rows
 

@@ -3,8 +3,9 @@
 Each source is compiled once per content into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds) under
 ``laser_slam_tpu_torch/_build/``, which git ignores.  The library name
-carries a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is reused.  Nothing here runs at import time.
+carries a hash of the source, of every header in ``csrc/`` (``*.cuh``,
+which the sources include) and of the flags, so an edited source or
+header builds anew and an unchanged one is reused.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -44,8 +45,11 @@ def _nvcc() -> str:
 def _library_path(source: str) -> tuple:
     """(source path, library path) of ``csrc/<source>``."""
     src = os.path.join(CSRC_DIR, source)
-    with open(src, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith('.cuh'))
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, 'rb') as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return src, os.path.join(BUILD_DIR,
                              f'lib{stem}_{digest.hexdigest()[:16]}.so')

@@ -3,7 +3,7 @@ their plain versions.
 
 Counterpart of the Pallas kernels in ``experiments/pallas_nn_variants.py``,
 ``experiments/pallas_tile_sweep.py`` and
-``experiments/pallas_payload_variants.py``.  Four kernels, all in
+``experiments/pallas_payload_variants.py``.  The kernels are in
 ``csrc/nn_variants.cu`` (its header gives the design and what bounds
 each on the card):
 
@@ -16,18 +16,24 @@ each on the card):
   row.  Exactly tied minima inside one 2048-wide reference tile are
   averaged (the Pallas one-hot / count); across tiles a strict ``<``.
 * E6 :func:`nn_payload_pruned` — E4's function over E6's own
-  Morton-sorted queries and reference (1024-wide reference tiles),
-  visiting the reference tiles of each 256-query tile in E6's rotated
-  order and skipping a tile whose box bound reaches the tile's largest
-  best.
+  Morton-sorted queries and reference (256-query x 1024-reference
+  tiles): per query the least score over the reference tiles, ties
+  across tiles to the first tile in E6's rotated visit order, the
+  winning tile's tied rows averaged.  On the card (query tile x reference
+  tile) work items merge one key a query, ``(orderable score bits) << 32
+  | visit rank``, skip tiles whose box bound reaches the query tile's
+  largest merged best, and an epilogue averages the payloads; the Morton
+  codes and the sort (one cluster a cloud), the gathers, the boxes and
+  the unsort run on the card too (:func:`pruned_setup`), four launches
+  a call.
 * E2/E3 :func:`nn_vpu` / :func:`nn_indices_tiled` — K1's coordinate-wise
-  exact 1-NN at a chosen (query tile, reference tile); E2 is the
-  (256, 2048) instance.  Its plain version is K1's.
+  exact 1-NN with a chosen (query tile, reference tile) as the work item,
+  merged across items as K1 merges them; E2 is the (256, 2048) instance.
+  Its plain version is K1's.
 
 Each wrapper takes its plain torch version when the tensors lie on the
 CPU; for CUDA tensors it launches its kernel and adds one to its
-``launches`` counter, or raises.  The Morton sort, the tile boxes and the
-unsort of E6 are plain torch, as they are plain XLA in the JAX code.
+``launches`` counter, or raises.
 
 Within a tile the Pallas index kernels take the lowest column on ties and
 across tiles a strict ``<``; for an index that is the lowest index of the
@@ -49,8 +55,8 @@ import torch
 
 from laser_slam_tpu_torch.ops.neighbors import query_chunks
 from laser_slam_tpu_torch.ops.nn_kernels import (_check_cuda, _check_launch,
-                                                 _check_points, _tile,
-                                                 nn_indices_plain)
+                                                 _check_points, _merge_keys,
+                                                 _tile, nn_indices_plain)
 
 # Tile sizes of the experiment kernels (pallas_payload_variants._QB/_RB,
 # and the 1024-wide reference tile of nn_payload_pruned).
@@ -59,6 +65,11 @@ _RB = 2048
 _RB_PRUNED = 1024
 # Widest payload row the kernels keep in registers.
 MAX_PAYLOAD = 8
+# E6's set-up sorts each cloud in one cluster of 16 blocks, at most this
+# many 8-byte keys a block (8 a thread in registers, 64 KB of shared
+# memory); a larger cloud is sorted by torch.sort.
+_E6_CLUSTER = 16
+_E6_SORT_BLOCK = 8192
 # Rows with a coordinate this large are parked (cloud.SENTINEL = 1e6).
 _PARKED = 1.0e5
 
@@ -77,11 +88,14 @@ def _kernels() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lsl_mm_indices.argtypes = [p, p, i, i, i, p, p, i, p]
         lib.lsl_mm_payload.argtypes = [p, p, p, i, i, i, i, p, p, i, p]
-        lib.lsl_mm_payload_pruned.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                              i, i, i, p, p, p, i, p]
-        lib.lsl_nn_tiled.argtypes = [p, p, i, i, i, i, p, p, i, p]
-        for fn in (lib.lsl_mm_indices, lib.lsl_mm_payload,
-                   lib.lsl_mm_payload_pruned, lib.lsl_nn_tiled):
+        lib.lsl_e6_morton.argtypes = [p, p, i, i, i, i, p, p, i, p]
+        lib.lsl_e6_gather.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p,
+                                      p, i, p]
+        lib.lsl_e6_pruned.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p,
+                                      p, p, p, i, p]
+        lib.lsl_nn_tiled.argtypes = [p, p, i, i, i, i, p, p, p, i, p]
+        for fn in (lib.lsl_mm_indices, lib.lsl_mm_payload, lib.lsl_e6_morton,
+                   lib.lsl_e6_gather, lib.lsl_e6_pruned, lib.lsl_nn_tiled):
             fn.restype = i
         _lib = lib
     return _lib
@@ -205,11 +219,20 @@ def nn_indices_mm(queries: torch.Tensor, ref_points: torch.Tensor,
     _check_precision(precision)
     if _on_cpu(queries, ref_points):
         return nn_indices_mm_plain(queries, ref_points, precision)
-    device = _check_cuda('nn_indices_mm', queries, ref_points)
-    Q, R = queries.shape[0], ref_points.shape[0]
-    if R == 0:
+    _check_cuda('nn_indices_mm', queries, ref_points)
+    if ref_points.shape[0] == 0:
         raise ValueError('nn_indices_mm: empty reference')
-    r_ext = extend_reference(ref_points)
+    score, idx = _launch_mm_indices(queries, extend_reference(ref_points),
+                                    precision)
+    return torch.clamp(score + query_norm2(queries), min=0.0), idx
+
+
+def _launch_mm_indices(queries: torch.Tensor, r_ext: torch.Tensor,
+                       precision: str):
+    """The E5/E1 kernel alone on extended reference rows (the wrapper's
+    only set-up): (score [Q] f32, idx [Q] i32), the launch counted."""
+    device = queries.device
+    Q, R = queries.shape[0], r_ext.shape[0]
     score = torch.empty(Q, dtype=torch.float32, device=device)
     idx = torch.empty(Q, dtype=torch.int32, device=device)
     if Q:
@@ -222,7 +245,7 @@ def nn_indices_mm(queries: torch.Tensor, ref_points: torch.Tensor,
             nn_indices_mm.launches_bf16 += 1
         else:
             nn_indices_mm.launches += 1
-    return torch.clamp(score + query_norm2(queries), min=0.0), idx
+    return score, idx
 
 
 nn_indices_mm.launches = 0
@@ -245,14 +268,13 @@ def _check_payload(name: str, ref_points: torch.Tensor,
 
 
 def _payload_plain(q_ext: torch.Tensor, r_ext: torch.Tensor,
-                   payload: torch.Tensor, rb: int, visit=None, qb: int = 1):
+                   payload: torch.Tensor, rb: int, pick=None):
     """Tile-wise payload 1-NN on extended rows.  Per query: each rb-wide
-    tile's minimum score; the winning tile is the first, in visit order,
-    that attains the least of them (a strict ``<`` across tiles); its
-    payload is the mean over the rows that attain the minimum, weighted
-    ``1/count`` as the Pallas one-hot is.  ``visit`` [nQ, nT] gives each
-    qb-query tile's visit order (default: ascending).  Returns
-    (score [Q], payload [Q,P])."""
+    tile's minimum score; the winning tile is the first that attains the
+    least of them (a strict ``<`` across tiles), or ``pick(tile_min [c,
+    nT], s, e)``'s choice for the queries s:e; its payload is the mean over
+    the rows that attain the tile's minimum, weighted ``1/count`` as the
+    Pallas one-hot is.  Returns (score [Q], payload [Q,P])."""
     Q, R, P = q_ext.shape[0], r_ext.shape[0], payload.shape[1]
     nT = R // rb
     dev = q_ext.device
@@ -262,12 +284,8 @@ def _payload_plain(q_ext: torch.Tensor, r_ext: torch.Tensor,
     for s, e in query_chunks(Q, R):
         sc = _f32_matmul(q_ext[s:e], r_ext.T).reshape(e - s, nT, rb)
         tile_min = torch.amin(sc, dim=2)                       # [c, nT]
-        if visit is None:
-            t = torch.argmin(tile_min, dim=1)
-        else:
-            order = visit[torch.arange(s, e, device=dev) // qb].long()
-            t = torch.gather(order, 1, torch.argmin(
-                torch.gather(tile_min, 1, order), dim=1, keepdim=True))[:, 0]
+        t = (torch.argmin(tile_min, dim=1) if pick is None
+             else pick(tile_min, s, e))
         rows = torch.arange(e - s, device=dev)
         best = tile_min[rows, t]
         hit = sc[rows, t] <= best[:, None]                     # [c, rb]
@@ -302,11 +320,20 @@ def nn_payload(queries: torch.Tensor, ref_points: torch.Tensor,
     _check_payload('nn_payload', ref_points, payload)
     if _on_cpu(queries, ref_points, payload):
         return nn_payload_plain(queries, ref_points, payload)
-    device = _check_cuda('nn_payload', queries, ref_points, payload)
-    Q, R, P = queries.shape[0], ref_points.shape[0], payload.shape[1]
-    if R == 0:
+    _check_cuda('nn_payload', queries, ref_points, payload)
+    if ref_points.shape[0] == 0:
         raise ValueError('nn_payload: empty reference')
-    r_ext = extend_reference(ref_points)
+    score, out = _launch_payload(queries, extend_reference(ref_points),
+                                 payload)
+    return torch.clamp(score + query_norm2(queries), min=0.0), out
+
+
+def _launch_payload(queries: torch.Tensor, r_ext: torch.Tensor,
+                    payload: torch.Tensor):
+    """The E4 kernel alone on extended reference rows (the wrapper's only
+    set-up): (score [Q] f32, payload [Q,P] f32), the launch counted."""
+    device = queries.device
+    Q, R, P = queries.shape[0], r_ext.shape[0], payload.shape[1]
     score = torch.empty(Q, dtype=torch.float32, device=device)
     out = torch.empty((Q, P), dtype=torch.float32, device=device)
     if Q:
@@ -316,7 +343,7 @@ def nn_payload(queries: torch.Tensor, ref_points: torch.Tensor,
             device.index, _stream(device))
         _check_launch('nn_payload', err)
         nn_payload.launches += 1
-    return torch.clamp(score + query_norm2(queries), min=0.0), out
+    return score, out
 
 
 nn_payload.launches = 0
@@ -406,6 +433,17 @@ def _unsort(tab: PrunedTables, score: torch.Tensor, pay: torch.Tensor):
     return d2, out
 
 
+def _first_in_visit_order(tab: PrunedTables):
+    """``_payload_plain``'s pick of E6: the least tile minimum, ties to the
+    first tile in the query tile's visit order."""
+    def pick(tile_min, s, e):
+        order = tab.visit[torch.arange(s, e, device=tile_min.device)
+                          // tab.qb].long()
+        return torch.gather(order, 1, torch.argmin(
+            torch.gather(tile_min, 1, order), dim=1, keepdim=True))[:, 0]
+    return pick
+
+
 def nn_payload_pruned_plain(queries: torch.Tensor, ref_points: torch.Tensor,
                             payload: torch.Tensor):
     """Plain torch E6: E4's function over the sorted clouds, ties across
@@ -414,16 +452,209 @@ def nn_payload_pruned_plain(queries: torch.Tensor, ref_points: torch.Tensor,
     running best, which cannot hold a better score beyond rounding."""
     tab = pruned_tables(queries, ref_points, payload)
     score, pay = _payload_plain(extend_queries(tab.q_sorted), tab.r_ext,
-                                tab.pay_sorted, tab.rb, tab.visit, tab.qb)
+                                tab.pay_sorted, tab.rb,
+                                _first_in_visit_order(tab))
     return _unsort(tab, score, pay)
+
+
+def score_keys(score: torch.Tensor, rank) -> torch.Tensor:
+    """Plain twin of E6's merge key, ``(orderable score bits) << 32 |
+    rank``: int64 keys that order as the least score, then the least
+    rank.  -0.0 is made +0.0 first, so scores that compare equal order by
+    rank alone.  The kernel keeps the unsigned form; here the bits are
+    shifted down by 2^31 so that a signed int64 orders them."""
+    bits = (score + 0.0).contiguous().view(torch.int32).to(torch.int64)
+    bits = bits & 0xFFFFFFFF
+    neg = bits >= 2 ** 31
+    u = torch.where(neg, bits ^ 0xFFFFFFFF, bits | 2 ** 31)
+    return ((u - 2 ** 31) << 32) | torch.as_tensor(rank, dtype=torch.int64,
+                                                   device=score.device)
+
+
+def _least_key(tab: PrunedTables, scanned=None):
+    """``_payload_plain``'s pick through E6's merge keys, as the kernel's
+    two passes decide: per query the least :func:`score_keys` over the
+    (tile minimum, visit rank) of the tiles scanned (``scanned`` [nQ, nR]
+    bool by tile; default every tile), decoded to its tile."""
+    def pick(tile_min, s, e):
+        dev = tile_min.device
+        i = torch.arange(s, e, device=dev) // tab.qb
+        order = tab.visit[i].long()
+        by_rank = torch.gather(tile_min, 1, order)
+        if scanned is not None:
+            by_rank = torch.where(torch.gather(scanned[i], 1, order),
+                                  by_rank, torch.full_like(by_rank,
+                                                           float('inf')))
+        rank = torch.arange(order.shape[1], device=dev)
+        least = torch.amin(score_keys(by_rank, rank), dim=1)
+        return torch.gather(order, 1, (least & 0xFFFFFFFF)[:, None])[:, 0]
+    return pick
+
+
+def nn_payload_pruned_by_keys(queries: torch.Tensor,
+                              ref_points: torch.Tensor,
+                              payload: torch.Tensor):
+    """Plain torch E6 as the kernel's passes compute it: the least merge
+    key a query over every tile, decoded to (score, visit rank), the rank
+    to its tile, the tile's tied rows averaged.  The same function as
+    :func:`nn_payload_pruned_plain`, reached through the keys."""
+    tab = pruned_tables(queries, ref_points, payload)
+    score, pay = _payload_plain(extend_queries(tab.q_sorted), tab.r_ext,
+                                tab.pay_sorted, tab.rb, _least_key(tab))
+    return _unsort(tab, score, pay)
+
+
+def tile_bounds(q_boxes: torch.Tensor, r_boxes: torch.Tensor
+                ) -> torch.Tensor:
+    """[nQ, nR] squared gaps between the query and reference tile boxes,
+    summed ``(gx^2 + gy^2) + gz^2`` as the kernels sum them."""
+    g = torch.clamp(torch.maximum(q_boxes[:, None, :3] - r_boxes[None, :, 3:],
+                                  r_boxes[None, :, :3] - q_boxes[:, None, 3:]),
+                    min=0.0)
+    return (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) \
+        + g[..., 2] * g[..., 2]
+
+
+def pruned_walk(queries: torch.Tensor, ref_points: torch.Tensor,
+                payload: torch.Tensor):
+    """The Pallas kernel's walk replayed in plain torch: per query tile,
+    the number of reference tiles ``_pruned_kernel`` visits ([nQ] int64),
+    and the walk's result (d2 [Q], payload [Q,P], caller's order).
+
+    The replay follows the Pallas grid step by step
+    (pallas_payload_variants.py:322-362): each query tile visits its
+    reference tiles in the rotated order and skips a tile whose box bound
+    is not below the largest (best score + |q|^2) of the query tile,
+    refreshed after every visited tile.  This fixed walk is the work that
+    E6's bound counts.  The kernel on the card scans other tiles, in
+    parallel and pruned by the bests merged so far (``visits`` of
+    :func:`nn_payload_pruned`).  A measurement aid: no path of the port
+    calls it."""
+    tab = pruned_tables(queries, ref_points, payload)
+    nQ, nR = tab.visit.shape
+    dev = queries.device
+    q_ext = extend_queries(tab.q_sorted)
+    tile_min = torch.empty((q_ext.shape[0], nR), dtype=torch.float32,
+                           device=dev)
+    for s, e in query_chunks(q_ext.shape[0], tab.r_ext.shape[0]):
+        tile_min[s:e] = torch.amin(_f32_matmul(q_ext[s:e], tab.r_ext.T)
+                                   .reshape(e - s, nR, tab.rb), dim=2)
+    tile_min = tile_min.reshape(nQ, tab.qb, nR)
+    qn2 = tab.q_norm2.reshape(nQ, tab.qb)
+    lb = tile_bounds(tab.q_boxes, tab.r_boxes)
+    blocks = torch.arange(nQ, device=dev)
+    best = torch.full((nQ, tab.qb), float('inf'), device=dev)
+    best_max = torch.full((nQ,), float('inf'), device=dev)
+    scanned = torch.zeros((nQ, nR), dtype=torch.bool, device=dev)
+    for j in range(nR):
+        tile = tab.visit[:, j].long()
+        visit = lb[blocks, tile] < best_max
+        scanned[blocks, tile] = visit
+        best = torch.where(visit[:, None],
+                           torch.minimum(best, tile_min[blocks, :, tile]),
+                           best)
+        best_max = torch.where(visit, torch.amax(best + qn2, dim=1),
+                               best_max)
+    score, pay = _payload_plain(q_ext, tab.r_ext, tab.pay_sorted, tab.rb,
+                                _least_key(tab, scanned))
+    d2, out = _unsort(tab, score, pay)
+    return torch.sum(scanned, dim=1), d2, out
+
+
+class PrunedDeviceTables(NamedTuple):
+    """E6's set-up on the card (:func:`pruned_setup`): what the plain
+    :class:`PrunedTables` holds, in the kernels' layout, and the merge
+    scratch."""
+    perm: torch.Tensor       # [Q+R] i32 sorted query rows, then reference
+    q4: torch.Tensor         # [Q,4] sorted queries (x, y, z, |q|^2)
+    r_ext: torch.Tensor      # [R,4] extended rows of the sorted reference
+    q_boxes: torch.Tensor    # [nQ,6]
+    r_boxes: torch.Tensor    # [nR,6]
+    keys: torch.Tensor       # [Q+1] int64: merge keys, then the item counter
+    visits: torch.Tensor     # [nQ] int32 tiles scanned a query tile
+    qb: int
+    rb: int
+
+
+def _sort_block(n: int) -> int:
+    """Keys a block of E6's sorting cluster holds for an n-point cloud:
+    the least power of two with 16 of them at least n."""
+    m = 1
+    while _E6_CLUSTER * m < n:
+        m *= 2
+    return m
+
+
+def pruned_setup(queries: torch.Tensor, ref_points: torch.Tensor
+                 ) -> PrunedDeviceTables:
+    """E6's set-up on the card: ``e6_morton_kernel`` codes both clouds
+    (E6's own Morton coding, as :func:`morton_order`) and sorts each by
+    (code, row) in one cluster's shared memory, the stable order of
+    :func:`morton_order`; then ``e6_gather_kernel`` writes the sorted
+    rows, the tile boxes and empty keys.  A cloud of more than 16 x 8192
+    points is sorted by one stable ``torch.sort`` of both clouds' codes
+    instead (query codes shifted below every reference code)."""
+    device = queries.device
+    Q, R = queries.shape[0], ref_points.shape[0]
+    qb, rb = _tile(Q, _QB), _tile(R, _RB_PRUNED)
+    lib, stream = _kernels(), _stream(device)
+    m_q, m_r = _sort_block(Q), _sort_block(R)
+    perm = torch.empty(Q + R, dtype=torch.int32, device=device)
+    if max(m_q, m_r) <= _E6_SORT_BLOCK:
+        _check_launch('nn_payload_pruned', lib.lsl_e6_morton(
+            queries.data_ptr(), ref_points.data_ptr(), Q, R, m_q, m_r, None,
+            perm.data_ptr(), device.index, stream))
+    else:
+        codes = torch.empty(Q + R, dtype=torch.int32, device=device)
+        _check_launch('nn_payload_pruned', lib.lsl_e6_morton(
+            queries.data_ptr(), ref_points.data_ptr(), Q, R, 0, 0,
+            codes.data_ptr(), None, device.index, stream))
+        order = torch.sort(codes, stable=True).indices
+        order[Q:] -= Q
+        perm = order.to(torch.int32)
+    f32 = dict(dtype=torch.float32, device=device)
+    tab = PrunedDeviceTables(
+        perm, torch.empty((Q, 4), **f32), torch.empty((R, 4), **f32),
+        torch.empty((Q // qb, 6), **f32), torch.empty((R // rb, 6), **f32),
+        torch.empty(Q + 1, dtype=torch.int64, device=device),
+        torch.empty(Q // qb, dtype=torch.int32, device=device), qb, rb)
+    _check_launch('nn_payload_pruned', lib.lsl_e6_gather(
+        queries.data_ptr(), ref_points.data_ptr(), perm.data_ptr(), Q, R,
+        qb, rb, tab.q4.data_ptr(), tab.r_ext.data_ptr(),
+        tab.q_boxes.data_ptr(), tab.r_boxes.data_ptr(), tab.keys.data_ptr(),
+        tab.keys[Q:].data_ptr(), tab.visits.data_ptr(), device.index,
+        stream))
+    return tab
+
+
+def _launch_pruned(tab: PrunedDeviceTables, payload: torch.Tensor):
+    """E6's two passes on the tables of :func:`pruned_setup`: (d2 [Q],
+    payload [Q,P]) in the caller's order, the launch counted.  The
+    epilogue leaves the keys empty, so the tables serve again;
+    ``tab.visits`` then sums the tiles scanned over the calls."""
+    device = tab.q4.device
+    Q, R, P = tab.q4.shape[0], tab.r_ext.shape[0], payload.shape[1]
+    d2 = torch.empty(Q, dtype=torch.float32, device=device)
+    out = torch.empty((Q, P), dtype=torch.float32, device=device)
+    err = _kernels().lsl_e6_pruned(
+        tab.q4.data_ptr(), tab.r_ext.data_ptr(), tab.q_boxes.data_ptr(),
+        tab.r_boxes.data_ptr(), tab.perm.data_ptr(), payload.data_ptr(), Q,
+        R, P, tab.qb, tab.rb, tab.keys.data_ptr(), tab.keys[Q:].data_ptr(),
+        tab.visits.data_ptr(), d2.data_ptr(), out.data_ptr(), device.index,
+        _stream(device))
+    _check_launch('nn_payload_pruned', err)
+    nn_payload_pruned.launches += 1
+    return d2, out
 
 
 def nn_payload_pruned(queries: torch.Tensor, ref_points: torch.Tensor,
                       payload: torch.Tensor, return_visits: bool = False):
     """E4's function with E6's Morton sort and box pruning; results in
     the caller's order.  With ``return_visits`` (CUDA only) also the
-    number of reference tiles each query tile visited ([nQ] i32, of nR).
-    CPU tensors run :func:`nn_payload_pruned_plain`.
+    number of reference tiles the kernel scanned for each query tile ([nQ]
+    i32, of nR; which tiles depends on block timing, the results do not).
+    CPU tensors run :func:`nn_payload_pruned_plain`; CUDA tensors run
+    :func:`pruned_setup` and the kernel (:func:`_launch_pruned`).
     """
     _check_points('nn_payload_pruned', queries=queries,
                   ref_points=ref_points)
@@ -433,25 +664,12 @@ def nn_payload_pruned(queries: torch.Tensor, ref_points: torch.Tensor,
             raise ValueError('nn_payload_pruned: visits are counted by the '
                              'kernel (CUDA tensors)')
         return nn_payload_pruned_plain(queries, ref_points, payload)
-    device = _check_cuda('nn_payload_pruned', queries, ref_points, payload)
+    _check_cuda('nn_payload_pruned', queries, ref_points, payload)
     if ref_points.shape[0] == 0 or queries.shape[0] == 0:
         raise ValueError('nn_payload_pruned: empty queries or reference')
-    tab = pruned_tables(queries, ref_points, payload)
-    Q, R, P = queries.shape[0], ref_points.shape[0], payload.shape[1]
-    ni, nj = tab.q_boxes.shape[0], tab.r_boxes.shape[0]
-    score = torch.empty(Q, dtype=torch.float32, device=device)
-    pay = torch.empty((Q, P), dtype=torch.float32, device=device)
-    visits = torch.empty(ni, dtype=torch.int32, device=device)
-    err = _kernels().lsl_mm_payload_pruned(
-        tab.q_sorted.data_ptr(), tab.q_norm2.data_ptr(), tab.r_ext.data_ptr(),
-        tab.pay_sorted.data_ptr(), tab.q_boxes.data_ptr(),
-        tab.r_boxes.data_ptr(), Q, R, P, tab.qb, tab.rb, ni, nj,
-        score.data_ptr(), pay.data_ptr(), visits.data_ptr(), device.index,
-        _stream(device))
-    _check_launch('nn_payload_pruned', err)
-    nn_payload_pruned.launches += 1
-    d2, out = _unsort(tab, score, pay)
-    return (d2, out, visits) if return_visits else (d2, out)
+    tab = pruned_setup(queries, ref_points)
+    d2, out = _launch_pruned(tab, payload)
+    return (d2, out, tab.visits) if return_visits else (d2, out)
 
 
 nn_payload_pruned.launches = 0
@@ -466,16 +684,19 @@ class TileTooLarge(ValueError):
     card's counterpart of the TPU sweep's VMEM overflow)."""
 
 
-def tiled_block(qb: int) -> tuple:
-    """(threads per block, queries per thread) for a qb-query tile: one
-    thread per query up to 256, then 256 threads with qb/256 queries
-    each (qb/256 in 1, 2, 4, 8, 16, 32)."""
-    if 1 <= qb <= 256:
-        return qb, 1
-    if qb % 256 == 0 and qb // 256 in (1, 2, 4, 8, 16, 32):
-        return 256, qb // 256
-    raise ValueError(f'query tile {qb}: must be <= 256 or 256 times 1, 2, '
-                     '4, 8, 16 or 32')
+def check_query_tile(qb: int) -> None:
+    """Refuse a query tile the sweep does not take: qb is at most 256, or
+    256 times 1, 2, 4, 8, 16 or 32."""
+    if not (1 <= qb <= 256 or (qb % 256 == 0
+                               and qb // 256 in (1, 2, 4, 8, 16, 32))):
+        raise ValueError(f'query tile {qb}: must be <= 256 or 256 times 1, '
+                         '2, 4, 8, 16 or 32')
+
+
+def tiled_items(n_queries: int, n_refs: int, qb: int, rb: int) -> int:
+    """Work items (blocks) of one E2/E3 launch: query tiles x reference
+    tiles."""
+    return -(-n_queries // qb) * -(-n_refs // rb)
 
 
 def _launch_tiled(wrapper, queries: torch.Tensor, ref_points: torch.Tensor,
@@ -484,11 +705,11 @@ def _launch_tiled(wrapper, queries: torch.Tensor, ref_points: torch.Tensor,
     ``wrapper.launches``."""
     name = wrapper.__name__
     device = _check_cuda(name, queries, ref_points)
-    tiled_block(qb)
+    check_query_tile(qb)
     Q, R = queries.shape[0], ref_points.shape[0]
     if R == 0 or rb < 1:
         raise ValueError(f'{name}: empty reference or tile')
-    smem = 12 * rb
+    smem = 16 * rb
     props = torch.cuda.get_device_properties(device)
     limit = props.shared_memory_per_block_optin
     if smem > limit:
@@ -498,9 +719,11 @@ def _launch_tiled(wrapper, queries: torch.Tensor, ref_points: torch.Tensor,
     d2 = torch.empty(Q, dtype=torch.float32, device=device)
     idx = torch.empty(Q, dtype=torch.int32, device=device)
     if Q:
+        keys = _merge_keys(Q, device)
         err = _kernels().lsl_nn_tiled(
             queries.data_ptr(), ref_points.data_ptr(), Q, R, qb, rb,
-            d2.data_ptr(), idx.data_ptr(), device.index, _stream(device))
+            keys.data_ptr(), d2.data_ptr(), idx.data_ptr(), device.index,
+            _stream(device))
         _check_launch(name, err)
         wrapper.launches += 1
     return d2, idx
@@ -508,14 +731,15 @@ def _launch_tiled(wrapper, queries: torch.Tensor, ref_points: torch.Tensor,
 
 def nn_indices_tiled(queries: torch.Tensor, ref_points: torch.Tensor,
                      qb: int, rb: int):
-    """K1's exact 1-NN with qb queries per block and rb reference points
-    staged per shared-memory tile (E3's sweep).  Returns (d2, idx) as
+    """K1's exact 1-NN with a work item of qb queries and rb reference
+    points, the points staged whole in a block's shared memory (E3's
+    sweep).  Returns (d2, idx) as
     ``nn_kernels.nn_indices``; raises :class:`TileTooLarge` where rb
     points do not fit a block.  CPU tensors run K1's plain version."""
     _check_points('nn_indices_tiled', queries=queries,
                   ref_points=ref_points)
     if _on_cpu(queries, ref_points):
-        tiled_block(qb)
+        check_query_tile(qb)
         return nn_indices_plain(queries, ref_points)
     return _launch_tiled(nn_indices_tiled, queries, ref_points, qb, rb)
 

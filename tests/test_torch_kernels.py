@@ -11,19 +11,24 @@ hold K1, K2 and the shootout's kernels (E1-E6) to their plain versions;
 here they skip.  Tolerances: K1 — d2 bit-equal and indices equal to its
 plain version (ties go to the lowest index); K2 — within the cutoff d2
 bit-equal and an index at that exact d2, beyond it d2 > cutoff^2; E2/E3
-— indices equal except where float64 shows an exact f32 tie, d2 within
-1e-6 relative; the matmul-form
+— d2 bit-equal to K1's plain version and indices equal except where
+float64 shows an exact f32 tie (or within 1e-6 relative, on the mid-size
+scenes of the older test); the matmul-form
 kernels (E1, E4, E5, E6) — the float64 checks of ``ops/nn_variants.py``:
 each d2 within ``nn_variants.score_tolerance`` (4 f32 units of roundoff of
 the query's term sum against its winner) of the float64 d2 of a row it
 may have picked.
 """
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 from laser_slam_tpu_torch.experiments import nn_shootout as sh
+from laser_slam_tpu_torch.ops import cuda_build
 from laser_slam_tpu_torch.ops import nn_kernels as nk
 from laser_slam_tpu_torch.ops import nn_variants as nv
 from laser_slam_tpu_torch.ops.neighbors import knn_brute, nn_brute
@@ -332,3 +337,126 @@ def test_empty_query_sets_count_no_launch_on_card():
     assert (nv.nn_vpu.launches, nv.nn_indices_tiled.launches,
             nv.nn_indices_mm.launches, nv.nn_indices_mm.launches_bf16,
             nv.nn_payload.launches) == (0, 0, 0, 0, 0)
+
+
+def test_editing_a_shared_header_renames_both_libraries(tmp_path,
+                                                        monkeypatch):
+    """``cuda_build`` hashes every csrc header into each library's name,
+    so an edited ``nn_common.cuh`` cannot load a stale library."""
+    for name in os.listdir(cuda_build.CSRC_DIR):
+        shutil.copy(os.path.join(cuda_build.CSRC_DIR, name), tmp_path)
+    monkeypatch.setattr(cuda_build, 'CSRC_DIR', str(tmp_path))
+    before = [cuda_build._library_path(s)[1]
+              for s in ('nn.cu', 'nn_variants.cu')]
+    assert before == [cuda_build._library_path(s)[1]
+                      for s in ('nn.cu', 'nn_variants.cu')]
+    with open(tmp_path / 'nn_common.cuh', 'a') as f:
+        f.write('// edited\n')
+    after = [cuda_build._library_path(s)[1]
+             for s in ('nn.cu', 'nn_variants.cu')]
+    assert all(a != b for a, b in zip(before, after))
+
+
+def _exact_tiled_holds(q, ref, d2, idx, want):
+    """E2/E3 against K1's plain version: d2 bit-equal, indices equal
+    except at an exact f32 tie."""
+    assert torch.equal(d2, want[0])
+    nv.check_exact_indices(q, ref, d2, idx, *want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('qb,rb', [(256, 2048)] + list(sh.SWEEP[:-1]))
+def test_e3_sweep_shapes_bit_equal_on_card(qb, rb):
+    """Every E3 sweep shape (and E2's 256 x 2048) at the shootout's 8192 x
+    65536, with at least 256 work items, and at 1000 x 3001 (Q % qb != 0,
+    ragged reference tiles) with every third reference row parked."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, _ = (torch.tensor(a, device='cuda')
+                 for a in sh.make_scene(8192, 65536, seed=3))
+    assert nv.tiled_items(8192, 65536, qb, rb) >= 256
+    before = nv.nn_indices_tiled.launches
+    _exact_tiled_holds(q, ref, *nv.nn_indices_tiled(q, ref, qb, rb),
+                       nk.nn_indices_plain(q, ref))
+    assert nv.nn_indices_tiled.launches == before + 1
+    q2, ref2, _ = sh.make_scene(1000, 3001, seed=6)
+    ref2[::3] = 1.0e6
+    q2, ref2 = torch.tensor(q2, device='cuda'), torch.tensor(ref2,
+                                                            device='cuda')
+    d2, idx = nv.nn_indices_tiled(q2, ref2, qb, rb)
+    _exact_tiled_holds(q2, ref2, d2, idx, nk.nn_indices_plain(q2, ref2))
+    assert not bool(torch.any(idx % 3 == 0))
+
+
+def _tie_scene():
+    """Two copies of a point straddle the boundary of E6's two 1024-wide
+    sorted reference tiles, with different payloads; every other query
+    lies next to them (test_torch_nn_variants' tie scene)."""
+    g = np.random.default_rng(11)
+    ref = g.uniform(-50, 50, (2047, 3)).astype(np.float32)
+    p = ref[nv.morton_order(torch.tensor(ref)).numpy()[1023]]
+    ref = np.concatenate([ref, p[None]])
+    pay = np.concatenate([ref, g.standard_normal((2048, 3))], 1)
+    pay = pay.astype(np.float32)
+    q = g.uniform(-50, 50, (512, 3)).astype(np.float32)
+    q[::2] = p + g.normal(0, 0.01, (256, 3)).astype(np.float32)
+    return q, ref, pay
+
+
+@pytest.mark.gpu
+def test_e6_ties_across_tiles_follow_the_visit_order_on_card():
+    """Query tile 0 visits reference tile 0 first and query tile 1 tile 1
+    first: the kernel's merge keys pick the same copy as the plain E6,
+    whichever item merges first."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, pay = (torch.tensor(a, device='cuda') for a in _tie_scene())
+    want = nv.nn_payload_pruned_plain(q, ref, pay)
+    for _ in range(3):
+        d2, out = nv.nn_payload_pruned(q, ref, pay)
+        c = nv.check_payload(q, ref, pay, d2, out, *want)
+        assert c['duplicates'] == 256
+        assert torch.equal(out[::2], want[1][::2])
+    copies = {tuple(row) for row in out[::2, 3:].cpu().numpy().tolist()}
+    assert len(copies) == 2          # both copies win somewhere
+
+
+@pytest.mark.gpu
+def test_e6_counts_one_launch_and_scans_at_most_every_tile_on_card():
+    """One launch counted a call in E6's own counter; each query tile scans
+    between 1 and nj reference tiles; a second run of the kernel on the
+    same tables (the epilogue empties the keys) gives the same result."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, pay = (torch.tensor(a, device='cuda')
+                   for a in sh.make_scene(8192, 65536, seed=3))
+    nv.reset_launches()
+    d2, out, visits = nv.nn_payload_pruned(q, ref, pay, return_visits=True)
+    assert (nv.nn_payload_pruned.launches, nv.nn_payload.launches,
+            nv.nn_indices_mm.launches) == (1, 0, 0)
+    assert visits.shape == (32,)
+    assert 1 <= int(visits.min()) and int(visits.max()) <= 64
+    nv.check_payload(q, ref, pay, d2, out,
+                     *nv.nn_payload_pruned_plain(q, ref, pay))
+    tab = nv.pruned_setup(q, ref)
+    first = nv._launch_pruned(tab, pay)
+    again = nv._launch_pruned(tab, pay)
+    assert nv.nn_payload_pruned.launches == 3
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                           again[1])
+    assert torch.equal(first[0], d2)
+
+
+@pytest.mark.gpu
+def test_e6_cloud_beyond_the_cluster_sort_on_card():
+    """A reference of more than 16 x 8192 points is sorted by torch.sort
+    instead of the set-up kernel's cluster; the result still passes the
+    payload check against the plain E6."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, pay = (torch.tensor(a, device='cuda')
+                   for a in sh.make_scene(1024, 139264, seed=12))
+    assert nv._sort_block(ref.shape[0]) > nv._E6_SORT_BLOCK
+    d2, out = nv.nn_payload_pruned(q, ref, pay)
+    nv.check_payload(q, ref, pay, d2, out,
+                     *nv.nn_payload_pruned_plain(q, ref, pay))

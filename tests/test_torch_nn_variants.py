@@ -19,7 +19,9 @@ the sum of their limits; payloads equal the winner's row exactly where it
 is the only row within twice the limit of the least score, and agree
 within 1e-5 where those rows are exact duplicates (tie averaging).
 E2/E3 (coordinate-wise, exact) agree with K1 to 1e-6 relative and equal
-indices except exact ties.
+indices except exact ties.  E6 through the card's merge keys (the plain
+decode of its two passes) equals the plain E6 exactly; the replayed
+Pallas walk passes the payload check against it.
 """
 
 import functools
@@ -180,11 +182,10 @@ def test_e6_pruned_payload_matches_jax(kind):
         assert c['duplicates'] >= 60
 
 
-def test_e6_ties_across_tiles_follow_the_visit_order():
+def _tie_scene():
     """Two copies of a point straddle the boundary of E6's two 1024-wide
-    sorted reference tiles, with different payloads.  Query tile 0 visits
-    reference tile 0 first and query tile 1 tile 1 first, so the copy that
-    wins depends on the query's tile, in JAX and in the port alike."""
+    sorted reference tiles, with different payloads; every other query
+    lies next to them."""
     g = np.random.default_rng(11)
     ref = g.uniform(-50, 50, (2047, 3)).astype(np.float32)
     p = ref[np.asarray(pv.morton_order(jnp.asarray(ref)))[1023]]
@@ -193,6 +194,14 @@ def test_e6_ties_across_tiles_follow_the_visit_order():
     pay = pay.astype(np.float32)
     q = g.uniform(-50, 50, (512, 3)).astype(np.float32)
     q[::2] = p + g.normal(0, 0.01, (256, 3)).astype(np.float32)
+    return q, ref, pay
+
+
+def test_e6_ties_across_tiles_follow_the_visit_order():
+    """On the tie scene query tile 0 visits reference tile 0 first and
+    query tile 1 tile 1 first, so the copy that wins depends on the
+    query's tile, in JAX and in the port alike."""
+    q, ref, pay = _tie_scene()
     jd2, jpay = pv.nn_payload_pruned(jnp.asarray(q), jnp.asarray(ref),
                                      jnp.asarray(pay), interpret=True)
     d2, out = nv.nn_payload_pruned(T(q), T(ref), T(pay))
@@ -200,6 +209,55 @@ def test_e6_ties_across_tiles_follow_the_visit_order():
     assert c['duplicates'] == 256
     copies = {tuple(np.asarray(jpay)[i, 3:]) for i in range(0, 512, 2)}
     assert len(copies) == 2          # both copies win somewhere
+
+
+def test_e6_score_keys_order_by_score_then_visit_rank():
+    """The plain twin of the kernel's merge key: monotone in the score over
+    negative and positive values, one key for -0.0 and +0.0, and equal
+    scores ordered by visit rank."""
+    scores = torch.tensor([-3.0e4, -2.5, -1e-30, -0.0, 0.0, 1e-30, 0.5,
+                           7.0e3, float('inf')])
+    keys = nv.score_keys(scores, torch.zeros(len(scores), dtype=torch.int64))
+    assert bool(torch.all(keys[1:] >= keys[:-1]))
+    assert int(keys[3]) == int(keys[4])                  # -0.0 and +0.0
+    assert bool(torch.all(keys[1:3] > keys[:2]))
+    assert bool(torch.all(keys[5:] > keys[4:-1]))
+    tied = nv.score_keys(torch.tensor([-1.25, -1.25, 0.0, -0.0]),
+                         torch.tensor([5, 2, 9, 3]))
+    assert int(tied[1]) < int(tied[0]) and int(tied[3]) < int(tied[2])
+    g = np.random.default_rng(2)
+    a = torch.tensor(g.normal(0, 100, 4096).astype(np.float32))
+    rank = torch.tensor(g.integers(0, 64, 4096))
+    ka = nv.score_keys(a, rank)
+    order = torch.argsort(ka)
+    want = np.lexsort((rank.numpy(), a.numpy()))
+    np.testing.assert_array_equal(order.numpy(), want)
+
+
+@pytest.mark.parametrize('kind', ['scene', 'duplicates', 'parked', 'ties'])
+def test_e6_key_decode_matches_plain(kind):
+    """The kernel's two passes in plain torch (least key -> visit rank ->
+    tile -> the tile's tied rows averaged) give exactly the plain E6."""
+    if kind == 'ties':
+        q, ref, pay = _tie_scene()
+    else:
+        q, ref, pay = scene(kind)
+    d2, out = nv.nn_payload_pruned_by_keys(T(q), T(ref), T(pay))
+    pd2, pout = nv.nn_payload_pruned_plain(T(q), T(ref), T(pay))
+    assert torch.equal(d2, pd2) and torch.equal(out, pout)
+
+
+def test_e6_replayed_walk_skips_tiles_and_matches_plain():
+    """The plain replay of the Pallas walk (the work E6's bound counts)
+    visits fewer reference tiles than there are on the shootout scene,
+    and its result passes the payload check against the plain E6."""
+    q, ref, pay = (T(a) for a in sh.make_scene(2048, 32768, seed=4))
+    visits, d2, out = nv.pruned_walk(q, ref, pay)
+    assert visits.shape == (8,)
+    assert 1 <= int(visits.min()) and int(visits.sum()) < 8 * 32
+    c = nv.check_payload(q, ref, pay, d2, out,
+                         *nv.nn_payload_pruned_plain(q, ref, pay))
+    assert c['unique'] > 0.9 * 2048
 
 
 def test_e6_visit_order_is_the_rotated_diagonal():
@@ -285,8 +343,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match='visits'):
         nv.nn_payload_pruned(cpu, cpu, torch.zeros((4, 6)),
                              return_visits=True)
-    assert nv.tiled_block(128) == (128, 1)
-    assert nv.tiled_block(8192) == (256, 32)
+    for qb in (128, 200, 8192):
+        nv.check_query_tile(qb)
+        d2, idx = nv.nn_indices_tiled(cpu, cpu, qb, 2048)
+        assert d2.shape == idx.shape == (4,)
 
 
 @pytest.mark.parametrize('kind', ['indices', 'payload'])
