@@ -41,17 +41,21 @@ result line):
 7. The shootout's kernels (E1-E6, ``ops/nn_variants.py``): each held to
    its plain version at the shootout's shape (8192 x 65536, seed 3), on
    the same scene with 64 reference points copied inside their tile
-   (tied rows whose payloads are averaged), and at an awkward shape
-   (1000 x 3001, every third reference row at the SENTINEL) by the
-   float64 checks of ``laser_slam_tpu_torch/ops/nn_variants.py`` (a d2
-   planted a tenth too large must fail them), E2 and every E3 sweep shape
-   with d2 bit-equal to K1's plain version; then the shootout itself
+   (tied rows whose payloads are averaged), on the same scene with 64
+   reference points copied into the next 2048-wide tile (E5 must return
+   the first copy's index, E4 the first tile's payload alone), and at an
+   awkward shape (1000 x 3001, every third reference row at the
+   SENTINEL; E4's tiles are one row wide there) by the float64 checks of
+   ``laser_slam_tpu_torch/ops/nn_variants.py`` (a d2 planted a tenth too
+   large must fail them), E2 and every E3 sweep shape with d2 bit-equal
+   to K1's plain version; then the shootout itself
    (``experiments/nn_shootout.run``), timed by CUDA events beside the
-   library calls, where each new kernel must have launched and every E3
-   shape (and E2) launch at least 256 work items.  Each kernel alone
-   beside its call: E1/E4/E5 on reference rows extended once, E6 on
-   tables built once (``nn_variants.pruned_setup``); E6's device launches
-   a call, set-up included, and their device time, counted by
+   library calls, where each new kernel must have launched and E4, E5,
+   E2 and every E3 shape launch at least 256 work items.  Each kernel
+   alone beside its call: E1 on reference rows extended once, E4/E5 on
+   tables built once (``nn_variants.mm_setup``), E6 on tables built once
+   (``nn_variants.pruned_setup``); E4's, E5's and E6's device launches a
+   call, set-up included, and their device time by kernel, counted by
    ``torch.profiler`` right after phase 4 (later short sessions lose
    kernel records), and the host's time to issue a call; the share of
    tiles E6 scans (counted by the kernel, 5 calls) beside the share the
@@ -153,9 +157,12 @@ the pairs their Pallas walks scan, replayed in plain torch
 (``nn_kernels.pruned_visits`` for K2, ``nn_variants.pruned_walk`` for
 E6, ``walk_share``), and the pairs the kernel itself scanned in the
 least of 5 counted calls (``scanned_share`` is their mean), since both
-compute the function; the share counted is ``bound_share``.  E6's device
-launches a call, set-up included, are counted by ``torch.profiler`` and
-must be at most 12.  The second-to-last line is the kernels' JSON
+compute the function; the share counted is ``bound_share``.  The matmul-form
+kernels (E4, E5, E6) count 4 instructions a pair (3 FMAs and a min), the
+function's own work; their epilogues' second scoring of one tile a
+query is left out.  Device launches a call, set-up included, are counted
+by ``torch.profiler`` and must be at most 12 for E6 and 6 for E4 and
+E5.  The second-to-last line is the kernels' JSON
 record; the last line is the result record.
 """
 
@@ -181,18 +188,17 @@ PROFILE_SCANS = range(12, 16)
 SHOOT_Q, SHOOT_R = 8192, 65536
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
-# f32 lane instructions per (query, reference) pair: the arithmetic, the
-# compare, and the selects that keep the running minimum (value and index,
-# or the tile minimum alone for the payload kernels, whose rare payload
-# updates are not counted).
+# f32 lane instructions per (query, reference) pair that the function
+# needs: the arithmetic and what keeps the running minimum (value and
+# index for the exact kernels; the score's minimum alone for the matmul
+# form, whose index, ties and payloads are an epilogue's second scoring of
+# one tile a query, not counted).
 INSTR_EXACT = 11        # 3 sub, 3 mul, 2 add, compare, 2 selects (K1, K2)
-INSTR_MM = 6            # 3 FMA, compare, 2 selects (E5)
 INSTR_ARGMIN = 3        # compare, 2 selects (E1 bf16, product on tensor cores)
-INSTR_PAYLOAD = 5       # 3 FMA, compare, 1 select (E4)
-INSTR_MIN_SCORE = 4     # 3 FMA, min: E6's pass 1 (ties and payloads are its
-                        # epilogue's, once a query)
-E6_PROFILED = 5         # E6 calls whose device launches are counted
+INSTR_MIN_SCORE = 4     # 3 FMA, min (E4, E5, E6)
+LAUNCH_PROFILED = 5     # calls whose device launches are counted (E4-E6)
 E6_MAX_LAUNCHES = 12    # device launches an E6 call may make, set-up included
+MM_MAX_LAUNCHES = 6     # the same for E4 and E5
 # Phase 8, the production path.  (a) 64 scans over 2 laps (3.9 m a step);
 # (b) the first 53 scans of bench.py's 116-scan KITTI-density stream:
 # 8 warm-up, 40 timed, 4 profiled and one for the stage split.
@@ -370,6 +376,39 @@ def device_rows(prof):
 
 def device_launches(prof):
     return sum(e.count for e in device_rows(prof))
+
+
+def launches_a_call(name, call, items_kernel, most):
+    """Device launches a call of ``call`` and their device ms a call by
+    kernel, counted by ``torch.profiler`` over LAUNCH_PROFILED calls.  A
+    session whose ``items_kernel`` shows fewer records than calls lost
+    some and is taken again; a count still short after 3 sessions, or
+    above ``most``, fails the run."""
+    call()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(LAUNCH_PROFILED):
+                call()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        items = sum(e.count for e in rows if e.key.startswith(items_kernel))
+        if items == LAUNCH_PROFILED:
+            break
+        log(f'  {name} profile {attempt + 1}: {items} records of its items '
+            f'kernel in {LAUNCH_PROFILED} calls, taken again')
+    else:
+        raise AssertionError(f'{name}: the profiler lost kernel records in 3 '
+                             'sessions, launches a call not measured')
+    launches = sum(e.count for e in rows) / LAUNCH_PROFILED
+    if launches > most:
+        raise AssertionError(f'{name}: {launches} device launches a call, '
+                             f'above {most}')
+    split = {e.key.split('(')[0]: getattr(
+        e, 'self_device_time_total', getattr(e, 'self_cuda_time_total', 0))
+        / 1e3 / LAUNCH_PROFILED for e in rows}
+    return launches, split
 
 
 def profile_summary(prof, wall_s, scans, focus=(), top=5):
@@ -1446,41 +1485,21 @@ def main():
                          library_ms=k1_lib_ms,
                          library=lib_exact + ' (the cutoff is a where)')
 
-    # E6's device launches a call, set-up included, and their device time,
-    # counted on the shootout's scene (phase 7) before phase 5: after its
-    # long profile, short profiler sessions lose kernel records.  A
-    # session whose items kernel shows fewer records than calls lost some
-    # and is taken again; a count still short, or above E6_MAX_LAUNCHES,
-    # fails the run.
-    t_e6 = time.perf_counter()
+    # E4's, E5's and E6's device launches a call, set-up included, and their
+    # device time by kernel, counted on the shootout's scene (phase 7)
+    # before phase 5: after its long profile, short profiler sessions lose
+    # kernel records.
+    t_prof = time.perf_counter()
     full = tuple(torch.tensor(a, device=dev)
                  for a in sh.make_scene(SHOOT_Q, SHOOT_R, seed=3))
-    nv.nn_payload_pruned(*full)
-    torch.cuda.synchronize()
-    for attempt in range(3):
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CUDA]) as e6_prof:
-            for _ in range(E6_PROFILED):
-                nv.nn_payload_pruned(*full)
-            torch.cuda.synchronize()
-        e6_rows = device_rows(e6_prof)
-        e6_items = sum(e.count for e in e6_rows
-                       if e.key.startswith('e6_items_kernel'))
-        if e6_items == E6_PROFILED:
-            break
-        log(f'  E6 profile {attempt + 1}: {e6_items} records of its items '
-            f'kernel in {E6_PROFILED} calls, taken again')
-    else:
-        raise AssertionError('E6: the profiler lost kernel records in 3 '
-                             'sessions, launches a call not measured')
-    e6_launches = sum(e.count for e in e6_rows) / E6_PROFILED
-    if e6_launches > E6_MAX_LAUNCHES:
-        raise AssertionError(f'E6: {e6_launches} device launches a call, '
-                             f'above {E6_MAX_LAUNCHES}')
-    e6_split = {e.key.split('(')[0]: getattr(
-        e, 'self_device_time_total', getattr(e, 'self_cuda_time_total', 0))
-        / 1e3 / E6_PROFILED for e in e6_rows}
-    e6_profile_s = time.perf_counter() - t_e6
+    profiled = dict(
+        E6=launches_a_call('E6', lambda: nv.nn_payload_pruned(*full),
+                           'e6_items_kernel', E6_MAX_LAUNCHES),
+        E4=launches_a_call('E4', lambda: nv.nn_payload(*full),
+                           'mm_items_kernel', MM_MAX_LAUNCHES),
+        E5=launches_a_call('E5', lambda: nv.nn_indices_mm(*full[:2]),
+                           'mm_items_kernel', MM_MAX_LAUNCHES))
+    profile_s = time.perf_counter() - t_prof
 
     # 5. The slice -----------------------------------------------------
     elapsed(5)
@@ -1603,26 +1622,45 @@ def main():
     dup[2][1000:1064, :3] = dup[1][:64]
     dup[2][1000:1064, 3:] = -dup[2][:64, 3:]
     dup[0][:64] = dup[1][:64] + 0.01
+    # Exact copies of 64 reference points in the next 2048-wide tile, with
+    # other normals, and the first 64 queries next to them: E5 must return
+    # the first copy, E4 the first tile's payload without the copy's.
+    ties = [a.clone() for a in full]
+    ties[1][2048:2112] = ties[1][:64]
+    ties[2][2048:2112, :3] = ties[1][:64]
+    ties[2][2048:2112, 3:] = -ties[2][:64, 3:]
+    ties[0][:64] = ties[1][:64] + 0.01
     errs = {k: 0.0 for k in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6')}
     tol_share = {k: 0.0 for k in ('E1', 'E4', 'E5', 'E6')}
     for label, (q, r, pay) in ((f'{SHOOT_Q} x {SHOOT_R}', full),
                                ('duplicates', tuple(dup)),
+                               ('ties across tiles', tuple(ties)),
                                ('1000 x 3001 parked', tuple(odd))):
         for key, prec in (('E5', 'highest'), ('E1', 'bf16')):
-            c = nv.check_mm_indices(q, r, *nv.nn_indices_mm(q, r, prec),
+            got = nv.nn_indices_mm(q, r, prec)
+            c = nv.check_mm_indices(q, r, *got,
                                     *nv.nn_indices_mm_plain(q, r, prec),
                                     precision=prec)
+            if (key == 'E5' and label == 'ties across tiles'
+                    and not torch.equal(got[1][:64].cpu(),
+                                        torch.arange(64, dtype=torch.int32))):
+                raise AssertionError('E5: a copy in the next tile won')
             errs[key] = max(errs[key], c['max_abs_err'])
             tol_share[key] = max(tol_share[key], c['err_over_tol'])
             log(f'  {key} {prec} {label}: ok {c}')
         for key, fn, plain in (
                 ('E4', nv.nn_payload, nv.nn_payload_plain),
                 ('E6', nv.nn_payload_pruned, nv.nn_payload_pruned_plain)):
-            c = nv.check_payload(q, r, pay, *fn(q, r, pay),
-                                 *plain(q, r, pay))
-            if label == 'duplicates' and c['duplicates'] < 64:
+            got = fn(q, r, pay)
+            c = nv.check_payload(q, r, pay, *got, *plain(q, r, pay))
+            if label in ('duplicates', 'ties across tiles') \
+                    and c['duplicates'] < 64:
                 raise AssertionError(f'{key}: the duplicate groups were '
                                      'not found')
+            if (key == 'E4' and label == 'ties across tiles'
+                    and not torch.equal(got[1][:64], pay[:64])):
+                raise AssertionError('E4: the copy in the next tile was '
+                                     'averaged in')
             errs[key] = max(errs[key], c['max_abs_err'])
             tol_share[key] = max(tol_share[key], c['err_over_tol'])
             log(f'  {key} {label}: ok {c}')
@@ -1677,30 +1715,41 @@ def main():
     sweep = [r for r in rows.values()
              if r['kernel'] == 'E3' and r['ms'] is not None]
     best3 = min(sweep, key=lambda r: r['ms'])
-    for row in sweep + [rows['vpu']]:
+    for row in sweep + [rows['vpu'], rows['payload'], rows['indices-hi']]:
         if row['items'] < 256:
             raise AssertionError(f'{row["name"]}: {row["items"]} work items '
                                  'do not fill the card')
     sweep_line = [dict(qb=r['qb'], rb=r['rb'], items=r['items'], ms=r['ms'])
                   for r in sweep]
+    shoot_row = dict(E1=rows['indices-bf16'], E5=rows['indices-hi'],
+                     E4=rows['payload'], E6=rows['pruned'], E2=rows['vpu'],
+                     E3=best3)
     q, r, pay = full
-    # Each kernel alone: E1/E4/E5 on reference rows extended once (their
-    # only set-up), E6 on tables built once (pruned_setup); E2/E3 have no
-    # set-up beyond their key fill.
+    # Each kernel alone: E1 on reference rows extended once (its only
+    # set-up), E4/E5 on tables built once (mm_setup: extended rows, empty
+    # keys), E6 on tables built once (pruned_setup); E2/E3 have no set-up
+    # beyond their key fill.
     r_ext = nv.extend_reference(r)
+    tab_mm = nv.mm_setup(q, r)
     tab6 = nv.pruned_setup(q, r)
     kernel_ms = dict(
-        E1=cuda_ms(lambda: nv._launch_mm_indices(q, r_ext, 'bf16'), 10),
-        E5=cuda_ms(lambda: nv._launch_mm_indices(q, r_ext, 'highest'), 10),
-        E4=cuda_ms(lambda: nv._launch_payload(q, r_ext, pay), 10),
+        E1=cuda_ms(lambda: nv._launch_mm_bf16(q, r_ext), 10),
+        E5=cuda_ms(lambda: nv._launch_mm_indices(q, tab_mm), 20),
+        E4=cuda_ms(lambda: nv._launch_payload(q, tab_mm, pay), 20),
         E6=cuda_ms(lambda: nv._launch_pruned(tab6, pay), 20),
         E2=rows['vpu']['ms'], E3=best3['ms'])
-    e6_host = host_ms(lambda: nv.nn_payload_pruned(q, r, pay), 20)
-    log(f'  E6 with its set-up: {rows["pruned"]["ms"]:.4f} ms in '
-        f'{e6_launches} device launches a call '
-        f'({E6_PROFILED} calls profiled after phase 4; device ms a call: '
-        f'{e6_split}), which the host issues in {e6_host:.4f} ms; alone '
-        f'(tables built once) {kernel_ms["E6"]:.4f} ms')
+    issue_ms = dict(
+        E4=host_ms(lambda: nv.nn_payload(q, r, pay), 20),
+        E5=host_ms(lambda: nv.nn_indices_mm(q, r), 20),
+        E6=host_ms(lambda: nv.nn_payload_pruned(q, r, pay), 20))
+    for key, table in (('E4', 'mm_setup'), ('E5', 'mm_setup'),
+                       ('E6', 'pruned_setup')):
+        log(f'  {key} with its set-up: {shoot_row[key]["ms"]:.4f} ms in '
+            f'{profiled[key][0]} device launches a call ({LAUNCH_PROFILED} '
+            f'calls profiled after phase 4; device ms a call: '
+            f'{profiled[key][1]}), which the host issues in '
+            f'{issue_ms[key]:.4f} ms; alone (tables built once by '
+            f'{table}) {kernel_ms[key]:.4f} ms')
     # E6's work depends on the data: the Pallas walk (replayed in torch)
     # must pass the payload check against the kernel's result, and the
     # kernel scans the tiles that the bests merged so far do not prune,
@@ -1731,14 +1780,11 @@ def main():
     pay_b = nn_bytes(SHOOT_Q, SHOOT_R, payload=pay.shape[1])
     bounds = dict(
         E1=bound(pairs, INSTR_ARGMIN, exact_b, tensor_flops=8.0 * pairs),
-        E5=bound(pairs, INSTR_MM, exact_b),
-        E4=bound(pairs, INSTR_PAYLOAD, pay_b),
+        E5=bound(pairs, INSTR_MIN_SCORE, exact_b),
+        E4=bound(pairs, INSTR_MIN_SCORE, pay_b),
         E6=bound(e6_share * pairs, INSTR_MIN_SCORE, pay_b),
         E2=bound(pairs, INSTR_EXACT, exact_b),
         E3=bound(pairs, INSTR_EXACT, exact_b))
-    shoot_row = dict(E1=rows['indices-bf16'], E5=rows['indices-hi'],
-                     E4=rows['payload'], E6=rows['pruned'], E2=rows['vpu'],
-                     E3=best3)
     variants = 'laser_slam_tpu_torch/csrc/nn_variants.cu'
     names = dict(
         E1=('E1 nn_indices_mm bf16',
@@ -1757,14 +1803,18 @@ def main():
             f'plain {plain_ms[key]:.4f} ms, bound {bounds[key][0]:.4f} ms '
             f'({bounds[key][1]}), library {row["library_ms"]} ms, launches '
             f'{launches[key]}')
-    extra = dict(E3=dict(sweep=sweep_line),
-                 E6=dict(launches_a_call=e6_launches, host_ms=e6_host,
-                         device_ms_by_kernel=e6_split,
-                         walk_share=walk_share,
-                         scanned_share=float(np.mean(scanned6)),
-                         bound_share=e6_share))
-    log(f'phase 7 took {time.perf_counter() - t7:.1f} s (and E6\'s '
-        f'profile after phase 4 {e6_profile_s:.1f} s)')
+    extra = {key: dict(launches_a_call=profiled[key][0],
+                       host_ms=issue_ms[key],
+                       device_ms_by_kernel=profiled[key][1])
+             for key in ('E4', 'E5', 'E6')}
+    extra['E4']['items'] = rows['payload']['items']
+    extra['E5']['items'] = rows['indices-hi']['items']
+    extra['E6'].update(walk_share=walk_share,
+                       scanned_share=float(np.mean(scanned6)),
+                       bound_share=e6_share)
+    extra['E3'] = dict(sweep=sweep_line)
+    log(f'phase 7 took {time.perf_counter() - t7:.1f} s (and the E4-E6 '
+        f'launch profiles after phase 4 {profile_s:.1f} s)')
 
     # 8. The production path (slice 2) ---------------------------------
     t0 = time.perf_counter()

@@ -4,12 +4,13 @@
 // Python wrappers live in laser_slam_tpu_torch/ops/nn_variants.py beside
 // their plain torch versions.
 //
-// mm_indices_kernel      replaces E5 experiments/pallas_payload_variants.py
-//                        _nn_idx_kernel and E1 experiments/
-//                        pallas_nn_variants.py kern (HIGHEST precision).
+// mm_items_kernel and    replace E5 experiments/pallas_payload_variants.py
+// mm_epilogue_kernel     _nn_idx_kernel (and E1 experiments/
+//                        pallas_nn_variants.py kern at HIGHEST precision)
+//                        and E4 pallas_payload_variants.py _nn_kernel;
+//                        mm_prelude_kernel is their set-up.
 // mm_indices_bf16_kernel replaces E1 kern at DEFAULT precision (one bf16
 //                        pass of the MXU).
-// mm_payload_kernel      replaces E4 pallas_payload_variants.py _nn_kernel.
 // e6_items_kernel and    replace E6 pallas_payload_variants.py
 // e6_epilogue_kernel     _pruned_kernel; e6_morton_kernel and
 //                        e6_gather_kernel are its set-up (the wrapper's
@@ -19,30 +20,38 @@
 //                        a chosen tile shape).
 //
 // The matmul form.  Query row (x, y, z, 1) times reference row (-2x, -2y,
-// -2z, |r|^2) is |q-r|^2 - |q|^2, the "score"; the wrapper adds |q|^2 back
-// (E6's epilogue adds it itself).  The reference rows are built by the
-// wrapper (float4 each; E6's by its gather kernel) and staged in shared
-// memory a tile at a time.  All index kernels take a strict '<' in
-// ascending reference order, which yields the lowest index of the minimum:
-// the Pallas rule (lowest column within a tile, strict '<' across tiles)
-// gives the same index for any tile width.
+// -2z, |r|^2) is |q-r|^2 - |q|^2, the "score", three FMAs a pair in one
+// order (mm_score); d2 = max(score + |q|^2, 0).  The extended reference
+// rows are built on the card (E4/E5 by mm_prelude_kernel, E6 by its
+// gather kernel; the bf16 variant's by the wrapper) and staged in shared
+// memory a span at a time.
 //
 // What bounds them on this card: no device-memory traffic to speak of (a
 // query is read once, a reference row once per block, from L2), so the
-// work is instruction issue on the CUDA cores:
-//   * highest: 3 f32 FMAs, a compare and 2 selects per pair.  The tensor
-//     cores take no f32 operands and TF32 keeps bf16's rank problem, so
-//     the product stays on the FMA pipes.
+// work is instruction issue on the CUDA cores, and the design keeps the
+// loop over pairs down to the function's own arithmetic:
+//   * E5 and E4: 3 f32 FMAs and a min a pair.  The tensor cores take no
+//     f32 operands and TF32 keeps bf16's rank problem, so the product
+//     stays on the FMA pipes.  (Query tile x reference span) work items
+//     fill the card (512 at 8192 x 65536); a thread holds 4 queries, so a
+//     shared-memory read of a row serves 4 pairs, and carries no index:
+//     each query's least score per key tile folds into a 64-bit key,
+//     (orderable score bits) << 32 | key tile, merged across items by
+//     atomicMin.  The least key is the least score in the lowest key
+//     tile that attains it, the Pallas rule across tiles (strict '<' in
+//     ascending order).  An epilogue of one warp a query scores the
+//     winning key tile again with the same FMAs (the same bits): E5 takes
+//     its lowest tied row (the key tile is 512 rows, the span a group
+//     scans; the lowest row of the lowest tile is the lowest index of the
+//     minimum, the Pallas result for any tile width), E4 averages the
+//     payload rows that tie (the key tile is E4's own rb = _tile(R, 2048),
+//     so the Pallas one-hot / count of the winning tile).  Set-up,
+//     items and epilogue: three launches a call.
 //   * bf16: the product runs on the tensor cores (mma.sync m16n8k16, K
 //     padded 4 -> 16 with zeros, f32 accumulate), so what is left on the
 //     CUDA cores is the argmin pass: a compare and 2 selects per pair.
-//   * payload (E4): the highest scores plus the tie bookkeeping of a tile
-//     (a compare for '<', one for '=='); the Pallas one-hot payload matmul
-//     (16x the scoring work on the TPU) becomes a gather of the winning row
-//     from L2 when a finished tile improves the best.
-//   * pruned payload (E6): 3 FMAs and a min a pair over the tiles its
-//     items do not skip; ties and payloads are the epilogue's, once a
-//     query.
+//   * pruned payload (E6): E4's scan over the tiles its items do not
+//     skip; ties and payloads are the epilogue's, as E4's.
 //   * tiled exact (E2/E3): K1's 11 instructions per pair (csrc/nn.cu), at
 //     a chosen (query tile, reference tile) work item.
 //
@@ -57,9 +66,9 @@
 
 namespace cg = cooperative_groups;
 
-#define MM_THREADS 128
-#define MM_CHUNK 2048          // reference rows staged per pass (32 KB)
+#define MM_CHUNK 2048          // bf16: reference rows staged per pass (32 KB)
 #define MAX_PAYLOAD 8
+#define KEY_EMPTY 0xffffffffffffffffULL   // no score merged yet
 
 // ---------------------------------------------------------------------------
 // Shared pieces
@@ -70,57 +79,55 @@ __device__ __forceinline__ float mm_score(float qx, float qy, float qz,
   return fmaf(qz, r.z, fmaf(qy, r.y, fmaf(qx, r.x, r.w)));
 }
 
-__device__ __forceinline__ void stage_rows(const float4* __restrict__ r_ext,
-                                           int first, int n, float4* s_r) {
-  for (int k = threadIdx.x; k < n; k += blockDim.x)
-    s_r[k] = r_ext[(size_t)first + k];
+__device__ __forceinline__ float norm2(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                   __fmul_rn(z, z));
 }
 
-__device__ __forceinline__ void load_query(const float* __restrict__ q,
-                                           size_t qi, bool active, float& qx,
-                                           float& qy, float& qz) {
-  qx = qy = qz = 0.f;
-  if (active) {
-    qx = q[3 * qi];
-    qy = q[3 * qi + 1];
-    qz = q[3 * qi + 2];
-  }
+// Bits of a score whose unsigned order is the float order (-0 made +0).
+__device__ __forceinline__ unsigned score_bits(float s) {
+  const unsigned u = __float_as_uint(__fadd_rn(s, 0.f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// ---------------------------------------------------------------------------
-// E5 / E1 highest: matmul-form index 1-NN in f32
-// ---------------------------------------------------------------------------
+__device__ __forceinline__ float bits_score(unsigned b) {
+  return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
+}
 
-__global__ void __launch_bounds__(MM_THREADS)
-mm_indices_kernel(const float* __restrict__ q,
-                  const float4* __restrict__ r_ext, int Q, int R,
-                  float* __restrict__ score_out, int* __restrict__ idx_out) {
-  __shared__ float4 s_r[MM_CHUNK];
-  const size_t qi = (size_t)blockIdx.x * MM_THREADS + threadIdx.x;
-  const bool active = qi < (size_t)Q;
-  float qx, qy, qz;
-  load_query(q, qi, active, qx, qy, qz);
-  float best = INFINITY;
-  int best_i = 0;
-  for (int c0 = 0; c0 < R; c0 += MM_CHUNK) {
-    const int n = min(MM_CHUNK, R - c0);
-    stage_rows(r_ext, c0, n, s_r);
-    __syncthreads();
-    if (active) {
-      for (int k = 0; k < n; ++k) {
-        const float s = mm_score(qx, qy, qz, s_r[k]);
-        if (s < best) {
-          best = s;
-          best_i = c0 + k;
-        }
-      }
+__device__ __forceinline__ u64 score_key(float s, unsigned tile) {
+  return ((u64)score_bits(s) << 32) | tile;
+}
+
+// Of the n extended rows from r_ext[first]: how many score exactly `best`
+// against (x, y, z) (the same FMAs as the scan, so the same bits), and
+// their payload rows summed into sum, both across the warp.  Row s's
+// payload is pay[rows[s]] (E6's sorted reference) or pay[s].
+__device__ __forceinline__ int tied_payload(float x, float y, float z,
+                                            float best,
+                                            const float4* __restrict__ r_ext,
+                                            size_t first, int n,
+                                            const int* __restrict__ rows,
+                                            const float* __restrict__ pay,
+                                            int P,
+                                            float (&sum)[MAX_PAYLOAD]) {
+  int count = 0;
+  for (int k = threadIdx.x & 31; k < n; k += 32) {
+    const size_t s = first + k;
+    if (mm_score(x, y, z, r_ext[s]) == best) {
+      ++count;
+      const float* pr = pay + (rows != nullptr ? (size_t)rows[s] : s) * P;
+#pragma unroll
+      for (int p = 0; p < MAX_PAYLOAD; ++p)
+        if (p < P) sum[p] = __fadd_rn(sum[p], pr[p]);
     }
-    __syncthreads();
   }
-  if (active) {
-    score_out[qi] = best;
-    idx_out[qi] = best_i;
+  for (int off = 16; off > 0; off >>= 1) {
+    count += __shfl_xor_sync(0xffffffffu, count, off);
+#pragma unroll
+    for (int p = 0; p < MAX_PAYLOAD; ++p)
+      sum[p] = __fadd_rn(sum[p], __shfl_xor_sync(0xffffffffu, sum[p], off));
   }
+  return count;
 }
 
 // ---------------------------------------------------------------------------
@@ -240,113 +247,156 @@ mm_indices_bf16_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// E4: payload of the winning tile, tied rows averaged
+// E5 and E4: matmul-form 1-NN as (query tile x reference span) work items
 // ---------------------------------------------------------------------------
+//
+// Three launches a call:
+//   * mm_prelude_kernel: the extended reference rows (-2x, -2y, -2z,
+//     |r|^2) and the queries' keys emptied.
+//   * mm_items_kernel (pass 1): block (i, j) holds query tile i (512
+//     queries, 4 a thread of a 128-thread group) and stages reference
+//     span j (2048 rows, 32 KB) in shared memory by cp.async; each of the
+//     4 groups scans its own 512 rows of the span, 3 FMAs and a min a
+//     pair, and folds its minima into one key a query at every boundary
+//     of a key tile (w rows; a row's key tile is row / w).  The groups'
+//     keys meet in shared memory before one atomicMin a query.
+//   * mm_epilogue_kernel (pass 2), a warp a query: the least key decoded
+//     to (score, key tile), the tile scored again; E5's lowest tied row or
+//     E4's averaged tied payload, d2 = max(score + |q|^2, 0), the key
+//     emptied for the next call.
+// E5's key tile is a group's 512 rows (a fold once an item); E4's is its
+// own rb = _tile(R, 2048), which need not divide the span: a group's rows
+// fold once for each key tile they cross (once at rb = 2048, every row at
+// rb = 1).
 
-// Per query and reference tile: the least score, the first staged row
-// that attains it and how many rows do.  The payload rows are read only
-// when a finished tile improves the running best (a few times a query),
-// not at every improvement inside a tile, where the lanes of a warp would
-// diverge on dependent loads from L2.
-struct TileBest {
-  float min;
-  int arg;
-  int count;
-};
+#define ITEM_THREADS 512
+#define ITEM_GROUP 128                     // threads holding a query tile
+#define ITEM_GROUPS (ITEM_THREADS / ITEM_GROUP)
+#define ITEM_QT (NN_QPT * ITEM_GROUP)      // 512 queries a tile
+#define ITEM_ROWS 512                      // rows a group scans of a span
+#define ITEM_SPAN (ITEM_GROUPS * ITEM_ROWS)  // 2048 rows a span
+#define MM_PRELUDE_THREADS 256
+#define MM_EPILOGUE_THREADS 256
+static_assert(ITEM_QT == ITEM_THREADS, "the merge takes a query a thread");
 
-__device__ __forceinline__ void tile_scan(float qx, float qy, float qz,
-                                          const float4* s_r, int k0, int n,
-                                          TileBest& tb) {
-  tb.min = INFINITY;
-  tb.arg = k0;
-  tb.count = 0;
-  for (int k = k0; k < k0 + n; ++k) {
-    const float s = mm_score(qx, qy, qz, s_r[k]);
-    if (s <= tb.min) {         // one rarely taken branch per pair
-      const bool lower = s < tb.min;
-      tb.count = lower ? 1 : tb.count + 1;
-      tb.arg = lower ? k : tb.arg;
-      tb.min = s;
+__global__ void __launch_bounds__(MM_PRELUDE_THREADS)
+mm_prelude_kernel(const float* __restrict__ ref, int Q, int R,
+                  float4* __restrict__ r_ext, u64* __restrict__ keys) {
+  const int k = blockIdx.x * MM_PRELUDE_THREADS + threadIdx.x;
+  if (k < R) {
+    const float x = ref[3 * (size_t)k], y = ref[3 * (size_t)k + 1],
+                z = ref[3 * (size_t)k + 2];
+    r_ext[k] = make_float4(-2.f * x, -2.f * y, -2.f * z, norm2(x, y, z));
+  }
+  if (k < Q) keys[k] = KEY_EMPTY;
+}
+
+__global__ void __launch_bounds__(ITEM_THREADS, 2)
+mm_items_kernel(const float* __restrict__ q, const float4* __restrict__ r_ext,
+                int Q, int R, int w, int n_qt, u64* keys) {
+  __shared__ float4 s_r[ITEM_SPAN];
+  __shared__ u64 s_key[ITEM_GROUPS][ITEM_QT];
+  const int t = threadIdx.x;
+  const int group = t / ITEM_GROUP;
+  const int lane = t % ITEM_GROUP;
+  const int i = blockIdx.x % n_qt;
+  const int j = blockIdx.x / n_qt;
+  const int first = j * ITEM_SPAN;
+  const int n = min(ITEM_SPAN, R - first);
+  const float4* src = r_ext + first;
+  for (int k = t; k < n; k += ITEM_THREADS) cp_async16(s_r + k, src + k);
+  cp_async_commit();
+  const int q0 = i * ITEM_QT;
+  float qx[NN_QPT], qy[NN_QPT], qz[NN_QPT];
+  u64 key[NN_QPT];
+#pragma unroll
+  for (int u = 0; u < NN_QPT; ++u) {
+    const size_t qi = min(q0 + lane + u * ITEM_GROUP, Q - 1);
+    qx[u] = q[3 * qi];
+    qy[u] = q[3 * qi + 1];
+    qz[u] = q[3 * qi + 2];
+    key[u] = KEY_EMPTY;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  const int end = min((group + 1) * ITEM_ROWS, n);
+  for (int k0 = group * ITEM_ROWS; k0 < end;) {
+    const int tile = (first + k0) / w;           // rows [k0, k1): one tile
+    const int k1 = min(end, (tile + 1) * w - first);
+    float mn[NN_QPT];
+#pragma unroll
+    for (int u = 0; u < NN_QPT; ++u) mn[u] = INFINITY;
+    // Unrolled 16 deep, so the loop's own count and branch add little to
+    // the 4 instructions a pair.
+#pragma unroll 16
+    for (int k = k0; k < k1; ++k) {
+      const float4 r = s_r[k];
+#pragma unroll
+      for (int u = 0; u < NN_QPT; ++u)
+        mn[u] = fminf(mn[u], mm_score(qx[u], qy[u], qz[u], r));
     }
+#pragma unroll
+    for (int u = 0; u < NN_QPT; ++u) {
+      const u64 c = score_key(mn[u], (unsigned)tile);
+      key[u] = c < key[u] ? c : key[u];
+    }
+    k0 = k1;
+  }
+#pragma unroll
+  for (int u = 0; u < NN_QPT; ++u) s_key[group][lane + u * ITEM_GROUP] = key[u];
+  __syncthreads();
+  if (q0 + t < Q) {                  // ITEM_QT == ITEM_THREADS: a query each
+    u64 v = s_key[0][t];
+#pragma unroll
+    for (int g = 1; g < ITEM_GROUPS; ++g) v = s_key[g][t] < v ? s_key[g][t] : v;
+    if (v != KEY_EMPTY) atomicMin(keys + q0 + t, v);
   }
 }
 
-// Fold the tile of staged rows [k0, k0 + n) (global row = base + k) into
-// the running best with a strict '<'.  A tile that wins with tied rows
-// scores them again (the same FMAs, so the same bits) and averages their
-// payload rows, as the Pallas one-hot / count does.
-__device__ __forceinline__ void tile_fold(float qx, float qy, float qz,
-                                          const float4* s_r, int k0, int n,
-                                          size_t base,
-                                          const float* __restrict__ pay,
-                                          int P, const TileBest& tb,
-                                          float& best,
-                                          float (&best_pay)[MAX_PAYLOAD]) {
-  if (!(tb.min < best)) return;
-  best = tb.min;
-  if (tb.count == 1) {
-    const float* row = pay + (base + tb.arg) * (size_t)P;
-#pragma unroll
-    for (int p = 0; p < MAX_PAYLOAD; ++p) best_pay[p] = p < P ? row[p] : 0.f;
-    return;
-  }
+template <bool PAYLOAD>
+__global__ void __launch_bounds__(MM_EPILOGUE_THREADS)
+mm_epilogue_kernel(const float* __restrict__ q,
+                   const float4* __restrict__ r_ext,
+                   const float* __restrict__ pay, int Q, int R, int P, int w,
+                   u64* __restrict__ keys, float* __restrict__ d2_out,
+                   int* __restrict__ idx_out, float* __restrict__ pay_out) {
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * (MM_EPILOGUE_THREADS / 32) + threadIdx.x / 32;
+  if (qi >= Q) return;
+  const u64 key = keys[qi];
+  const float x = q[3 * (size_t)qi], y = q[3 * (size_t)qi + 1],
+              z = q[3 * (size_t)qi + 2];
+  float best = INFINITY;
   float sum[MAX_PAYLOAD];
 #pragma unroll
   for (int p = 0; p < MAX_PAYLOAD; ++p) sum[p] = 0.f;
-  for (int k = tb.arg; k < k0 + n; ++k) {
-    if (mm_score(qx, qy, qz, s_r[k]) == tb.min) {
-      const float* row = pay + (base + k) * (size_t)P;
-#pragma unroll
-      for (int p = 0; p < MAX_PAYLOAD; ++p)
-        if (p < P) sum[p] += row[p];
+  int count = 0;
+  unsigned row = 0xffffffffu;        // E5: the lowest tied row
+  if (key != KEY_EMPTY) {
+    best = bits_score((unsigned)(key >> 32));
+    const int tile = (int)(key & 0xffffffffULL);
+    const size_t first = (size_t)tile * w;
+    const int n = min(w, R - tile * w);
+    if (PAYLOAD) {
+      count = tied_payload(x, y, z, best, r_ext, first, n, nullptr, pay, P,
+                           sum);
+    } else {
+      for (int k = lane; k < n; k += 32)
+        if (mm_score(x, y, z, r_ext[first + k]) == best)
+          row = min(row, (unsigned)(first + k));
+      row = __reduce_min_sync(0xffffffffu, row);
     }
   }
-  const float c = (float)tb.count;
-#pragma unroll
-  for (int p = 0; p < MAX_PAYLOAD; ++p) best_pay[p] = __fdiv_rn(sum[p], c);
-}
-
-__device__ __forceinline__ void store_payload(float* __restrict__ out,
-                                              size_t qi, int P,
-                                              const float (&v)[MAX_PAYLOAD]) {
-#pragma unroll
-  for (int p = 0; p < MAX_PAYLOAD; ++p)
-    if (p < P) out[qi * P + p] = v[p];
-}
-
-// E4: each block owns MM_THREADS queries and walks all reference tiles of
-// rb rows in order.  A pass stages as many whole tiles as fit MM_CHUNK.
-__global__ void __launch_bounds__(MM_THREADS)
-mm_payload_kernel(const float* __restrict__ q,
-                  const float4* __restrict__ r_ext,
-                  const float* __restrict__ pay, int Q, int R, int P, int rb,
-                  float* __restrict__ score_out, float* __restrict__ pay_out) {
-  __shared__ float4 s_r[MM_CHUNK];
-  const size_t qi = (size_t)blockIdx.x * MM_THREADS + threadIdx.x;
-  const bool active = qi < (size_t)Q;
-  float qx, qy, qz;
-  load_query(q, qi, active, qx, qy, qz);
-  float best = INFINITY;
-  float best_pay[MAX_PAYLOAD];
-#pragma unroll
-  for (int p = 0; p < MAX_PAYLOAD; ++p) best_pay[p] = 0.f;
-  TileBest tb;
-  const int pass = (MM_CHUNK / rb) * rb;
-  for (int c0 = 0; c0 < R; c0 += pass) {
-    const int n = min(pass, R - c0);
-    stage_rows(r_ext, c0, n, s_r);
-    __syncthreads();
-    if (active) {
-      for (int k0 = 0; k0 < n; k0 += rb) {
-        tile_scan(qx, qy, qz, s_r, k0, rb, tb);
-        tile_fold(qx, qy, qz, s_r, k0, rb, c0, pay, P, tb, best, best_pay);
-      }
+  if (lane == 0) {
+    d2_out[qi] = fmaxf(__fadd_rn(best, norm2(x, y, z)), 0.f);
+    if (PAYLOAD) {
+      const float c = (float)max(count, 1);
+      for (int p = 0; p < P; ++p)
+        pay_out[(size_t)qi * P + p] = __fdiv_rn(sum[p], c);
+    } else {
+      idx_out[qi] = row == 0xffffffffu ? 0 : (int)row;
     }
-    __syncthreads();
-  }
-  if (active) {
-    score_out[qi] = best;
-    store_payload(pay_out, qi, P, best_pay);
+    keys[qi] = KEY_EMPTY;
   }
 }
 
@@ -394,23 +444,12 @@ mm_payload_kernel(const float* __restrict__ q,
 #define E6_QT (NN_QPT * E6_GROUP)    // 256: the largest query tile
 #define E6_RB 1024                   // the largest reference tile
 #define E6_BLOCKS_PER_SM 2
-#define E6_EMPTY 0xffffffffffffffffULL
 #define E6_MORTON_CLUSTER 16           // blocks a cloud (non-portable)
 #define E6_MORTON_THREADS 1024
 #define E6_SORT_KPT 8                // sort keys a thread at most
 #define E6_GATHER_THREADS 256
 #define E6_EPILOGUE_THREADS 256
 #define E6_PARKED 1.0e5f
-
-// Bits of a score whose unsigned order is the float order (-0 made +0).
-__device__ __forceinline__ unsigned score_bits(float s) {
-  const unsigned u = __float_as_uint(__fadd_rn(s, 0.f));
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float bits_score(unsigned b) {
-  return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
-}
 
 // Squared gap between two boxes (min xyz, max xyz), summed (gx^2 + gy^2)
 // + gz^2: at most every pair distance between them.
@@ -702,11 +741,10 @@ e6_gather_kernel(const float* __restrict__ q, const float* __restrict__ ref,
     v[3] = fmaxf(v[3], x);
     v[4] = fmaxf(v[4], y);
     v[5] = fmaxf(v[5], z);
-    const float n2 = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                               __fmul_rn(z, z));
+    const float n2 = norm2(x, y, z);
     if (is_q) {
       q4[s] = make_float4(x, y, z, n2);
-      keys[s] = E6_EMPTY;
+      keys[s] = KEY_EMPTY;
     } else {
       r_ext[s] = make_float4(-2.f * x, -2.f * y, -2.f * z, n2);
     }
@@ -780,7 +818,7 @@ e6_items_kernel(const float4* __restrict__ q4,
     float m = -INFINITY;
     for (int s = t; s < qb; s += E6_THREADS) {
       const u64 key = __ldcg(keys + q0 + s);
-      m = fmaxf(m, key == E6_EMPTY
+      m = fmaxf(m, key == KEY_EMPTY
                        ? INFINITY
                        : __fadd_rn(bits_score((unsigned)(key >> 32)),
                                    q4[q0 + s].w));
@@ -818,7 +856,7 @@ e6_items_kernel(const float4* __restrict__ q4,
 #pragma unroll
       for (int g = 1; g < E6_GROUPS; ++g) v = fminf(v, s_min[g][t]);
       const unsigned rank = (unsigned)((tile - start + nj) % nj);
-      atomicMin(keys + q0 + t, ((u64)score_bits(v) << 32) | rank);
+      atomicMin(keys + q0 + t, score_key(v, rank));
     }
   }
 }
@@ -847,34 +885,20 @@ e6_epilogue_kernel(const float4* __restrict__ q4,
   for (int p = 0; p < MAX_PAYLOAD; ++p) sum[p] = 0.f;
   int count = 0;
   float best = INFINITY;
-  if (key != E6_EMPTY) {
+  if (key != KEY_EMPTY) {
     best = bits_score((unsigned)(key >> 32));
     const int i = s / qb;
     const int tile =
         (int)((key & 0xffffffffULL) + (u64)visit_start(i, ni, nj)) % nj;
-    const size_t first = (size_t)tile * rb;
-    for (int k = lane; k < rb; k += 32) {
-      if (mm_score(q.x, q.y, q.z, r_ext[first + k]) == best) {
-        ++count;
-        const float* pr = pay + (size_t)perm[Q + first + k] * P;
-#pragma unroll
-        for (int p = 0; p < MAX_PAYLOAD; ++p)
-          if (p < P) sum[p] = __fadd_rn(sum[p], pr[p]);
-      }
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    count += __shfl_xor_sync(0xffffffffu, count, off);
-#pragma unroll
-    for (int p = 0; p < MAX_PAYLOAD; ++p)
-      sum[p] = __fadd_rn(sum[p], __shfl_xor_sync(0xffffffffu, sum[p], off));
+    count = tied_payload(q.x, q.y, q.z, best, r_ext, (size_t)tile * rb, rb,
+                         perm + Q, pay, P, sum);
   }
   if (lane == 0) {
     d2_out[row] = fmaxf(__fadd_rn(best, q.w), 0.f);
     const float c = (float)max(count, 1);
     for (int p = 0; p < P; ++p)
       pay_out[row * P + p] = __fdiv_rn(sum[p], c);
-    keys[s] = E6_EMPTY;
+    keys[s] = KEY_EMPTY;
   }
 }
 
@@ -984,36 +1008,76 @@ static int launch_tile_items(const float* q, const float* ref, int Q, int R,
 
 extern "C" {
 
-int lsl_mm_indices(const float* q, const float* r_ext, int Q, int R,
-                   int bf16, float* score_out, int* idx_out, int device,
-                   void* stream) {
+// E1 bf16 on the extended rows r_ext [R] (float4): score [Q], idx [Q].
+int lsl_mm_bf16(const float* q, const float* r_ext, int Q, int R,
+                float* score_out, int* idx_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const float4* r4 = (const float4*)r_ext;
-  if (bf16) {
-    const int blocks = (Q + BF16_QUERIES - 1) / BF16_QUERIES;
-    mm_indices_bf16_kernel<<<blocks, 32 * BF16_WARPS, 0,
-                             (cudaStream_t)stream>>>(q, r4, Q, R, score_out,
-                                                     idx_out);
-  } else {
-    const int blocks = (Q + MM_THREADS - 1) / MM_THREADS;
-    mm_indices_kernel<<<blocks, MM_THREADS, 0, (cudaStream_t)stream>>>(
-        q, r4, Q, R, score_out, idx_out);
-  }
+  const int blocks = (Q + BF16_QUERIES - 1) / BF16_QUERIES;
+  mm_indices_bf16_kernel<<<blocks, 32 * BF16_WARPS, 0,
+                           (cudaStream_t)stream>>>(
+      q, (const float4*)r_ext, Q, R, score_out, idx_out);
   return (int)cudaGetLastError();
 }
 
+// E4/E5 set-up: the extended rows r_ext [R] (float4) of ref [R,3], and
+// keys [Q] emptied.
+int lsl_mm_setup(const float* ref, int Q, int R, float* r_ext, u64* keys,
+                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (Q < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  const int n = max(Q, R);
+  mm_prelude_kernel<<<(n + MM_PRELUDE_THREADS - 1) / MM_PRELUDE_THREADS,
+                      MM_PRELUDE_THREADS, 0, (cudaStream_t)stream>>>(
+      ref, Q, R, (float4*)r_ext, keys);
+  return (int)cudaGetLastError();
+}
+
+// E4/E5's two passes on the tables of lsl_mm_setup, with key tiles of w
+// rows: E5 (pay == nullptr) writes idx_out, E4 pay_out [Q,P].
+static int launch_mm(const float* q, const float* r_ext, const float* pay,
+                     int Q, int R, int P, int w, u64* keys, float* d2_out,
+                     int* idx_out, float* pay_out, cudaStream_t s) {
+  const int n_qt = (Q + ITEM_QT - 1) / ITEM_QT;
+  const int items = n_qt * ((R + ITEM_SPAN - 1) / ITEM_SPAN);
+  const float4* r4 = (const float4*)r_ext;
+  mm_items_kernel<<<items, ITEM_THREADS, 0, s>>>(q, r4, Q, R, w, n_qt, keys);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int per_block = MM_EPILOGUE_THREADS / 32;
+  const int blocks = (Q + per_block - 1) / per_block;
+  if (pay == nullptr)
+    mm_epilogue_kernel<false><<<blocks, MM_EPILOGUE_THREADS, 0, s>>>(
+        q, r4, pay, Q, R, P, w, keys, d2_out, idx_out, pay_out);
+  else
+    mm_epilogue_kernel<true><<<blocks, MM_EPILOGUE_THREADS, 0, s>>>(
+        q, r4, pay, Q, R, P, w, keys, d2_out, idx_out, pay_out);
+  return (int)cudaGetLastError();
+}
+
+// E5: d2_out [Q], idx_out [Q] (the lowest index of the least score).
+int lsl_mm_indices(const float* q, const float* r_ext, int Q, int R,
+                   u64* keys, float* d2_out, int* idx_out, int device,
+                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (Q < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  return launch_mm(q, r_ext, nullptr, Q, R, 0, ITEM_ROWS, keys, d2_out,
+                   idx_out, nullptr, (cudaStream_t)stream);
+}
+
+// E4: d2_out [Q], pay_out [Q,P], tied rows of the winning rb-row tile
+// averaged.
 int lsl_mm_payload(const float* q, const float* r_ext, const float* pay,
-                   int Q, int R, int P, int rb, float* score_out,
+                   int Q, int R, int P, int rb, u64* keys, float* d2_out,
                    float* pay_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (P < 1 || P > MAX_PAYLOAD || rb < 1 || rb > MM_CHUNK || R % rb)
+  if (Q < 1 || R < 1 || P < 1 || P > MAX_PAYLOAD || rb < 1 || R % rb)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (Q + MM_THREADS - 1) / MM_THREADS;
-  mm_payload_kernel<<<blocks, MM_THREADS, 0, (cudaStream_t)stream>>>(
-      q, (const float4*)r_ext, pay, Q, R, P, rb, score_out, pay_out);
-  return (int)cudaGetLastError();
+  return launch_mm(q, r_ext, pay, Q, R, P, rb, keys, d2_out, nullptr,
+                   pay_out, (cudaStream_t)stream);
 }
 
 // E6 set-up, first half: with perm, both clouds sorted by their codes

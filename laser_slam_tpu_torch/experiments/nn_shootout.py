@@ -11,10 +11,10 @@ events (mean over ``reps`` launches after a warm-up) beside the one
 PyTorch call that computes the same function, where there is one.
 
 Rows: ``brute`` (plain ``nn_brute`` plus the payload gather), ``payload``
-(E4), ``pruned`` (E6 with its set-up, with the share of reference tiles
+(E4, with its work items a launch), ``pruned`` (E6 with its set-up, with the share of reference tiles
 its kernel scans),
 ``indices`` (K1 plus the gather), ``idx-kernel`` (K1), ``indices-hi``
-(E5, E1 at ``highest``), ``indices-bf16`` (E1 at one bf16 pass, with its
+(E5, E1 at ``highest``, with its work items), ``indices-bf16`` (E1 at one bf16 pass, with its
 max |d2 - exact|), ``vpu`` (E2) and the tile sweep (E3, with its work
 items a launch).
 
@@ -127,7 +127,8 @@ def run(queries: torch.Tensor, ref_points: torch.Tensor,
         nn_brute(queries, ref_points)), lambda o: o[0], lib_exact,
         exact_call + ' and a gather', kernel=None)
     row('payload', lambda: nv.nn_payload(queries, ref_points, payload),
-        lambda o: o[0], None, no_payload_call, kernel='E4')
+        lambda o: o[0], None, no_payload_call, kernel='E4',
+        items=nv.mm_items(Q, R))
     visits = nv.nn_payload_pruned(queries, ref_points, payload,
                                   return_visits=True)[2]
     n_tiles = (R // nk._tile(R, nv._RB_PRUNED)) * visits.numel()
@@ -143,7 +144,7 @@ def run(queries: torch.Tensor, ref_points: torch.Tensor,
     row('indices-hi', lambda: nv.nn_indices_mm(queries, ref_points),
         lambda o: o[0], lib_mm,
         'torch.matmul of the extended rows (TF32 off) and .min(1)',
-        kernel='E5')
+        kernel='E5', items=nv.mm_items(Q, R))
     row('indices-bf16',
         lambda: nv.nn_indices_mm(queries, ref_points, 'bf16'),
         lambda o: o[0], None,

@@ -15,6 +15,13 @@ each on the card):
 * E4 :func:`nn_payload` — the same scores; returns the winner's payload
   row.  Exactly tied minima inside one 2048-wide reference tile are
   averaged (the Pallas one-hot / count); across tiles a strict ``<``.
+  E5 (``'highest'``) and E4 run on the card as (512-query tile x
+  2048-row span) work items that merge one key a query,
+  ``(orderable score bits) << 32 | key tile``, and an epilogue that
+  scores the winning key tile again (:func:`mm_setup`, then
+  :func:`_launch_mm_indices` or :func:`_launch_payload`: three launches
+  a call); :func:`nn_indices_mm_by_keys` and :func:`nn_payload_by_keys`
+  are those two passes in plain torch.
 * E6 :func:`nn_payload_pruned` — E4's function over E6's own
   Morton-sorted queries and reference (256-query x 1024-reference
   tiles): per query the least score over the reference tiles, ties
@@ -65,6 +72,12 @@ _RB = 2048
 _RB_PRUNED = 1024
 # Widest payload row the kernels keep in registers.
 MAX_PAYLOAD = 8
+# E4/E5 work items (csrc/nn_variants.cu ITEM_QT, ITEM_SPAN): a query tile
+# x a reference span; E5's key tile is the 512 rows one group of an item
+# scans (ITEM_ROWS), E4's its own _tile(R, 2048).
+_MM_QT = 512
+_MM_SPAN = 2048
+_MM_KEY_TILE = 512
 # E6's set-up sorts each cloud in one cluster of 16 blocks, at most this
 # many 8-byte keys a block (8 a thread in registers, 64 KB of shared
 # memory); a larger cloud is sorted by torch.sort.
@@ -86,16 +99,19 @@ def _kernels() -> ctypes.CDLL:
         from laser_slam_tpu_torch.ops.cuda_build import load_library
         lib = load_library('nn_variants.cu')
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lsl_mm_indices.argtypes = [p, p, i, i, i, p, p, i, p]
-        lib.lsl_mm_payload.argtypes = [p, p, p, i, i, i, i, p, p, i, p]
+        lib.lsl_mm_bf16.argtypes = [p, p, i, i, p, p, i, p]
+        lib.lsl_mm_setup.argtypes = [p, i, i, p, p, i, p]
+        lib.lsl_mm_indices.argtypes = [p, p, i, i, p, p, p, i, p]
+        lib.lsl_mm_payload.argtypes = [p, p, p, i, i, i, i, p, p, p, i, p]
         lib.lsl_e6_morton.argtypes = [p, p, i, i, i, i, p, p, i, p]
         lib.lsl_e6_gather.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p,
                                       p, i, p]
         lib.lsl_e6_pruned.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p,
                                       p, p, p, i, p]
         lib.lsl_nn_tiled.argtypes = [p, p, i, i, i, i, p, p, p, i, p]
-        for fn in (lib.lsl_mm_indices, lib.lsl_mm_payload, lib.lsl_e6_morton,
-                   lib.lsl_e6_gather, lib.lsl_e6_pruned, lib.lsl_nn_tiled):
+        for fn in (lib.lsl_mm_bf16, lib.lsl_mm_setup, lib.lsl_mm_indices,
+                   lib.lsl_mm_payload, lib.lsl_e6_morton, lib.lsl_e6_gather,
+                   lib.lsl_e6_pruned, lib.lsl_nn_tiled):
             fn.restype = i
         _lib = lib
     return _lib
@@ -203,6 +219,41 @@ def nn_indices_mm_plain(queries: torch.Tensor, ref_points: torch.Tensor,
     return torch.clamp(score + query_norm2(queries), min=0.0), idx
 
 
+def _least_tile(tile_min: torch.Tensor) -> torch.Tensor:
+    """[c] the tile the kernels' merge keys pick from per-tile minima
+    [c, nT]: the least :func:`score_keys` over (tile minimum, tile), that
+    is the least score in the lowest tile attaining it (-0.0 and +0.0
+    alike), the Pallas rule across tiles."""
+    tiles = torch.arange(tile_min.shape[1], device=tile_min.device)
+    return torch.amin(score_keys(tile_min, tiles), dim=1) & 0xFFFFFFFF
+
+
+def nn_indices_mm_by_keys(queries: torch.Tensor, ref_points: torch.Tensor):
+    """Plain torch E5 as the kernel's two passes compute it: per query the
+    least merge key over the 512-row key tiles (the last one ragged),
+    decoded to its tile, and that tile's scores again, the lowest row
+    tied with the least.  The same function as
+    :func:`nn_indices_mm_plain` at ``'highest'``, reached through the
+    keys.  Returns (d2 [Q] f32, idx [Q] i32)."""
+    q_ext, r_ext = extend_queries(queries), extend_reference(ref_points)
+    Q, R, w = queries.shape[0], ref_points.shape[0], _MM_KEY_TILE
+    nT = -(-R // w)
+    dev = queries.device
+    score = torch.empty(Q, dtype=torch.float32, device=dev)
+    idx = torch.empty(Q, dtype=torch.int32, device=dev)
+    for s, e in query_chunks(Q, R):
+        sc = torch.nn.functional.pad(_f32_matmul(q_ext[s:e], r_ext.T),
+                                     (0, nT * w - R), value=float('inf'))
+        sc = sc.reshape(e - s, nT, w)
+        t = _least_tile(torch.amin(sc, dim=2))
+        tile = sc[torch.arange(e - s, device=dev), t]           # [c, w]
+        best = torch.amin(tile, dim=1)
+        first = torch.argmax((tile == best[:, None]).to(torch.int8), dim=1)
+        score[s:e] = best
+        idx[s:e] = (t * w + first).to(torch.int32)
+    return torch.clamp(score + query_norm2(queries), min=0.0), idx
+
+
 def nn_indices_mm(queries: torch.Tensor, ref_points: torch.Tensor,
                   precision: str = 'highest'):
     """For each query, (d2, index) of its nearest reference point by the
@@ -212,8 +263,8 @@ def nn_indices_mm(queries: torch.Tensor, ref_points: torch.Tensor,
     queries [Q,3], ref_points [R,3] f32; park invalid rows at
     cloud.SENTINEL.  Returns (d2 [Q] f32, idx [Q] i32).  CPU tensors run
     :func:`nn_indices_mm_plain`; CUDA tensors launch the kernel and count
-    it in ``nn_indices_mm.launches`` (highest) or
-    ``nn_indices_mm.launches_bf16``.
+    it in ``nn_indices_mm.launches`` (highest: :func:`mm_setup` and
+    :func:`_launch_mm_indices`) or ``nn_indices_mm.launches_bf16``.
     """
     _check_points('nn_indices_mm', queries=queries, ref_points=ref_points)
     _check_precision(precision)
@@ -222,29 +273,72 @@ def nn_indices_mm(queries: torch.Tensor, ref_points: torch.Tensor,
     _check_cuda('nn_indices_mm', queries, ref_points)
     if ref_points.shape[0] == 0:
         raise ValueError('nn_indices_mm: empty reference')
-    score, idx = _launch_mm_indices(queries, extend_reference(ref_points),
-                                    precision)
-    return torch.clamp(score + query_norm2(queries), min=0.0), idx
+    if precision == 'bf16':
+        score, idx = _launch_mm_bf16(queries, extend_reference(ref_points))
+        return torch.clamp(score + query_norm2(queries), min=0.0), idx
+    return _launch_mm_indices(queries, mm_setup(queries, ref_points))
 
 
-def _launch_mm_indices(queries: torch.Tensor, r_ext: torch.Tensor,
-                       precision: str):
-    """The E5/E1 kernel alone on extended reference rows (the wrapper's
+class MatmulTables(NamedTuple):
+    """E4/E5's set-up on the card (:func:`mm_setup`)."""
+    r_ext: torch.Tensor      # [R,4] extended reference rows
+    keys: torch.Tensor       # [Q] int64 merge keys, empty between calls
+
+
+def mm_items(n_queries: int, n_refs: int) -> int:
+    """Work items (blocks) of one E4/E5 items launch: 512-query tiles x
+    2048-row reference spans."""
+    return -(-n_queries // _MM_QT) * -(-n_refs // _MM_SPAN)
+
+
+def mm_setup(queries: torch.Tensor, ref_points: torch.Tensor
+             ) -> MatmulTables:
+    """E4/E5's set-up, one launch (``mm_prelude_kernel``): the extended
+    reference rows ``(-2x, -2y, -2z, |r|^2)`` and the queries' merge keys
+    emptied (nothing for an empty query set)."""
+    device = queries.device
+    Q, R = queries.shape[0], ref_points.shape[0]
+    tab = MatmulTables(
+        torch.empty((R, 4), dtype=torch.float32, device=device),
+        torch.empty(Q, dtype=torch.int64, device=device))
+    if Q:
+        _check_launch('mm_setup', _kernels().lsl_mm_setup(
+            ref_points.data_ptr(), Q, R, tab.r_ext.data_ptr(),
+            tab.keys.data_ptr(), device.index, _stream(device)))
+    return tab
+
+
+def _launch_mm_indices(queries: torch.Tensor, tab: MatmulTables):
+    """E5's two passes on the tables of :func:`mm_setup` (the queries
+    they were made for): (d2 [Q] f32, idx [Q] i32), the launch counted.
+    The epilogue leaves the keys empty, so the tables serve again."""
+    device = queries.device
+    Q, R = queries.shape[0], tab.r_ext.shape[0]
+    d2 = torch.empty(Q, dtype=torch.float32, device=device)
+    idx = torch.empty(Q, dtype=torch.int32, device=device)
+    if Q:
+        err = _kernels().lsl_mm_indices(
+            queries.data_ptr(), tab.r_ext.data_ptr(), Q, R,
+            tab.keys.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+            device.index, _stream(device))
+        _check_launch('nn_indices_mm', err)
+        nn_indices_mm.launches += 1
+    return d2, idx
+
+
+def _launch_mm_bf16(queries: torch.Tensor, r_ext: torch.Tensor):
+    """The E1 bf16 kernel alone on extended reference rows (the wrapper's
     only set-up): (score [Q] f32, idx [Q] i32), the launch counted."""
     device = queries.device
     Q, R = queries.shape[0], r_ext.shape[0]
     score = torch.empty(Q, dtype=torch.float32, device=device)
     idx = torch.empty(Q, dtype=torch.int32, device=device)
     if Q:
-        err = _kernels().lsl_mm_indices(
-            queries.data_ptr(), r_ext.data_ptr(), Q, R,
-            int(precision == 'bf16'), score.data_ptr(), idx.data_ptr(),
-            device.index, _stream(device))
+        err = _kernels().lsl_mm_bf16(
+            queries.data_ptr(), r_ext.data_ptr(), Q, R, score.data_ptr(),
+            idx.data_ptr(), device.index, _stream(device))
         _check_launch('nn_indices_mm', err)
-        if precision == 'bf16':
-            nn_indices_mm.launches_bf16 += 1
-        else:
-            nn_indices_mm.launches += 1
+        nn_indices_mm.launches_bf16 += 1
     return score, idx
 
 
@@ -305,6 +399,19 @@ def nn_payload_plain(queries: torch.Tensor, ref_points: torch.Tensor,
     return torch.clamp(score + query_norm2(queries), min=0.0), pay
 
 
+def nn_payload_by_keys(queries: torch.Tensor, ref_points: torch.Tensor,
+                       payload: torch.Tensor):
+    """Plain torch E4 as the kernel's two passes compute it: the least
+    merge key a query over the ``_tile(R, 2048)``-wide tiles, decoded to
+    its tile, that tile's tied rows averaged.  The same function as
+    :func:`nn_payload_plain`, reached through the keys."""
+    rb = _tile(ref_points.shape[0], _RB)
+    score, pay = _payload_plain(extend_queries(queries),
+                                extend_reference(ref_points), payload, rb,
+                                lambda tile_min, s, e: _least_tile(tile_min))
+    return torch.clamp(score + query_norm2(queries), min=0.0), pay
+
+
 def nn_payload(queries: torch.Tensor, ref_points: torch.Tensor,
                payload: torch.Tensor):
     """For each query, the squared distance to, and the payload row of,
@@ -314,7 +421,8 @@ def nn_payload(queries: torch.Tensor, ref_points: torch.Tensor,
 
     queries [Q,3], ref_points [R,3], payload [R,P] f32 (P <= 8).  Returns
     (d2 [Q] f32, payload [Q,P] f32).  CPU tensors run
-    :func:`nn_payload_plain`; CUDA tensors launch the kernel.
+    :func:`nn_payload_plain`; CUDA tensors run :func:`mm_setup` and the
+    kernel (:func:`_launch_payload`).
     """
     _check_points('nn_payload', queries=queries, ref_points=ref_points)
     _check_payload('nn_payload', ref_points, payload)
@@ -323,27 +431,26 @@ def nn_payload(queries: torch.Tensor, ref_points: torch.Tensor,
     _check_cuda('nn_payload', queries, ref_points, payload)
     if ref_points.shape[0] == 0:
         raise ValueError('nn_payload: empty reference')
-    score, out = _launch_payload(queries, extend_reference(ref_points),
-                                 payload)
-    return torch.clamp(score + query_norm2(queries), min=0.0), out
+    return _launch_payload(queries, mm_setup(queries, ref_points), payload)
 
 
-def _launch_payload(queries: torch.Tensor, r_ext: torch.Tensor,
+def _launch_payload(queries: torch.Tensor, tab: MatmulTables,
                     payload: torch.Tensor):
-    """The E4 kernel alone on extended reference rows (the wrapper's only
-    set-up): (score [Q] f32, payload [Q,P] f32), the launch counted."""
+    """E4's two passes on the tables of :func:`mm_setup`: (d2 [Q] f32,
+    payload [Q,P] f32), the launch counted.  The epilogue leaves the keys
+    empty, so the tables serve again."""
     device = queries.device
-    Q, R, P = queries.shape[0], r_ext.shape[0], payload.shape[1]
-    score = torch.empty(Q, dtype=torch.float32, device=device)
+    Q, R, P = queries.shape[0], tab.r_ext.shape[0], payload.shape[1]
+    d2 = torch.empty(Q, dtype=torch.float32, device=device)
     out = torch.empty((Q, P), dtype=torch.float32, device=device)
     if Q:
         err = _kernels().lsl_mm_payload(
-            queries.data_ptr(), r_ext.data_ptr(), payload.data_ptr(), Q, R,
-            P, _tile(R, _RB), score.data_ptr(), out.data_ptr(),
-            device.index, _stream(device))
+            queries.data_ptr(), tab.r_ext.data_ptr(), payload.data_ptr(), Q,
+            R, P, _tile(R, _RB), tab.keys.data_ptr(), d2.data_ptr(),
+            out.data_ptr(), device.index, _stream(device))
         _check_launch('nn_payload', err)
         nn_payload.launches += 1
-    return score, out
+    return d2, out
 
 
 nn_payload.launches = 0

@@ -7,8 +7,9 @@ GPU machine (which has no jax), with the repo's conftest left out:
         tests/test_torch_kernels.py
 
 There the ``gpu`` tests build csrc/nn.cu and csrc/nn_variants.cu and
-hold K1, K2 and the shootout's kernels (E1-E6) to their plain versions;
-here they skip.  Tolerances: K1 — d2 bit-equal and indices equal to its
+hold K1, K2 and the shootout's kernels (E1-E6) to their plain versions
+(E4/E5 also at awkward shapes, with copies across tiles, and for their
+work items and launches); here they skip.  Tolerances: K1 — d2 bit-equal and indices equal to its
 plain version (ties go to the lowest index); K2 — within the cutoff d2
 bit-equal and an index at that exact d2, beyond it d2 > cutoff^2; E2/E3
 — d2 bit-equal to K1's plain version and indices equal except where
@@ -337,6 +338,103 @@ def test_empty_query_sets_count_no_launch_on_card():
     assert (nv.nn_vpu.launches, nv.nn_indices_tiled.launches,
             nv.nn_indices_mm.launches, nv.nn_indices_mm.launches_bf16,
             nv.nn_payload.launches) == (0, 0, 0, 0, 0)
+
+
+def _ties_across_tiles():
+    """The shootout's scene with reference rows 2048-2111 exact copies of
+    rows 0-63 in the next 2048-wide tile, with other normals, and the first
+    64 queries beside the copies."""
+    q, ref, pay = sh.make_scene(8192, 65536, seed=3)
+    ref[2048:2112] = ref[:64]
+    pay[2048:2112] = np.concatenate([ref[:64], -pay[:64, 3:]], axis=1)
+    q[:64] = ref[:64] + np.float32(0.01)
+    return tuple(torch.tensor(a, device='cuda') for a in (q, ref, pay))
+
+
+@pytest.mark.gpu
+def test_e4_e5_items_and_one_launch_a_call_on_card():
+    """E5 and E4 at the shootout's 8192 x 65536: at least 256 work items a
+    launch, one launch counted a call in their own counters, results held
+    to the plain versions; the two passes run again on the same tables (the
+    epilogue leaves the keys empty) give the same results."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, pay = (torch.tensor(a, device='cuda')
+                   for a in sh.make_scene(8192, 65536, seed=3))
+    assert nv.mm_items(8192, 65536) >= 256
+    nv.reset_launches()
+    d2, idx = nv.nn_indices_mm(q, ref)
+    pd2, out = nv.nn_payload(q, ref, pay)
+    assert (nv.nn_indices_mm.launches, nv.nn_payload.launches,
+            nv.nn_indices_mm.launches_bf16,
+            nv.nn_payload_pruned.launches) == (1, 1, 0, 0)
+    nv.check_mm_indices(q, ref, d2, idx, *nv.nn_indices_mm_plain(q, ref))
+    nv.check_payload(q, ref, pay, pd2, out,
+                     *nv.nn_payload_plain(q, ref, pay))
+    tab = nv.mm_setup(q, ref)
+    for _ in range(2):
+        assert torch.equal(nv._launch_mm_indices(q, tab)[1], idx)
+        again = nv._launch_payload(q, tab, pay)
+        assert torch.equal(again[0], pd2) and torch.equal(again[1], out)
+    assert torch.equal(nv._launch_mm_indices(q, tab)[0], d2)
+    assert (nv.nn_indices_mm.launches, nv.nn_payload.launches) == (4, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_q,n_ref', [(1, 7), (1000, 3000), (1000, 3001),
+                                       (777, 65537), (8192, 2048)])
+def test_e4_e5_awkward_shapes_on_card(n_q, n_ref):
+    """One query, Q % 512 != 0, R = 3000 (1500-row E4 tiles that straddle
+    the 2048-row spans), R prime (3001 and 65537: one-row E4 tiles, a
+    ragged last span), one span; every third reference row parked."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, pay = sh.make_scene(n_q, n_ref, seed=6)
+    ref[::3] = 1.0e6
+    pay[:, :3] = ref
+    q, ref, pay = (torch.tensor(a, device='cuda') for a in (q, ref, pay))
+    d2, idx = nv.nn_indices_mm(q, ref)
+    nv.check_mm_indices(q, ref, d2, idx, *nv.nn_indices_mm_plain(q, ref))
+    assert not bool(torch.any(idx % 3 == 0))
+    nv.check_payload(q, ref, pay, *nv.nn_payload(q, ref, pay),
+                     *nv.nn_payload_plain(q, ref, pay))
+
+
+@pytest.mark.gpu
+def test_e4_e5_ties_across_tiles_on_card():
+    """Copies of 64 reference rows in the next 2048-wide tile: E5 returns
+    the first copy's index and E4 the first tile's payload alone, as the
+    plain versions, whichever item merges first."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, pay = _ties_across_tiles()
+    want_i = nv.nn_indices_mm_plain(q, ref)
+    want_p = nv.nn_payload_plain(q, ref, pay)
+    for _ in range(3):
+        d2, idx = nv.nn_indices_mm(q, ref)
+        nv.check_mm_indices(q, ref, d2, idx, *want_i)
+        assert torch.equal(idx[:64].cpu(), torch.arange(64, dtype=torch.int32))
+        d2, out = nv.nn_payload(q, ref, pay)
+        c = nv.check_payload(q, ref, pay, d2, out, *want_p)
+        assert c['duplicates'] >= 64
+        assert torch.equal(out[:64], pay[:64])
+
+
+@pytest.mark.gpu
+def test_e4_e5_planted_d2_is_rejected_on_card():
+    """A kernel result whose d2 were a tenth too large fails the checks."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, pay = (torch.tensor(a, device='cuda')
+                   for a in sh.make_scene(8192, 65536, seed=3))
+    d2, idx = nv.nn_indices_mm(q, ref)
+    with pytest.raises(AssertionError, match='d2 beyond'):
+        nv.check_mm_indices(q, ref, 1.1 * d2, idx,
+                            *nv.nn_indices_mm_plain(q, ref))
+    d2, out = nv.nn_payload(q, ref, pay)
+    with pytest.raises(AssertionError, match='d2 beyond'):
+        nv.check_payload(q, ref, pay, 1.1 * d2, out,
+                         *nv.nn_payload_plain(q, ref, pay))
 
 
 def test_editing_a_shared_header_renames_both_libraries(tmp_path,

@@ -270,6 +270,98 @@ def test_e6_visit_order_is_the_rotated_diagonal():
 
 
 # --------------------------------------------------------------------------
+# E5 and E4 through the card's two passes (merge keys, then the winning
+# tile scored again)
+# --------------------------------------------------------------------------
+
+def _copies_in_the_next_tile():
+    """Reference rows 2048-2111 exact copies of rows 0-63, in the next
+    2048-wide tile (E4's second tile, E5's fifth key tile), with other
+    normals; the first 64 queries beside the copies."""
+    q, ref, pay = sh.make_scene(Q, R, 3)
+    ref[2048:2112] = ref[:64]
+    pay[2048:2112] = np.concatenate([ref[:64], -pay[:64, 3:]], axis=1)
+    q[:64] = ref[:64] + np.float32(0.01)
+    return q, ref, pay
+
+
+TWO_PASS_CASES = ['scene', 'duplicates', 'parked', 'ties', 'r3000', 'r3001']
+
+
+def two_pass_case(kind):
+    """The scene cases, the copies across tiles, and 256 queries against
+    3000 and 3001 reference points (``_tile(R, 2048)`` = 1500 and 1)."""
+    if kind == 'ties':
+        return _copies_in_the_next_tile()
+    if kind in ('r3000', 'r3001'):
+        return sh.make_scene(256, int(kind[1:]), seed=5)
+    return scene(kind)
+
+
+@pytest.mark.parametrize('kind', TWO_PASS_CASES)
+def test_e5_two_pass_twin_matches_plain_and_jax(kind):
+    """E5 through the merge keys (least key a query over the 512-row key
+    tiles, the winning tile scored again) equals the plain E5 exactly and
+    passes the index check against JAX's ``nn_indices``."""
+    q, ref, _ = two_pass_case(kind)
+    d2, idx = nv.nn_indices_mm_by_keys(T(q), T(ref))
+    pd2, pidx = nv.nn_indices_mm_plain(T(q), T(ref))
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    jd2, jidx = pv.nn_indices(jnp.asarray(q), jnp.asarray(ref),
+                              interpret=True)
+    nv.check_mm_indices(T(q), T(ref), d2, idx, T(jd2), T(jidx))
+    if kind == 'parked':
+        assert bool(torch.all(idx % 3 != 0))
+    if kind == 'ties':
+        # The copies tie exactly: the first tile's row, the lowest index.
+        assert torch.equal(idx[:64], torch.arange(64, dtype=torch.int32))
+        np.testing.assert_array_equal(np.asarray(jidx)[:64], np.arange(64))
+
+
+@pytest.mark.parametrize('kind', TWO_PASS_CASES)
+def test_e4_two_pass_twin_matches_plain_and_jax(kind):
+    """E4 through the merge keys (least key a query over the
+    ``_tile(R, 2048)``-wide tiles, the winning tile's tied rows averaged)
+    equals the plain E4 exactly and passes the payload check against JAX's
+    ``nn_payload``."""
+    q, ref, pay = two_pass_case(kind)
+    d2, out = nv.nn_payload_by_keys(T(q), T(ref), T(pay))
+    pd2, pout = nv.nn_payload_plain(T(q), T(ref), T(pay))
+    assert torch.equal(d2, pd2) and torch.equal(out, pout)
+    jd2, jpay = pv.nn_payload(jnp.asarray(q), jnp.asarray(ref),
+                              jnp.asarray(pay), interpret=True)
+    c = nv.check_payload(T(q), T(ref), T(pay), d2, out, T(jd2), T(jpay))
+    assert c['unique'] > 0.9 * q.shape[0] - 64
+    if kind == 'ties':
+        # A strict '<' across tiles: the first tile's row alone, its copy
+        # in the next tile not averaged in.
+        assert c['duplicates'] >= 64
+        assert torch.equal(out[:64], T(pay[:64]))
+        np.testing.assert_allclose(np.asarray(jpay)[:64], pay[:64],
+                                   atol=nv.PAYLOAD_ATOL)
+
+
+def test_merge_key_pick_takes_the_lowest_tile_of_equal_minima():
+    """The pick through the merge keys: the least tile minimum, equal ones
+    (-0.0 against +0.0 among them) to the lowest tile, as torch.argmin's
+    first minimum and the Pallas strict '<' across tiles."""
+    tile_min = torch.tensor([[0.0, -0.0, 1.0], [-0.0, 0.0, -1.0],
+                             [2.0, -0.0, 0.0], [5.0, 3.0, 3.0],
+                             [-1e-30, -0.0, 0.0], [-0.0, -0.0, -0.0]])
+    want = [0, 2, 1, 1, 0, 0]
+    assert nv._least_tile(tile_min).tolist() == want
+    assert torch.argmin(tile_min, dim=1).tolist() == want
+
+
+def test_e4_e5_work_items_fill_the_card():
+    """512-query tiles x 2048-row spans: 512 items at the shootout's 8192 x
+    65536 (at least 256), ragged tiles counted whole."""
+    assert nv.mm_items(8192, 65536) == 512
+    assert nv.mm_items(1000, 3001) == 2 * 2
+    assert nv.mm_items(1, 1) == 1
+
+
+# --------------------------------------------------------------------------
 # E2 and E3
 # --------------------------------------------------------------------------
 
