@@ -33,6 +33,7 @@ result line):
    ground-truth bounds of tests/test_parity.py (max < 0.35 m, final
    < 0.15 m).  ``torch.profiler`` records scans 12-15: kernel launches,
    device time, the device's busy share and K2's share of its time.
+   Its trajectory after scan 32 is kept for phase 11.
 6. K1 inside ICP: one ``icp_point_to_plane`` at the slice's shapes with
    ``pallas_prune=False`` (the flat-kernel matcher); K1 must have launched
    and the pose must agree with the K2 run within 1e-4.  ICP ms a call
@@ -116,8 +117,9 @@ result line):
    (the JAX package computes it outside Pallas).  (a) bench.py's
    two-robot leg (bench.py:1112-1207): two 64-scan streams of 64 x 256
    beams, one lap each of a 20 m circle centred at (6t, 4t), seeds 31 +
-   t, in one scene, interleaved.  Per scan (scans/s after 8 warm-up
-   pairs) and, cut to 32 scans a track, in chunks of 8 a track (the last
+   t, in one scene, interleaved.  Per scan, cut to 48 scans a track
+   (scans/s after 8 warm-up pairs), and, cut to 32 scans a track, in
+   chunks of 8 a track (the last
    chunk pair under ``torch.profiler``), within 1 cm / 0.1 deg of
    per-scan calls in the chunks' key order (the interleaved run gives
    the scans other keys, and with them other window solves).  Then the
@@ -143,10 +145,31 @@ result line):
    scans of track 0's anchor or of a link key on its track (the
    32-iteration probes' gap and the largest gap elsewhere reported).
    K1/K2 must not launch in phase 10.
+11. The host API and checkpoints (slice 5) at ``slice1_config()``'s full
+   width: ``LaserSlamWorker(WorkerConfig(minimum_distance_to_add_pose=
+   0.0), IncrementalEstimator(slice1_config(), 1))`` over the first lap
+   (32 scans) of phase 5's stream through ``replay.run_worker_on_stream``
+   (scans/s after 8 warm-up scans, ms a scan, K2's launches a scan),
+   within 2 cm of phase 5's OnlineRunner after the same scans (JAX's
+   tests/test_online.py:77-105 bound); ``save_checkpoint`` after scan 24
+   and ``load_checkpoint`` (ms each; every array read back bit-equal),
+   the resumed run within 1 cm / 0.1 deg of the uninterrupted one after
+   scan 31 (float ``index_add_`` is atomic on the card); then
+   ``process_loop_closure`` of scans 0 and 31 from the ground truth's
+   world-frame alignment, whose refinement ICP runs K2 (ms), and the
+   trajectory within test_parity's bounds.  K2 must launch in the lap and
+   in the closure, K1 never.  K2 is also held to its plain version at the
+   refinement's largest submaps (7 x 16384 points a side).  Last, phase
+   9a's flagship runner through ``save_online_checkpoint`` /
+   ``load_online_checkpoint`` at scan 32 (ms each): the resumed runner
+   must find the uninterrupted one's detections, its poses within 1 cm /
+   0.1 deg.  Each number is logged beside the card's name and power
+   limit.
 
 The kernel counters are reset right before phase 5 (K2), phase 6 (K1),
-the shootout run of phase 7 and the production, flagship and multi-robot
-runs of phases 8-10, the main-path runs, and read right after; launches made to compare a kernel
+the shootout run of phase 7, the production, flagship and multi-robot
+runs of phases 8-10 and the host-API lap and closure of phase 11, the
+main-path runs, and read right after; launches made to compare a kernel
 with its plain version are not counted.  Each kernel's bound is the larger of its bytes (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the
 card's rate for their type: f32 lane instructions over SMs x 128 lanes x
@@ -163,7 +186,8 @@ function's own work; their epilogues' second scoring of one tile a
 query is left out.  Device launches a call, set-up included, are counted
 by ``torch.profiler`` and must be at most 12 for E6 and 6 for E4 and
 E5.  The second-to-last line is the kernels' JSON
-record; the last line is the result record.
+record (K2's ``launches`` from phase 5, ``launches_host_api`` from phase
+11); the last line is the result record.
 """
 
 import dataclasses
@@ -230,6 +254,10 @@ PREFETCH = {
 # keep the script inside 750 s.  (b) four 16-scan tracks.
 MR_SCANS, MR_WARM, MR_CHUNK, MR4_SCANS = 64, 8, 8, 16
 MR_CHUNKED = 32
+# The per-scan run, cut to 48 scans a track (three quarters of the lap;
+# the circles' first crossing, where the rendezvous links, lies inside
+# it) when phase 11 came, to keep the script near 800 s on a slow host.
+MR_PER_SCAN = 48
 # (c) the probes' PCG budget for the gate (the config runs 32).
 MR_COV_PCG = 4096
 MR_CIRCLE = dict(n_beams=64, n_azimuth=256, trajectory='circle',
@@ -237,6 +265,13 @@ MR_CIRCLE = dict(n_beams=64, n_azimuth=256, trajectory='circle',
                  range_noise_m=0.01, odom_noise=0.005)
 MR_PREFETCH = {'multirobot': dict(n_tracks=2, n_scans=MR_SCANS),
                'multirobot4': dict(n_tracks=4, n_scans=MR4_SCANS)}
+# Phase 11, the host API: the first lap (32 scans) of phase 5's stream, a
+# checkpoint after scan 24; the flagship runner's checkpoint at scan 32 of
+# phase 9a's stream.
+HOST_SCANS, HOST_SAVE_AT, HOST_WARM = 32, 24, 8
+HOST_ONLINE_ATOL_M = 0.02
+RESUME_ATOL_M, RESUME_ATOL_DEG = 0.01, 0.1
+FLAG_SAVE_AT = 32
 _POOL = []
 
 
@@ -726,7 +761,7 @@ def flagship_run(cfg, frames, pr, chunk=None):
 def flagship_phase(nk, streams):
     """Phase 9: the flagship path (slice 3: SLAM with loop-closure
     detection) through OnlineRunner: (a) the flow and its accuracy at 16k
-    density, (b) speed at KITTI density."""
+    density, (b) speed at KITTI density.  Returns (a)'s frames."""
     from laser_slam_tpu_torch.config import (flagship_config,
                                              flagship_place_recognition)
     from laser_slam_tpu_torch.core import benchmarker as bench
@@ -738,8 +773,8 @@ def flagship_phase(nk, streams):
 
     # (a) 16k density: the flow, its accuracy, cached against cold.
     t0 = time.perf_counter()
-    frames = beam_frames(n_scans=FLAG_SCANS, n_azimuth=256, seed=21,
-                         **FLAG_CIRCLE)
+    frames = frames16 = beam_frames(n_scans=FLAG_SCANS, n_azimuth=256,
+                                    seed=21, **FLAG_CIRCLE)
     lap = FLAG_SCANS // 2
     gt = np.stack([f.gt_pose7 for f in frames])
     log(f'flagship (a): {FLAG_SCANS} beam scans of 64 x 256 (2 laps of an '
@@ -957,6 +992,7 @@ def flagship_phase(nk, streams):
         out.update(prof_out)
     log(f'  phase 9 (b) took {time.perf_counter() - t_b:.1f} s')
     log('  flagship: ' + json.dumps(out))
+    return frames16
 
 
 def in_frame(anchor_est, anchor_gt, gts):
@@ -1028,19 +1064,20 @@ def multirobot_phase(nk, streams, dev='cuda'):
 
     # (a) Two robots at 16k density: per scan, then in chunks.
     st, waited = fetched(streams, 'multirobot')
-    gts = [np.stack([f.gt_pose7 for f in s]) for s in st]
+    gts = [np.stack([f.gt_pose7 for f in s[:MR_PER_SCAN]]) for s in st]
     log(f'multirobot (a): 2 x {MR_SCANS} beam scans of 64 x 256 (one lap '
         'of a 20 m circle centred at (6t, 4t), seeds 31-32, one scene), '
-        f'made by a helper process ({waited:.1f} s waited for them)')
+        f'made by a helper process ({waited:.1f} s waited for them); the '
+        f'per-scan run takes the first {MR_PER_SCAN} a track')
     nk.nn_indices.launches = 0
     nk.nn_indices_pruned.launches = 0
     runner = new_runner()
     mr_feed(runner, st, 0, MR_WARM)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mr_feed(runner, st, MR_WARM, MR_SCANS)
+    mr_feed(runner, st, MR_WARM, MR_PER_SCAN)
     torch.cuda.synchronize()
-    rate = 2 * (MR_SCANS - MR_WARM) / (time.perf_counter() - t0)
+    rate = 2 * (MR_PER_SCAN - MR_WARM) / (time.perf_counter() - t0)
     chunked = new_runner()
     mr_feed(chunked, st, 0, MR_WARM)
     torch.cuda.synchronize()
@@ -1057,7 +1094,7 @@ def multirobot_phase(nk, streams, dev='cuda'):
         mr_feed(chunked, st, MR_CHUNKED - MR_CHUNK, MR_CHUNKED, MR_CHUNK)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    log(f'  scans/s over {2 * (MR_SCANS - MR_WARM)} scans per scan after '
+    log(f'  scans/s over {2 * (MR_PER_SCAN - MR_WARM)} scans per scan after '
         f'{MR_WARM} warm-up scan pairs: {rate:.4f} ({1000 / rate:.3f} ms a '
         f'scan); in chunks of {MR_CHUNK} a track, over {n_chunked} scans '
         f'after the same warm-up: {rate_c:.4f}')
@@ -1215,7 +1252,7 @@ def multirobot_phase(nk, streams, dev='cuda'):
                    for c in (ka, kb))]
     keys8 = np.array(sorted({keys[0][1], keys[0][4], keys[0][8], ka,
                              keys[0][pos[ka] - 4], kb, keys[1][pos[kb] - 1],
-                             keys[1][min(pos[kb] + 4, MR_SCANS - 1)]}))
+                             keys[1][min(pos[kb] + 4, len(keys[1]) - 1)]}))
     keys64 = np.unique(np.linspace(1, n - 1, 64).round().astype(int))
     cov_out = {}
     for keys_c in (keys8, keys64):
@@ -1276,6 +1313,227 @@ def multirobot_phase(nk, streams, dev='cuda'):
                              'times')
     log(f'  phase 10 took {time.perf_counter() - t_phase:.1f} s')
     log('  multirobot: ' + json.dumps(out))
+
+
+def host_api_phase(nk, frames, smi, online_lap=None, flag_frames=None):
+    """Phase 11: the host API (slice 5) at slice1_config()'s full width:
+    ``LaserSlamWorker`` + ``IncrementalEstimator`` over the first lap of
+    phase 5's stream through ``replay.run_worker_on_stream``, a refined
+    closure of its first and last scans, the checkpoint round trip of the
+    estimator and its worker at scan 24, and the flagship runner's
+    online checkpoint at scan 32 of phase 9a's stream.  ``online_lap`` is
+    phase 5's OnlineRunner trajectory after the same scans (a fresh runner
+    makes it when None); ``flag_frames`` phase 9a's frames (made again when
+    None).  Returns the numbers it logged."""
+    import tempfile
+    from laser_slam_tpu_torch.config import (FLAGSHIP_RUNNER, Config,
+                                             WorkerConfig, flagship_config,
+                                             flagship_place_recognition,
+                                             slice1_config)
+    from laser_slam_tpu_torch.core import checkpoint as ck
+    from laser_slam_tpu_torch.core.estimator import IncrementalEstimator
+    from laser_slam_tpu_torch.core.types import RelativePose
+    from laser_slam_tpu_torch.ops import cloud as pc, se3
+    from laser_slam_tpu_torch.pipeline import online, replay
+    from laser_slam_tpu_torch.pipeline.worker import LaserSlamWorker
+    t_phase = time.perf_counter()
+    out = {}
+    lap = frames[:HOST_SCANS]
+    gt = np.stack([f.gt_pose7 for f in lap])
+    cfg = Config(estimator=slice1_config(),
+                 worker=WorkerConfig(minimum_distance_to_add_pose=0.0))
+    if online_lap is None:
+        runner = online.OnlineRunner(cfg.estimator, pose_capacity=128,
+                                     factor_capacity=512, device='cuda')
+        for f in lap:
+            runner.process_scan(f.time_ns, f.points, f.odom_pose7)
+        online_lap = runner.trajectory()
+    tmp = tempfile.TemporaryDirectory()
+    est_path = os.path.join(tmp.name, 'host_api.npz')
+    flag_path = os.path.join(tmp.name, 'flagship.npz')
+
+    # (1) The lap through the host API, a checkpoint after scan 24.
+    log(f'host API: LaserSlamWorker(IncrementalEstimator(slice1_config())) '
+        f'on cuda, {HOST_SCANS} scans of phase 5\'s stream')
+    est = IncrementalEstimator(cfg.estimator, 1, device='cuda')
+    worker = LaserSlamWorker(cfg.worker, est)
+    torch.cuda.synchronize()
+    nk.nn_indices.launches = 0
+    nk.nn_indices_pruned.launches = 0
+    scan_s = []
+
+    def timed_scans(w, fs):
+        for f in fs:
+            t0 = time.perf_counter()
+            replay.run_worker_on_stream(w, [f])
+            torch.cuda.synchronize()
+            scan_s.append(time.perf_counter() - t0)
+
+    timed_scans(worker, lap[:HOST_SAVE_AT])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save_checkpoint(est_path, est, [worker])
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    est2, (worker2,) = ck.load_checkpoint(est_path, cfg, device='cuda')
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    # Arrays read back after the round trip: bit-equal.
+    t_a, t_b = est.laser_tracks[0], est2.laser_tracks[0]
+    same = (np.array_equal(est.pose_values(), est2.pose_values())
+            and all(np.array_equal(getattr(est.graph, n),
+                                   getattr(est2.graph, n))
+                    for n in ('rel_meas', 'rel_keys', 'rel_sqrt_info',
+                              'rel_weight', 'prior_meas', 'prior_weight'))
+            and all(torch.equal(a.cloud.points, b.cloud.points)
+                    and torch.equal(a.cloud.mask, b.cloud.mask)
+                    and torch.equal(a.normals, b.normals)
+                    for a, b in zip(t_a.scans, t_b.scans))
+            and all(torch.equal(getattr(t_a, n), getattr(t_b, n))
+                    for n in ('_ring_points', '_ring_mask', '_ring_normals'))
+            and np.array_equal(worker._map_points[:worker._map_count],
+                               worker2._map_points[:worker2._map_count]))
+    if not same:
+        raise AssertionError('host API: the checkpoint did not read back '
+                             'bit-equal')
+    timed_scans(worker, lap[HOST_SAVE_AT:])
+    k2_lap = nk.nn_indices_pruned.launches
+    traj = worker.get_trajectory()
+    est_lap = np.stack([traj[f.time_ns] for f in lap])
+    warm = scan_s[HOST_WARM:]
+    rate = len(warm) / sum(warm)
+    err = np.linalg.norm(est_lap[:, 4:] - gt[:, 4:], axis=1)
+    on = np.stack([online_lap[f.time_ns] for f in lap])
+    on_dt, on_dr = pose_gaps(est_lap, on)
+    log(f'  {smi}: {rate:.4f} scans/s after {HOST_WARM} warm-up scans '
+        f'({1e3 * np.mean(warm):.3f} ms a scan mean, {1e3 * max(warm):.3f} '
+        f'max), K2 {k2_lap} launches ({k2_lap / (HOST_SCANS - 1):.1f} a '
+        f'scan), K1 {nk.nn_indices.launches}; error to ground truth mean '
+        f'{err.mean():.6f} m, max {err.max():.6f} m, final {err[-1]:.6f} m; '
+        f'against the OnlineRunner on the same scans {on_dt:.3e} m, '
+        f'{on_dr:.3e} deg (limit {HOST_ONLINE_ATOL_M} m)')
+    log(f'  {smi}: save_checkpoint {save_ms:.3f} ms, load_checkpoint '
+        f'{load_ms:.3f} ms ({HOST_SAVE_AT} scans, '
+        f'{os.path.getsize(est_path) / 2 ** 20:.1f} MiB); read back '
+        'bit-equal')
+    if k2_lap <= 0 or nk.nn_indices.launches:
+        raise AssertionError('host API: K2 must launch in every scan\'s ICP '
+                             f'and K1 never (K2 {k2_lap}, K1 '
+                             f'{nk.nn_indices.launches})')
+    if on_dt > HOST_ONLINE_ATOL_M:
+        raise AssertionError('host API: more than 2 cm from the '
+                             'OnlineRunner on the same scans')
+
+    # The resumed run against the uninterrupted one, before the closure.
+    replay.run_worker_on_stream(worker2, lap[HOST_SAVE_AT:])
+    traj2 = worker2.get_trajectory()
+    res_dt, res_dr = pose_gaps(
+        est_lap, np.stack([traj2[f.time_ns] for f in lap]))
+    log(f'  resumed at scan {HOST_SAVE_AT} vs uninterrupted: {res_dt:.3e} m, '
+        f'{res_dr:.3e} deg (limits {RESUME_ATOL_M} m, {RESUME_ATOL_DEG} deg)')
+    if not (res_dt <= RESUME_ATOL_M and res_dr <= RESUME_ATOL_DEG):
+        raise AssertionError('host API: the resumed run left the '
+                             'uninterrupted one')
+
+    # (2) Close scan 0 to the lap's last scan: a refined closure.
+    w_T = measured_closure(lap, traj, 0, HOST_SCANS - 1, se3, torch)
+    k2_before = nk.nn_indices_pruned.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.process_loop_closure(RelativePose(
+        T_a_b=w_T, time_a_ns=lap[0].time_ns, time_b_ns=lap[-1].time_ns))
+    torch.cuda.synchronize()
+    closure_ms = 1e3 * (time.perf_counter() - t0)
+    k2_closure = nk.nn_indices_pruned.launches - k2_before
+    traj = worker.get_trajectory()
+    closed = np.stack([traj[f.time_ns] for f in lap])
+    err_c = np.linalg.norm(closed[:, 4:] - gt[:, 4:], axis=1)
+    log(f'  {smi}: refined closure (0, {HOST_SCANS - 1}) {closure_ms:.3f} ms '
+        f'({k2_closure} K2 launches, submaps of '
+        f'{2 * cfg.estimator.loop_closures_sub_maps_radius + 1} x '
+        f'{cfg.estimator.laser_track.input_filters.scan_capacity} points at '
+        f'most); error after it mean {err_c.mean():.6f} m, max '
+        f'{err_c.max():.6f} m, final {err_c[-1]:.6f} m')
+    if k2_closure <= 0 or nk.nn_indices.launches:
+        raise AssertionError('host API: the refined closure did not run K2')
+    if not (np.all(np.isfinite(closed)) and err_c.max() < 0.35
+            and err_c[-1] < 0.15):
+        raise AssertionError(f'host API: error out of bounds (max '
+                             f'{err_c.max()}, final {err_c[-1]})')
+    # K2 at the refinement's largest submaps (2 x radius + 1 scans a side,
+    # which closures away from a track's ends reach), against its plain
+    # version; launched after the counts were read.
+    radius = cfg.estimator.loop_closures_sub_maps_radius
+    mid = HOST_SCANS // 2
+    sub_a, _ = t_a.build_submap_around_time(lap[mid - 1].time_ns, radius)
+    sub_b, _ = t_a.build_submap_around_time(lap[mid].time_ns, radius)
+    q_dev = sub_b.points.device
+    rel = se3.compose(se3.inverse(torch.tensor(traj[lap[mid - 1].time_ns])),
+                      torch.tensor(traj[lap[mid].time_ns])).to(q_dev)
+    q = pc.transform(rel, sub_b).points
+    pref = nk.build_pruned_ref(sub_a.points)
+    d2_k, idx_k = nk.nn_indices_pruned(q, pref, CUTOFF)
+    d2_p, idx_p = nk.nn_indices_pruned_plain(q, pref, CUTOFF)
+    inside = d2_p <= CUTOFF ** 2
+    n_sub = sub_a.points.shape[0]
+    check_nn(f'K2 at the refinement\'s capacity, {q.shape[0]} x {n_sub}',
+             q, pref.points, d2_k, idx_k, d2_p, idx_p, rows=inside,
+             ties=True)
+    if bool(torch.any(d2_k[~inside] <= CUTOFF ** 2)) or n_sub != (
+            (2 * radius + 1) * cfg.estimator.laser_track.input_filters
+            .scan_capacity):
+        raise AssertionError('host API: K2 at the refinement\'s capacity')
+    out.update(scans_per_s=rate, ms_per_scan=1e3 * float(np.mean(warm)),
+               k2_launches=k2_lap + k2_closure,
+               k2_launches_per_scan=k2_lap / (HOST_SCANS - 1),
+               closure_ms=closure_ms, closure_k2_launches=k2_closure,
+               save_ms=save_ms, load_ms=load_ms, err_max_m=float(err_c.max()),
+               err_final_m=float(err_c[-1]), vs_online_m=on_dt,
+               resume_m=res_dt, resume_deg=res_dr)
+
+    # (3) The flagship runner through its online checkpoint at scan 32.
+    if flag_frames is None:
+        flag_frames = beam_frames(n_scans=FLAG_SCANS, n_azimuth=256,
+                                  seed=21, **FLAG_CIRCLE)
+    fcfg = flagship_config(16384, 16384, 512, 256)
+    pr = flagship_place_recognition()
+    run_a = online.OnlineRunner(fcfg, place_recognition=pr, device='cuda',
+                                **FLAGSHIP_RUNNER)
+    for f in flag_frames[:FLAG_SAVE_AT]:
+        run_a.process_scan(f.time_ns, f.points, f.odom_pose7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save_online_checkpoint(flag_path, run_a)
+    fsave_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    run_c = ck.load_online_checkpoint(flag_path, fcfg,
+                                      place_recognition=pr, device='cuda')
+    torch.cuda.synchronize()
+    fload_ms = 1e3 * (time.perf_counter() - t0)
+    for r in (run_a, run_c):
+        for f in flag_frames[FLAG_SAVE_AT:]:
+            r.process_scan(f.time_ns, f.points, f.odom_pose7)
+    ta, tc = run_a.trajectory(), run_c.trajectory()
+    f_dt, f_dr = pose_gaps(np.stack([ta[f.time_ns] for f in flag_frames]),
+                           np.stack([tc[f.time_ns] for f in flag_frames]))
+    pairs = [[d[:2] for d in r.detections] for r in (run_a, run_c)]
+    log(f'  {smi}: flagship save_online_checkpoint {fsave_ms:.3f} ms, load '
+        f'{fload_ms:.3f} ms ({os.path.getsize(flag_path) / 2 ** 20:.1f} MiB);'
+        f' detections {pairs[0]} uninterrupted, {pairs[1]} resumed; poses '
+        f'{f_dt:.3e} m, {f_dr:.3e} deg apart')
+    if pairs[0] != pairs[1] or not pairs[0]:
+        raise AssertionError('host API: the resumed flagship runner found '
+                             'other detections')
+    if not (f_dt <= RESUME_ATOL_M and f_dr <= RESUME_ATOL_DEG):
+        raise AssertionError('host API: the resumed flagship runner left '
+                             'the uninterrupted one')
+    tmp.cleanup()
+    out.update(flagship_save_ms=fsave_ms, flagship_load_ms=fload_ms,
+               flagship_detections=len(pairs[0]), flagship_resume_m=f_dt,
+               flagship_resume_deg=f_dr)
+    log(f'  phase 11 took {time.perf_counter() - t_phase:.1f} s')
+    log('  host API: ' + json.dumps(out))
+    return out
 
 
 def main():
@@ -1527,6 +1785,9 @@ def main():
         scan_s.append(time.perf_counter() - t0)
         if idx == PROFILE_SCANS.stop - 1:
             prof.__exit__(None, None, None)
+        if idx == HOST_SCANS - 1:
+            # Phase 11 compares the host API with this lap.
+            online_lap = runner.trajectory()
         if idx in closure_at:
             a, b = closure_at[idx]
             runner.add_loop_closure(a, b, measured_closure(
@@ -1550,6 +1811,11 @@ def main():
     log(f'  scans/s after 8 warm-up scans (the profiled ones left out): '
         f'{len(warm) / sum(warm):.4f} ({1000 * np.mean(warm):.3f} ms/scan '
         f'mean, {1000 * np.max(warm):.3f} ms max)')
+    lap1 = [t for k, t in enumerate(scan_s[:HOST_SCANS]) if k >= HOST_WARM
+            and k not in PROFILE_SCANS]
+    log(f'  the same over scans {HOST_WARM}-{HOST_SCANS - 1} (phase 11\'s '
+        f'lap): {len(lap1) / sum(lap1):.4f} scans/s '
+        f'({1000 * np.mean(lap1):.3f} ms/scan mean)')
     profile_summary(prof, sum(scan_s[k] for k in PROFILE_SCANS),
                     PROFILE_SCANS, focus=(
                         ('K2 items', ('nn_items_kernel<true',)),
@@ -1823,13 +2089,19 @@ def main():
 
     # 9. The flagship path (slice 3) ------------------------------------
     t0 = time.perf_counter()
-    flagship_phase(nk, streams)
+    flag_frames = flagship_phase(nk, streams)
     log(f'phase 9 took {time.perf_counter() - t0:.1f} s')
 
     # 10. Multi-robot SLAM (slice 4) ------------------------------------
     t0 = time.perf_counter()
     multirobot_phase(nk, streams)
     log(f'phase 10 took {time.perf_counter() - t0:.1f} s')
+
+    # 11. The host API and checkpoints (slice 5) --------------------------
+    t0 = time.perf_counter()
+    host = host_api_phase(nk, frames, smi, online_lap, flag_frames)
+    kernels['K2']['launches_host_api'] = host['k2_launches']
+    log(f'phase 11 took {time.perf_counter() - t0:.1f} s')
 
     # Records ----------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'

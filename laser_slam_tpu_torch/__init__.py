@@ -8,8 +8,11 @@ an obvious counterpart:
   graph/     factor-graph arrays, the Gauss-Newton/PCG solver, its
              Woodbury cache and marginal covariances
   pipeline/  the online SLAM step, its host runner (multi-robot tracks
-             included), device maps, place recognition, replay streams
-  core/      the benchmarker (host timers)
+             included), device maps, place recognition, replay streams,
+             the host API's LaserSlamWorker
+  core/      the host API (LaserTrack, IncrementalEstimator, the
+             trajectory and its types), checkpoints, CSV and trajectory
+             exports, the benchmarker (host timers)
   csrc/      hand-written CUDA kernels (built with nvcc at first use)
 
 Imports torch and numpy only; never jax.

@@ -38,11 +38,9 @@ from typing import NamedTuple
 import torch
 
 from laser_slam_tpu_torch.config import SolverConfig
-from laser_slam_tpu_torch.graph.factors import FactorGraphData
+from laser_slam_tpu_torch.graph.factors import (GAUGE_FIX_THRESHOLD,
+                                                FactorGraphData)
 from laser_slam_tpu_torch.ops import se3
-
-# sqrt-info beyond this is treated as a hard gauge constraint.
-GAUGE_FIX_THRESHOLD = 1.0e5
 
 
 def _eye6(like: torch.Tensor) -> torch.Tensor:

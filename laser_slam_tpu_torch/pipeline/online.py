@@ -58,7 +58,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from laser_slam_tpu_torch.config import EstimatorConfig
+from laser_slam_tpu_torch.config import EstimatorConfig, LaserTrackConfig
 from laser_slam_tpu_torch.core import benchmarker as bench
 from laser_slam_tpu_torch.graph.factors import FactorGraphData
 from laser_slam_tpu_torch.graph import solver as sv
@@ -434,7 +434,13 @@ def ingest(points: torch.Tensor, n_valid, config: EstimatorConfig,
            generator: Optional[torch.Generator] = None):
     """The step's first stage: input filters, the store decimation and
     per-point normals (laser_track.cpp:146).  Returns (scan, normals)."""
-    lt = config.laser_track
+    return ingest_track(points, n_valid, config.laser_track, generator)
+
+
+def ingest_track(points: torch.Tensor, n_valid, lt: LaserTrackConfig,
+                 generator: Optional[torch.Generator] = None):
+    """:func:`ingest` for one track's config; ``LaserTrack`` calls it too
+    (the JAX package's ``laser_track._ingest_scan``)."""
     f = lt.input_filters
     mask = torch.arange(points.shape[0], device=points.device) < n_valid
     scan = pc.park_invalid(pc.Cloud(points, mask))
@@ -464,15 +470,23 @@ def submap(state: OnlineState, track_id: int = 0):
         se3.compose(se3.inverse(prev_traj),
                     state.traj_poses[torch.clamp(ring_keys, min=0)]),
         se3.identity(device=prev_traj.device))
-    ring_points = state.ring_points[track_id]
-    ring_mask = state.ring_mask[track_id]
-    pts = se3.apply(ring_rel[:, None, :], ring_points)
-    nrm = se3.quat_rotate(ring_rel[:, None, :4], state.ring_normals[track_id])
-    K, N, _ = ring_points.shape
+    return assemble_submap(state.ring_points[track_id],
+                           state.ring_mask[track_id],
+                           state.ring_normals[track_id], ring_rel)
+
+
+def assemble_submap(points: torch.Tensor, masks: torch.Tensor,
+                    normals: torch.Tensor, rels: torch.Tensor):
+    """K stacked scans [K,N,...] moved by ``rels`` [K,7] and concatenated:
+    (cloud [K*N], normals [K*N, 3]); the device core of
+    buildSubMapAroundTime (laser_track.cpp:602-651)."""
+    pts = se3.apply(rels[:, None, :], points)
+    nrm = se3.quat_rotate(rels[:, None, :4], normals)
+    K, N, _ = points.shape
     cloud = pc.Cloud(
-        torch.where(ring_mask[..., None], pts,
+        torch.where(masks[..., None], pts,
                     torch.full_like(pts, pc.SENTINEL)).reshape(K * N, 3),
-        ring_mask.reshape(K * N))
+        masks.reshape(K * N))
     return cloud, nrm.reshape(K * N, 3)
 
 
@@ -481,7 +495,13 @@ def reading_of(scan: pc.Cloud, config: EstimatorConfig,
     """The ICP reading: the scan sampled at ``reading_sampling_ratio`` and
     decimated evenly to ``reading_capacity`` (a prefix of a ring-major
     beam scan would keep only its top rings)."""
-    icp_cfg = config.laser_track.icp
+    return sample_reading(scan, config.laser_track.icp, generator)
+
+
+def sample_reading(scan: pc.Cloud, icp_cfg,
+                   generator: Optional[torch.Generator] = None) -> pc.Cloud:
+    """:func:`reading_of` for an ICP config; ``LaserTrack`` calls it
+    too."""
     if icp_cfg.reading_sampling_ratio < 1.0:
         scan = pc.random_sampling_filter(
             scan, icp_cfg.reading_sampling_ratio, generator)
@@ -938,12 +958,8 @@ def _gather_submap(state: OnlineState, archive: ScanArchive, center_key,
                (ks >= 0) & (ks < state.n_poses) & (track >= 0))
     msk = archive.mask[ksc] & valid_k[:, None]
     rel = se3.compose(frame_T_inv, state.traj_poses[ksc])      # [2R+1,7]
-    wpts = se3.apply(rel[:, None, :], archive.points[ksc])
-    wnrm = se3.quat_rotate(rel[:, None, :4], archive.normals[ksc])
-    cloud = pc.Cloud(torch.where(msk[..., None], wpts,
-                                 torch.full_like(wpts, pc.SENTINEL)
-                                 ).reshape(-1, 3), msk.reshape(-1))
-    return cloud, wnrm.reshape(-1, 3)
+    return assemble_submap(archive.points[ksc], msk, archive.normals[ksc],
+                           rel)
 
 
 def _closure_icp(state: OnlineState, archive: ScanArchive, key_a, key_b,
@@ -1082,6 +1098,7 @@ class OnlineRunner:
         self.n_tracks = n_tracks
         self.state = init_state(config, pose_capacity, factor_capacity,
                                 n_tracks=n_tracks, device=self.device)
+        self.seed = seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.min_dist = minimum_distance_to_add_pose

@@ -3,14 +3,16 @@
 Counterpart of ``ScanFrame`` and ``SyntheticStream`` in
 ``laser_slam_tpu/pipeline/replay.py``: the same box-room world, the same
 trajectories and the same numpy random stream, so one seed gives the
-same scans as the JAX package's stream.  The npz and KITTI readers are
-still to be ported (ROADMAP queue 1).
+same scans as the JAX package's stream; the portable npz log format
+(:func:`save_npz_stream` / :func:`load_npz_stream`); and the replay main
+loop of the host API (:func:`run_worker_on_stream`).  The KITTI reader
+is still to be ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -149,3 +151,55 @@ class SyntheticStream:
                             odom_pose7=odom.copy(),
                             points=self.scan_at(gt),
                             gt_pose7=gt)
+
+
+def save_npz_stream(frames: Sequence[ScanFrame], path: str) -> None:
+    """Persist a stream as one npz (ragged scans stored object-free by
+    concatenation + offsets), in the JAX package's format."""
+    points = np.concatenate([f.points for f in frames])
+    offsets = np.cumsum([0] + [len(f.points) for f in frames])
+    np.savez_compressed(
+        path,
+        points=points, offsets=offsets,
+        times=np.asarray([f.time_ns for f in frames], np.int64),
+        odom=np.stack([f.odom_pose7 if f.odom_pose7 is not None
+                       else np.full(7, np.nan) for f in frames]),
+        gt=np.stack([f.gt_pose7 if f.gt_pose7 is not None
+                     else np.full(7, np.nan) for f in frames]))
+
+
+def load_npz_stream(path: str) -> List[ScanFrame]:
+    with np.load(path) as z:
+        times, offsets = z['times'], z['offsets']
+        points, odoms, gts = z['points'], z['odom'], z['gt']
+    frames = []
+    for i in range(len(times)):
+        odom, gt = odoms[i], gts[i]
+        frames.append(ScanFrame(
+            time_ns=int(times[i]),
+            odom_pose7=None if np.isnan(odom[0]) else odom.astype(np.float32),
+            points=points[offsets[i]:offsets[i + 1]].astype(np.float32),
+            gt_pose7=None if np.isnan(gt[0]) else gt.astype(np.float32)))
+    return frames
+
+
+def run_worker_on_stream(worker, stream, max_scans: Optional[int] = None,
+                         loop_closure_hook=None):
+    """Drive a LaserSlamWorker over a stream (the replay main loop).
+
+    ``loop_closure_hook(worker, frame_index)`` is called after each
+    integrated scan, so tests and benchmarks can inject closures (the
+    reference's closures come from the external segmatch node).
+    Returns the number of integrated scans.
+    """
+    n = 0
+    for i, frame in enumerate(stream):
+        if max_scans is not None and i >= max_scans:
+            break
+        ok = worker.process_scan(frame.time_ns, frame.points,
+                                 frame.odom_pose7)
+        if ok:
+            n += 1
+            if loop_closure_hook is not None:
+                loop_closure_hook(worker, i)
+    return n

@@ -558,3 +558,56 @@ def test_e6_cloud_beyond_the_cluster_sort_on_card():
     d2, out = nv.nn_payload_pruned(q, ref, pay)
     nv.check_payload(q, ref, pay, d2, out,
                      *nv.nn_payload_pruned_plain(q, ref, pay))
+
+
+@pytest.mark.gpu
+def test_host_api_runs_k2_and_resumes_from_a_checkpoint_on_card(tmp_path):
+    """A few scans through LaserSlamWorker on the card: every scan's ICP
+    and the refined closure launch K2 (K1 never); a checkpoint saved
+    after scan 4 reads back bit-equal, and the resumed run stays within
+    1 cm / 0.1 degree of the uninterrupted one (float index_add_ is
+    atomic on the card, so not bit-equal)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from laser_slam_tpu_torch.config import (Config, WorkerConfig,
+                                             slice1_config)
+    from laser_slam_tpu_torch.core import checkpoint as ck
+    from laser_slam_tpu_torch.core.estimator import IncrementalEstimator
+    from laser_slam_tpu_torch.core.types import RelativePose
+    from laser_slam_tpu_torch.pipeline import replay
+    from laser_slam_tpu_torch.pipeline.worker import LaserSlamWorker
+    cfg = Config(estimator=slice1_config(scan_capacity=4096,
+                                         reading_capacity=2048),
+                 worker=WorkerConfig(minimum_distance_to_add_pose=0.0,
+                                     local_map_capacity=1 << 16))
+    fs = list(replay.SyntheticStream(n_scans=8, points_per_scan=4096,
+                                     trajectory='line', step_m=0.5, seed=7))
+    est = IncrementalEstimator(cfg.estimator, 1)
+    w = LaserSlamWorker(cfg.worker, est)
+    nk.nn_indices.launches = nk.nn_indices_pruned.launches = 0
+    assert replay.run_worker_on_stream(w, fs[:4]) == 4
+    k2_scans = nk.nn_indices_pruned.launches
+    assert k2_scans > 0
+    path = os.path.join(tmp_path, 'state.npz')
+    ck.save_checkpoint(path, est, [w])
+    est2, (w2,) = ck.load_checkpoint(path, cfg)
+    assert est2.device.type == 'cuda'
+    np.testing.assert_array_equal(est2.pose_values(), est.pose_values())
+    for a, b in zip(est.laser_tracks[0].scans, est2.laser_tracks[0].scans):
+        assert torch.equal(a.cloud.points, b.cloud.points)
+        assert torch.equal(a.normals, b.normals)
+    assert torch.equal(est.laser_tracks[0]._ring_points,
+                       est2.laser_tracks[0]._ring_points)
+    for worker in (w, w2):
+        replay.run_worker_on_stream(worker, fs[4:])
+    a = np.stack(list(w.get_trajectory().values()))
+    b = np.stack(list(w2.get_trajectory().values()))
+    assert np.abs(a[:, 4:] - b[:, 4:]).max() < 0.01
+    assert np.abs(a[:, :4] - b[:, :4]).max() < np.radians(0.1) / 2
+    before = nk.nn_indices_pruned.launches
+    est.process_loop_closure(RelativePose(
+        T_a_b=np.asarray([1, 0, 0, 0, 0, 0, 0], np.float32),
+        time_a_ns=fs[0].time_ns, time_b_ns=fs[-1].time_ns))
+    assert nk.nn_indices_pruned.launches > before
+    assert nk.nn_indices.launches == 0
+    assert np.all(np.isfinite(est.pose_values()))
