@@ -165,11 +165,38 @@ result line):
    must find the uninterrupted one's detections, its poses within 1 cm /
    0.1 deg.  Each number is logged beside the card's name and power
    limit.
+12. Fleet mode and batched serving (slice 6, ``parallel/fleet.py``) at
+   bench.py's widths, data from the port's copies of bench.py's
+   ``make_scene`` / ``sample_scan`` (seed 0).  (a) A 65,536-point
+   reference with kNN(10) normals and 16 readings of 8192 points from
+   poses ~0.5 m away (bench.py:350-361, 406-411): single-stream ICP
+   pairs/s with 'projective', 'pallas' (K2) and 'brute'; ``batched_icp``
+   at B = 32 with ``serving_icp_config()`` over 4 reps of distinct
+   inputs: pairs/s, the mean translation and its mean error to the true
+   offsets (< 10 cm), two lanes against the same readings registered
+   alone and a 64-lane call against two 32-lane halves (within 1e-5).
+   (b) The fleet of bench.py:1212-1231 (256 lanes x 3 scans of 4096
+   points, random unit normals, +0.3 m odometry guesses): pairs/s of
+   ``fleet_icp_odometry`` with ``fleet_icp_config()``'s 'brute' and with
+   'pallas' (K1L, K2L) and 'projective', each run's largest pose gap to
+   the K1L run (1e-5 m / 1e-3 deg for the exact matchers, 10 cm / 1 deg
+   for 'projective'), a profile of one K1L call, two lanes of it again on
+   the CPU (1e-4), and ``fleet_solve`` of ``build_fleet_chain_graphs``
+   of the K1L run (ms; one lane against its own solve).  (c) 256 maps of
+   16,384 points, 3 scans accumulated, 3 reps of 4096 queries a lane
+   (bench.py:1278-1294): queries/s through K1L and the plain path's ms
+   on the same maps; an overflow with ``voxel_size_m`` = 1 compacts
+   every lane.  Then K1L and K2L against their plain versions at (b)'s
+   and (c)'s shapes and at 5 ragged lanes of 1000 x 9001 with copies
+   across tiles and parked rows (K2L also on 4 clustered lanes of 2048 x
+   16384, four tiles a lane, where it must scan fewer than all pairs:
+   ``clustered_scanned_share``), and their times at (b)'s shape.
 
 The kernel counters are reset right before phase 5 (K2), phase 6 (K1),
 the shootout run of phase 7, the production, flagship and multi-robot
-runs of phases 8-10 and the host-API lap and closure of phase 11, the
-main-path runs, and read right after; launches made to compare a kernel
+runs of phases 8-10, the host-API lap and closure of phase 11 and the
+fleet and map runs of phase 12 (K1L, K2L), the main-path runs, and read
+right after; launches made to compare a kernel
 with its plain version are not counted.  Each kernel's bound is the larger of its bytes (inputs read
 once, outputs written once) over 3.35 TB/s and its operations over the
 card's rate for their type: f32 lane instructions over SMs x 128 lanes x
@@ -187,7 +214,8 @@ query is left out.  Device launches a call, set-up included, are counted
 by ``torch.profiler`` and must be at most 12 for E6 and 6 for E4 and
 E5.  The second-to-last line is the kernels' JSON
 record (K2's ``launches`` from phase 5, ``launches_host_api`` from phase
-11); the last line is the result record.
+11; K1L's and K2L's from phase 12, with the map query's ms through K1L
+and through the plain path); the last line is the result record.
 """
 
 import dataclasses
@@ -272,6 +300,31 @@ HOST_SCANS, HOST_SAVE_AT, HOST_WARM = 32, 24, 8
 HOST_ONLINE_ATOL_M = 0.02
 RESUME_ATOL_M, RESUME_ATOL_DEG = 0.01, 0.1
 FLAG_SAVE_AT = 32
+# Phase 12, fleet mode and batched serving, at bench.py's widths: the
+# serving reference and readings (bench.py:350-361, 410-411), the fleet
+# (bench.py:1212-1231) and its maps (bench.py:1278-1294).
+SERVE_REF, SERVE_READ, SERVE_N = 65536, 8192, 16
+SERVE_B, SERVE_REPS = 32, 4
+FLEET_B, FLEET_T, FLEET_N = 256, 3, 4096
+FLEET_MAP_CAP, FLEET_MAP_REPS = 16384, 3
+FLEET_VOXEL_M = 1.0
+# The fleet's runs against its K1L run, largest pose gap over every lane
+# and step.  'brute' and K2L find the same exact nearest neighbours as
+# K1L (bit-equal d2; K2L's index differs only at an exact f32 tie), so
+# their poses may differ only by such ties: 1e-5 m / 1e-3 deg.
+# 'projective' is another matcher; it is held to tests/test_parity.py's
+# rule for the production path's projective ICP against the exact path:
+# 10 cm / 1 deg.
+FLEET_EXACT_GAP = (1e-5, 1e-3)
+FLEET_PROJ_GAP = (0.10, 1.0)
+# The serving path: a 64-lane call against two 32-lane halves (lanes are
+# independent; batched 6x6 products may round otherwise) and a lane
+# against the same reading registered alone.
+SERVE_LANE_ATOL = 1e-5
+# Readings drawn ~0.5 m from the reference pose (bench.py:406-408): the
+# mean error of the batched solutions to the true offset, against
+# tests/test_parity.py's 10 cm for the projective production path.
+SERVE_TRUTH_M = 0.10
 _POOL = []
 
 
@@ -1536,6 +1589,384 @@ def host_api_phase(nk, frames, smi, online_lap=None, flag_frames=None):
     return out
 
 
+def fleet_phase(nk, smi, bound, nn_bytes):
+    """Phase 12: fleet mode and the batched serving path
+    (``parallel/fleet.py``) at bench.py's full width, and the kernel
+    checks of K1L/K2L.  Returns the kernels' record entries."""
+    import dataclasses as dc
+    from laser_slam_tpu_torch.config import (SolverConfig, IcpConfig,
+                                             fleet_icp_config,
+                                             serving_icp_config)
+    from laser_slam_tpu_torch.graph import factors as fg
+    from laser_slam_tpu_torch.graph import solver as sv
+    from laser_slam_tpu_torch.ops import cloud as pc, icp as icp_mod, se3
+    from laser_slam_tpu_torch.parallel import fleet
+    from laser_slam_tpu_torch.pipeline import replay
+    t_phase = time.perf_counter()
+    dev = torch.device('cuda')
+
+    # Data as bench.py makes it (seed 0; bench.py draws other data from
+    # the same generator between the serving and the fleet inputs).
+    rng = np.random.default_rng(0)
+    world = replay.make_scene(rng)
+    pose0 = np.array([0.0, 0.0, 1.8])
+    ref_np = replay.sample_scan(rng, world, pose0, SERVE_REF)
+    offsets, readings_np = [], []
+    for _ in range(SERVE_N):
+        dp = pose0 + rng.normal(size=3) * np.array([0.5, 0.5, 0.02])
+        offsets.append(dp - pose0)
+        readings_np.append(replay.sample_scan(rng, world, dp, SERVE_READ))
+    ref = pc.make_cloud(ref_np, capacity=SERVE_REF, device=dev)
+    t0 = time.perf_counter()
+    normals = pc.estimate_normals(ref, knn=10)
+    torch.cuda.synchronize()
+    log(f'phase 12 (a) serving: reference {SERVE_REF} points, kNN(10) '
+        f'normals in {time.perf_counter() - t0:.2f} s, {SERVE_N} readings '
+        f'of {SERVE_READ} points ({smi})')
+    readings = [pc.make_cloud(r, capacity=SERVE_READ, device=dev)
+                for r in readings_np]
+    ident = se3.identity(device=dev)
+
+    # Single-stream witnesses (bench.py:418-435): one reading a call.
+    for matcher in ('projective', 'pallas', 'brute'):
+        cfg = IcpConfig(matcher=matcher, reading_capacity=SERVE_READ,
+                        reading_sampling_ratio=1.0,
+                        max_correspondence_dist_m=3.0)
+        icp_mod.icp(readings[0], ref, normals, ident, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [icp_mod.icp(rd, ref, normals, ident, cfg).T
+                for rd in readings]
+        torch.cuda.synchronize()
+        rate = SERVE_N / (time.perf_counter() - t0)
+        if not bool(torch.all(torch.isfinite(torch.stack(outs)))):
+            raise AssertionError(f'serving {matcher}: non-finite poses')
+        log(f'  single-stream icp {matcher}: {rate:.4f} pairs/s '
+            f'({SERVE_N} readings, 40 fixed iterations a call)')
+
+    # batched_icp at B = 32 with serving_icp_config(), 4 reps of distinct
+    # inputs (bench.py:445-468).
+    cfg_b = serving_icp_config(SERVE_READ)
+    batches, picks = [], []
+    for rep in range(SERVE_REPS):
+        sel = [(i + rep * 3) % SERVE_N for i in range(SERVE_B)]
+        picks.append(sel)
+        batches.append((torch.stack([readings[i].points for i in sel]),
+                        torch.stack([readings[i].mask for i in sel])))
+
+    def serve(p, m):
+        return fleet.batched_icp(p, m, ref, normals,
+                                 ident.expand(p.shape[0], 7), cfg_b)
+
+    serve(*batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [serve(*b) for b in batches[::-1]]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    out = outs[-1]
+    rate_b = SERVE_B * SERVE_REPS / serve_s
+    t_norm = torch.linalg.norm(out.T[:, 4:], dim=1)
+    truth = torch.tensor(np.stack([offsets[i] for i in picks[0]]),
+                         dtype=torch.float32, device=dev)
+    err = torch.linalg.norm(out.T[:, 4:] - truth, dim=1)
+    log(f'  batched_icp B={SERVE_B}: {rate_b:.4f} pairs/s '
+        f'({1e3 * serve_s / SERVE_REPS:.3f} ms a call), mean translation '
+        f'{float(t_norm.mean()):.4f} m, mean error to the true offset '
+        f'{float(err.mean()):.4f} m (max {float(err.max()):.4f}), '
+        f'{int(out.valid.sum())}/{SERVE_B} valid ({smi})')
+    if not (bool(torch.all(torch.isfinite(out.T)))
+            and float(err.mean()) < SERVE_TRUTH_M):
+        raise AssertionError('batched_icp: solutions off the true offsets')
+    for i in (0, SERVE_B - 1):
+        one = icp_mod.icp_point_to_plane(readings[picks[0][i]], ref, normals,
+                                         ident, cfg_b)
+        gap = float(torch.max(torch.abs(one.T - out.T[i])))
+        if gap > SERVE_LANE_ATOL or bool(one.valid) != bool(out.valid[i]):
+            raise AssertionError(f'batched_icp lane {i}: {gap} from the '
+                                 'same reading registered alone')
+    p64 = torch.cat([batches[0][0], batches[1][0]])
+    m64 = torch.cat([batches[0][1], batches[1][1]])
+    ms64 = sync_ms(lambda: serve(p64, m64), 1)
+    whole = serve(p64, m64)
+    halves = [serve(p64[s], m64[s]) for s in (slice(0, 32), slice(32, 64))]
+    gap = float(torch.max(torch.abs(
+        whole.T - torch.cat([h.T for h in halves]))))
+    if gap > SERVE_LANE_ATOL or not torch.equal(
+            whole.valid, torch.cat([h.valid for h in halves])):
+        raise AssertionError(f'batched_icp B=64: {gap} from two halves')
+    log(f'  B=64 in one call: {ms64:.3f} ms ({64e3 / ms64:.4f} pairs/s), '
+        f'poses within {gap:.3g} of two 32-lane halves')
+
+    # (b) The fleet (bench.py:1212-1231).
+    B, T, N = FLEET_B, FLEET_T, FLEET_N
+    base_scan = replay.sample_scan(rng, world, pose0, N)
+    fl_pts = np.zeros((B, T, N, 3), np.float32)
+    for b in range(B):
+        for t in range(T):
+            jitter = rng.normal(size=(N, 3)).astype(np.float32) * 0.02
+            fl_pts[b, t] = base_scan + jitter + np.array(
+                [0.3 * t, 0.1 * b % 2.0, 0], np.float32)
+    fl_norm = rng.normal(size=(B, T, N, 3)).astype(np.float32)
+    fl_norm /= np.linalg.norm(fl_norm, axis=-1, keepdims=True)
+    init_pose = np.zeros((B, 7), np.float32)
+    init_pose[:, 0] = 1.0
+    odom_rel = np.zeros((B, T, 7), np.float32)
+    odom_rel[:, :, 0] = 1.0
+    odom_rel[:, 1:, 4] = 0.3
+    card = [torch.tensor(a, device=dev) for a in (
+        fl_pts, np.ones((B, T, N), bool), fl_norm, init_pose, odom_rel)]
+    card2 = [card[0] + 0.001] + card[1:]          # distinct timed input
+    cfg_f = fleet_icp_config(N)
+    runs = {'brute': cfg_f,
+            'pallas K1L': dc.replace(cfg_f, matcher='pallas',
+                                     pallas_prune=False),
+            'pallas K2L': dc.replace(cfg_f, matcher='pallas',
+                                     pallas_prune=True),
+            'projective': dc.replace(cfg_f, matcher='projective')}
+    log(f'phase 12 (b) fleet: B={B}, T={T}, N={N}, fleet_icp_config() '
+        f'and its matchers ({smi})')
+    nk.nn_indices_lanes.launches = 0
+    nk.nn_indices_pruned_lanes.launches = 0
+    single = (nk.nn_indices.launches, nk.nn_indices_pruned.launches)
+    res, rates = {}, {}
+    for label, cfg in runs.items():
+        fleet.fleet_icp_odometry(*card, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[label] = fleet.fleet_icp_odometry(*card2, cfg)
+        torch.cuda.synchronize()
+        rates[label] = B * (T - 1) / (time.perf_counter() - t0)
+    k1 = res['pallas K1L'].poses.reshape(-1, 7).cpu().numpy()
+    for label, r in res.items():
+        if not bool(torch.all(torch.isfinite(r.poses))):
+            raise AssertionError(f'fleet {label}: non-finite poses')
+        dt, dr = pose_gaps(r.poses.reshape(-1, 7).cpu().numpy(), k1)
+        limit = FLEET_PROJ_GAP if label == 'projective' else FLEET_EXACT_GAP
+        log(f'  fleet_icp_odometry {label}: {rates[label]:.4f} pairs/s, '
+            f'{int(r.valid.sum())}/{B * T} valid, largest gap to the K1L '
+            f'run {dt:.3g} m / {dr:.3g} deg (bound {limit[0]} m / '
+            f'{limit[1]} deg)')
+        if dt > limit[0] or dr > limit[1]:
+            raise AssertionError(f'fleet {label}: pose gap {dt} m / {dr} '
+                                 'deg passes its bound')
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fleet.fleet_icp_odometry(*card2, runs['pallas K1L'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    dev_ms = {e.key: getattr(e, 'self_device_time_total', getattr(
+        e, 'self_cuda_time_total', 0)) / 1e3 for e in rows}
+    total = sum(dev_ms.values())
+    k1l_dev = sum(v for k, v in dev_ms.items() if 'nn_items_kernel' in k)
+    log(f'  profiler over one K1L fleet call: {device_launches(prof)} '
+        f'device launches, {total:.3f} ms of device time in '
+        f'{1e3 * wall:.3f} ms (busy {100 * total / (1e3 * wall):.2f}%), '
+        f'K1L {k1l_dev:.3f} ms'
+        + ('' if total > 0 else ' (no device time recorded: not measured)'))
+    # Two lanes of the K1L run again on the CPU (plain versions).
+    lanes = [0, B - 1]
+    cpu = fleet.fleet_icp_odometry(*(a[lanes].cpu() for a in card2),
+                                   runs['pallas K1L'])
+    cpu_gap = float(np.max(np.abs(cpu.poses.numpy() - res[
+        'pallas K1L'].poses[lanes].cpu().numpy())))
+    log(f'  lanes {lanes} of the K1L run on the CPU: poses within '
+        f'{cpu_gap:.3g}')
+    if cpu_gap > POSE_ATOL:
+        raise AssertionError('fleet K1L: card and CPU runs disagree')
+    graphs, pose_mask = fleet.build_fleet_chain_graphs(
+        res['pallas K1L'].rel_icp, res['pallas K1L'].valid, card[3],
+        torch.full((6,), 0.01, device=dev))
+    scfg = SolverConfig()
+    solve_ms = sync_ms(lambda: fleet.fleet_solve(
+        graphs, res['pallas K1L'].poses, pose_mask, scfg, offchain=1), 3)
+    sol = fleet.fleet_solve(graphs, res['pallas K1L'].poses, pose_mask,
+                            scfg, offchain=1)
+    mid = B // 2
+    one = sv.solve(fg.lane_graph(graphs, mid), res['pallas K1L'].poses[mid],
+                   pose_mask[mid], scfg, offchain=1)
+    lane_gap = float(torch.max(torch.abs(one.poses - sol.poses[mid])))
+    log(f'  fleet_solve of build_fleet_chain_graphs(K1L run), {B} lanes x '
+        f'{T} poses, SolverConfig(): {solve_ms:.3f} ms, error '
+        f'{float(sol.error_initial.sum()):.4g} -> '
+        f'{float(sol.error_final.sum()):.4g}, lane {mid} within '
+        f'{lane_gap:.3g} '
+        f'of its own solve ({smi})')
+    if not (bool(torch.all(torch.isfinite(sol.poses)))
+            and bool(torch.all(sol.error_final
+                               <= sol.error_initial * 1.001 + 1e-6))
+            and lane_gap < POSE_ATOL):
+        raise AssertionError('fleet_solve: bad lanes')
+
+    # (c) The maps (bench.py:1278-1294).
+    jp = card[3]
+    maps = fleet.init_fleet_maps(B, FLEET_MAP_CAP)
+    for t in range(T):
+        maps = fleet.fleet_accumulate(maps, card[0][:, t], card[1][:, t], jp)
+    q0 = card[0][:, 0] + 0.01
+    fleet.fleet_map_query(maps, q0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rep in range(1, FLEET_MAP_REPS + 1):
+        idx_q, d2_q = fleet.fleet_map_query(maps, q0 + 0.001 * rep)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    k1l_launches = nk.nn_indices_lanes.launches
+    k2l_launches = nk.nn_indices_pruned_lanes.launches
+    if (k1l_launches <= 0 or k2l_launches <= 0 or single != (
+            nk.nn_indices.launches, nk.nn_indices_pruned.launches)):
+        raise AssertionError(f'phase 12: K1L {k1l_launches}, K2L '
+                             f'{k2l_launches} launches; K1/K2 launched')
+    qps = B * N * FLEET_MAP_REPS / map_s
+    map_plain_ms = cuda_ms(lambda: nk.nn_indices_lanes_plain(q0, maps.points),
+                           1)
+    map_ms = cuda_ms(lambda: fleet.fleet_map_query(maps, q0), 5)
+    log(f'phase 12 (c) maps: {B} lanes of {FLEET_MAP_CAP}, {T} scans: '
+        f'fleet_map_query {qps:.1f} queries/s through K1L ({map_ms:.4f} '
+        f'ms a call by CUDA events), the plain path on the same maps '
+        f'{map_plain_ms:.4f} ms a call ({B * N * 1e3 / map_plain_ms:.1f} '
+        f'queries/s) ({smi})')
+    maps2 = fleet.fleet_accumulate(maps, card[0][:, 1] + 0.05,
+                                   card[1][:, 1], jp,
+                                   voxel_size_m=FLEET_VOXEL_M)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps2 = fleet.fleet_accumulate(maps2, card[0][:, 2] + 0.05,
+                                   card[1][:, 2], jp,
+                                   voxel_size_m=FLEET_VOXEL_M)
+    torch.cuda.synchronize()
+    over_ms = 1e3 * (time.perf_counter() - t0)
+    cur = maps2.cursor.cpu().numpy()
+    if not (np.array_equal(cur, maps2.mask.sum(-1).cpu().numpy())
+            and np.array_equal(cur, maps2.cursor_bound)
+            and np.all(cur < FLEET_MAP_CAP)):
+        raise AssertionError('fleet_accumulate: overflow not compacted')
+    log(f'  overflow with voxel_size_m={FLEET_VOXEL_M}: {over_ms:.3f} ms '
+        f'(one cursor read, {B} lanes compacted), cursors '
+        f'{cur.min()}-{cur.max()} of {FLEET_MAP_CAP}')
+
+    # Kernel checks of K1L/K2L against their plain versions (not counted).
+    log('K1L nn_indices_lanes and K2L nn_indices_pruned_lanes vs plain:')
+    q_b = se3.apply(card[4][:, 1, None, :], card[0][:, 1]).contiguous()
+    r_b = card[0][:, 0].contiguous()
+    shapes = [('fleet ICP', q_b, r_b), ('map query', q0, maps.points)]
+    g = np.random.default_rng(12)
+    odd_q = torch.tensor((g.normal(size=(5, 1000, 3)) * 5).astype(
+        np.float32), device=dev)
+    odd_r = torch.tensor((g.normal(size=(5, 9001, 3)) * 5).astype(
+        np.float32), device=dev)
+    odd_r[0, 5000:5040] = odd_r[0, 10:50]         # copies, later tile
+    odd_q[0, :40] = odd_r[0, 10:50]
+    odd_r[1, ::3] = pc.SENTINEL                   # parked rows
+    shapes.append(('5 x 1000 x 9001, copies and parked rows', odd_q, odd_r))
+    err1 = 0.0
+    for label, q, r in shapes:
+        d2_k, idx_k = nk.nn_indices_lanes(q, r)
+        d2_p, idx_p = nk.nn_indices_lanes_plain(q, r)
+        err1 = max(err1, check_nn(f'K1L {label}', q.reshape(-1, 3),
+                                  r.reshape(-1, 3), d2_k.reshape(-1),
+                                  idx_k.reshape(-1), d2_p.reshape(-1),
+                                  idx_p.reshape(-1)))
+    if not torch.equal(idx_k[0, :40].cpu(),
+                       torch.arange(10, 50, dtype=torch.int32)):
+        raise AssertionError('K1L: a later copy won')
+    if bool(torch.any(idx_k[1] % 3 == 0)):
+        raise AssertionError('K1L: a parked row won')
+    clusters = g.uniform(-40, 40, size=(4, 16, 3))
+    cl_r = torch.tensor((clusters[:, :, None] + g.normal(
+        size=(4, 16, 1024, 3))).reshape(4, -1, 3), dtype=torch.float32,
+        device=dev)
+    cl_q = torch.tensor((clusters[:, :4, None] + g.normal(
+        size=(4, 4, 512, 3))).reshape(4, -1, 3), dtype=torch.float32,
+        device=dev)
+    err2 = 0.0
+    for label, q, r in [shapes[0], shapes[2],
+                        ('4 clustered lanes, 2048 x 16384', cl_q, cl_r)]:
+        pref = nk.build_pruned_ref_lanes(r)
+        d2_k, idx_k = nk.nn_indices_pruned_lanes(q, pref, CUTOFF)
+        d2_p, idx_p = nk.nn_indices_pruned_lanes_plain(q, pref, CUTOFF)
+        torch.cuda.synchronize()
+        inside = d2_p <= CUTOFF ** 2
+        if bool(torch.any(d2_k[~inside] <= CUTOFF ** 2)):
+            raise AssertionError(f'K2L {label}: beyond-cutoff query within')
+        err2 = max(err2, check_nn(
+            f'K2L {label}', q[inside], torch.cat(list(pref.points)),
+            d2_k[inside], (idx_k + pref.points.shape[1] * torch.arange(
+                q.shape[0], device=dev)[:, None])[inside], d2_p[inside],
+            (idx_p + pref.points.shape[1] * torch.arange(
+                q.shape[0], device=dev)[:, None])[inside], ties=True))
+    # The clustered lanes are where K2L must skip tiles: at the fleet's
+    # shape one reference tile holds a lane's 4096 points, so a K2L that
+    # scans every pair would pass every other check.
+    pref = nk.build_pruned_ref_lanes(cl_r)
+    tables = nk.pruned_tables_lanes(cl_q, pref, CUTOFF)
+    scanned = torch.zeros(tables[2].shape[:-1], dtype=torch.int32,
+                          device=dev)
+    nk._launch_pruned(tables, pref, CUTOFF, scanned=scanned)
+    cl_share = int(scanned.sum()) * tables[4] / (
+        cl_q.shape[0] * cl_q.shape[1] * cl_r.shape[1])
+    log(f'  K2L on the 4 clustered lanes scanned {cl_share:.4f} of the '
+        f'pairs')
+    if not cl_share < 1.0:
+        raise AssertionError(f'K2L skipped nothing on clustered lanes '
+                             f'(scanned share {cl_share})')
+
+    # Times at the fleet ICP's shape.
+    pairs = B * N * N
+    k1l_ms = cuda_ms(lambda: nk.nn_indices_lanes(q_b, r_b), 20)
+    k1l_plain = cuda_ms(lambda: nk.nn_indices_lanes_plain(q_b, r_b), 2)
+    # cdist's exact direct path (the single-lane yardstick) refuses a
+    # batch of 256 lanes (cudaErrorInvalidConfiguration); its matmul path
+    # computes the same function up to the expansion's rounding.
+    lib_call = ('torch.cdist(compute_mode=use_mm_for_euclid_dist)'
+                '.min(-1) over the lane batch')
+    lib_ms = cuda_ms(lambda: torch.cdist(
+        q_b, r_b, compute_mode='use_mm_for_euclid_dist').min(-1), 2)
+    k1l_bound = bound(pairs, INSTR_EXACT, nn_bytes(B * N, B * N))
+    pref = nk.build_pruned_ref_lanes(r_b)
+    k2l_ms = cuda_ms(lambda: nk.nn_indices_pruned_lanes(q_b, pref, CUTOFF),
+                     20)
+    tables = nk.pruned_tables_lanes(q_b, pref, CUTOFF)
+    k2l_kernel = cuda_ms(lambda: nk._launch_pruned(tables, pref, CUTOFF), 20)
+    k2l_plain = cuda_ms(lambda: nk.nn_indices_pruned_lanes_plain(
+        q_b, pref, CUTOFF), 1)
+    qb = tables[4]
+    shares = []
+    for _ in range(5):
+        scanned = torch.zeros(tables[2].shape[:-1], dtype=torch.int32,
+                              device=dev)
+        nk._launch_pruned(tables, pref, CUTOFF, scanned=scanned)
+        shares.append(int(scanned.sum()) * qb / pairs)
+    k2l_bound = bound(min(shares) * pairs, INSTR_EXACT,
+                      nn_bytes(B * N, B * N))
+    log(f'  times at {B} lanes x {N} x {N} ({smi}): K1L {k1l_ms:.4f} ms '
+        f'(bound {k1l_bound[0]:.4f}, by {k1l_bound[1]}), plain '
+        f'{k1l_plain:.4f} ms, library ({lib_call}) {lib_ms:.4f} ms; K2L '
+        f'with its tables {k2l_ms:.4f} ms, alone {k2l_kernel:.4f} ms, '
+        f'scanning {", ".join(f"{x:.4f}" for x in shares)} of the pairs '
+        f'(bound {k2l_bound[0]:.4f}), plain {k2l_plain:.4f} ms')
+    log(f'phase 12 took {time.perf_counter() - t_phase:.1f} s')
+    src = 'laser_slam_tpu_torch/csrc/nn.cu'
+    return [
+        dict(name='K1L nn_indices_lanes', route='cuda', source=src,
+             replaces='laser_slam_tpu/ops/pallas_nn.py:68',
+             launches=k1l_launches, max_abs_err=err1, ms=k1l_ms,
+             plain_ms=k1l_plain, bound_ms=k1l_bound[0],
+             bound_by=k1l_bound[1], library_ms=lib_ms, library=lib_call,
+             map_query_ms=map_ms, map_query_plain_ms=map_plain_ms),
+        dict(name='K2L nn_indices_pruned_lanes', route='cuda', source=src,
+             replaces='laser_slam_tpu/ops/pallas_nn.py:262',
+             launches=k2l_launches, max_abs_err=err2, ms=k2l_ms,
+             kernel_ms=k2l_kernel, scanned_share=float(np.mean(shares)),
+             bound_share=min(shares), clustered_scanned_share=cl_share,
+             plain_ms=k2l_plain,
+             bound_ms=k2l_bound[0], bound_by=k2l_bound[1],
+             library_ms=lib_ms, library=lib_call + ' (the cutoff is a '
+             'where)')]
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: chip_smoke.py runs on a GPU')
@@ -2103,6 +2534,10 @@ def main():
     kernels['K2']['launches_host_api'] = host['k2_launches']
     log(f'phase 11 took {time.perf_counter() - t0:.1f} s')
 
+    # 12. Fleet mode and batched serving (slice 6) ------------------------
+    elapsed(12)
+    lane_records = fleet_phase(nk, smi, bound, nn_bytes)
+
     # Records ----------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'
     record = {'kernels': [
@@ -2120,7 +2555,7 @@ def main():
              bound_ms=bounds[key][0], bound_by=bounds[key][1],
              library_ms=shoot_row[key]['library_ms'],
              library=shoot_row[key]['library'], **extra.get(key, {}))
-        for key in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6')]}
+        for key in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6')] + lane_records}
     print(f'E3 sweep at {SHOOT_Q} x {SHOOT_R}: {json.dumps(sweep_line)}',
           flush=True)
     print(smi, flush=True)

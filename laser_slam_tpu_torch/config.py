@@ -647,3 +647,22 @@ def multirobot_config(scan_capacity: int = 16384, store_capacity: int = 16384,
                             normal_image_cols, **production_kw)
     return dataclasses.replace(cfg, laser_track=dataclasses.replace(
         cfg.laser_track, force_priors=True))
+
+
+def serving_icp_config(reading_capacity: int = 8192) -> IcpConfig:
+    """The batched serving path's ICP (``parallel/fleet.batched_icp``
+    behind the README's "scan-pairs/s, batched x32"; bench.py:445-449):
+    projective matching with the cross window, a 512-point coarse phase
+    and 4 Gauss-Newton steps per correspondence search."""
+    return IcpConfig(matcher='projective', reading_capacity=reading_capacity,
+                     reading_sampling_ratio=1.0, range_image_window='cross',
+                     coarse_capacity=512, gn_steps_per_match=4)
+
+
+def fleet_icp_config(n: int = 4096) -> IcpConfig:
+    """The fleet's scan-to-scan ICP (``parallel/fleet.
+    fleet_icp_odometry`` behind the README's "256 parallel scan-to-scan
+    registrations"; bench.py:1230-1231): exact brute-force matching at
+    ``n`` points a scan, 8 iterations."""
+    return IcpConfig(matcher='brute', reading_capacity=n,
+                     reading_sampling_ratio=1.0, max_iterations=8)

@@ -28,6 +28,9 @@ What the JAX files have no field for is rebuilt at load from the file:
 the runner's off-chain count from its factor keys, the device maps' host
 cursor bounds from their cursors.  The closure solver's Woodbury cache is
 left empty and rebuilt at the next closure, as JAX's loader leaves it.
+Older online files of the same format version load as in JAX's loader:
+an archive without its per-track index gets it rebuilt from its track
+column, and single-map ``ml_``/``md_`` keys become track 0's maps.
 """
 
 from __future__ import annotations
@@ -164,6 +167,24 @@ def _offchain_count(rel_keys: np.ndarray, n_rel: int,
     return int(np.count_nonzero(off))
 
 
+def _track_index(track: np.ndarray, n_tracks: int) -> dict:
+    """The archive's per-track index (``track_pos``, ``track_keys``,
+    ``track_count``) rebuilt from its track column, for files written
+    before the archive kept it: keys were appended in ascending global
+    order (laser_slam_tpu/core/checkpoint.py:144-160)."""
+    A = len(track)
+    tpos = np.zeros((A,), np.int32)
+    tkeys = np.full((n_tracks, A), -1, np.int32)
+    counts = np.zeros((n_tracks,), np.int32)
+    for k, t in enumerate(int(t) for t in track):
+        if t < 0:
+            continue
+        tpos[k] = counts[t]
+        tkeys[t, counts[t]] = k
+        counts[t] += 1
+    return dict(track_pos=tpos, track_keys=tkeys, track_count=counts)
+
+
 def load_online_checkpoint(path: str, config, map_config=None,
                            place_recognition=None, device='cuda'):
     """Rebuild an ``OnlineRunner`` from a file of
@@ -185,10 +206,7 @@ def _runner_from(z, config, map_config, place_recognition, device):
         raise ValueError(
             f'unsupported online checkpoint format version {version} '
             f'(this build reads version {_ONLINE_FORMAT_VERSION})')
-    has_maps = 'ml0_points' in z
-    if 'ml_points' in z or ('a_points' in z and 'a_track_pos' not in z):
-        raise ValueError('checkpoint predates the per-track archive index '
-                         'and maps; the port reads the current format only')
+    has_maps = 'ml0_points' in z or 'ml_points' in z
     if has_maps and map_config is None:
         raise ValueError(
             'checkpoint contains device-map state but map_config is None; '
@@ -217,18 +235,25 @@ def _runner_from(z, config, map_config, place_recognition, device):
     runner.state = online.state_from_numpy(
         {name: z['s_' + name] for name in online.OnlineState._fields}, dev)
     if 'a_points' in z:
-        runner.archive = online.archive_from_numpy(
-            {name: z['a_' + name] for name in online.ScanArchive._fields},
-            dev)
+        leaves = {name: z['a_' + name] for name in online.ScanArchive._fields
+                  if 'a_' + name in z}
+        if 'track_pos' not in leaves:
+            leaves.update(_track_index(z['a_track'], n_tracks))
+        runner.archive = online.archive_from_numpy(leaves, dev)
     if has_maps:
-        for t in range(int(z['mapper_n_tracks'])):
-            for pre, maps in ((f'ml{t}_', runner.mapper.local_maps),
-                              (f'md{t}_', runner.mapper.distant_maps)):
+        for t in range(int(z['mapper_n_tracks'])
+                       if 'mapper_n_tracks' in z else 1):
+            # 'ml_'/'md_' (no index) is the single-map format; it maps
+            # onto track 0 (laser_slam_tpu/core/checkpoint.py:178-181).
+            lp = f'ml{t}_' if f'ml{t}_points' in z else 'ml_'
+            dp = f'md{t}_' if f'md{t}_points' in z else 'md_'
+            for pre, maps in ((lp, runner.mapper.local_maps),
+                              (dp, runner.mapper.distant_maps)):
                 maps[t] = device_map.MapState(**{
                     name: torch.as_tensor(np.array(z[pre + name]),
                                           device=dev)
                     for name in device_map.MapState._fields})
-            runner.mapper._cursor_bound[t] = int(z[f'ml{t}_cursor'])
+            runner.mapper._cursor_bound[t] = int(z[lp + 'cursor'])
     if 'pr_db' in z:
         runner.detector.db = torch.as_tensor(np.array(z['pr_db']),
                                              device=dev)

@@ -9,6 +9,10 @@
 // K2  nn_items_kernel<true>   replaces laser_slam_tpu/ops/pallas_nn.py
 //                             _nn_pruned_kernel (wrapper
 //                             nn_indices_pruned).
+// K1L, K2L: the same kernels over a lane axis (wrappers
+// nn_indices_lanes, nn_indices_pruned_lanes), which is what the JAX
+// package's fleet runs under vmap: B independent (queries, reference)
+// problems in one launch.
 // nn_unpack_kernel (csrc/nn_common.cuh, with the helpers that E2/E3's
 // item kernel in csrc/nn_variants.cu shares) writes both kernels' (d2,
 // idx) from the merged keys, in the original query order for K2.
@@ -57,6 +61,13 @@
 //     16 bytes (x, y, z, pad), filled with cp.async (4-byte copies: the
 //     [R,3] rows are 12 bytes and need no alignment beyond 4) two chunks
 //     ahead of the scan, one barrier a chunk.
+//   * Lanes.  Lane b reads queries q + 3*b*Q and reference ref + 3*b*R
+//     and merges into keys + b*Q; the item counter follows all B*Q keys.
+//     A flat query tile t = b*nQt + i numbers the lanes' tiles one after
+//     the other, and items stay rank-major over them (item = j * B*nQt +
+//     t), so every lane's nearest tiles come before anyone's second.  K2's
+//     order and lb rows are [B*nQt, nR]: row t.  One lane is the single
+//     problem above, item for item.
 //   * Grids on 132 SMs.  K1: 2 groups (128 threads), one block an item;
 //     at 8192 x 81920 that is 32 x 20 = 640 items, 4.85 per SM, all
 //     resident at once (12 KB of shared memory and <= 64 registers a
@@ -90,14 +101,16 @@
 // (i, j) scans tile order[i][j] (rows order*rt .. +rt of the sorted
 // reference) unless its bound lb[i][j] lets it skip.  keys[Q] is the
 // item counter; scanned[i] (K2, optional) counts the reference points
-// scanned for query tile i.
+// scanned for query tile i.  Over lanes Q and R are per lane, nQt the
+// query tiles of one lane and nT = lanes * nQt; i above is the tile
+// within its lane and order, lb and scanned are indexed by the flat tile.
 template <bool PRUNED, int GROUPS>
 __global__ void __launch_bounds__(GROUPS * NN_GROUP,
                                   1024 / (GROUPS * NN_GROUP))
 nn_items_kernel(const float* __restrict__ q, const float* __restrict__ ref,
-                int Q, int R, int qt, int rt, int nQt, int n_items,
+                int Q, int R, int qt, int rt, int nQt, int nT, int n_items,
                 const int* __restrict__ order, const float* __restrict__ lb,
-                int nR, float cutoff2, u64* keys,
+                int nR, float cutoff2, u64* keys_all,
                 int* __restrict__ scanned) {
   constexpr int NT = GROUPS * NN_GROUP;
   constexpr int CHUNK = GROUPS * NN_SPAN;
@@ -107,7 +120,7 @@ nn_items_kernel(const float* __restrict__ q, const float* __restrict__ ref,
   const int t = threadIdx.x;
   const int group = t / NN_GROUP;
   const int lane = t % NN_GROUP;
-  u64* next_item = keys + Q;
+  u64* next_item = keys_all + (size_t)(nT / nQt) * Q;
 
   for (;;) {
     __syncthreads();                     // the last item's shared state is free
@@ -118,21 +131,26 @@ nn_items_kernel(const float* __restrict__ q, const float* __restrict__ ref,
     __syncthreads();
     const int item = s_item;
     if (item >= n_items) return;
-    const int i = item % nQt;            // query tile
-    const int j = item / nQt;            // rank (K2) or reference tile (K1)
+    const int tile = item % nT;          // flat query tile
+    const int j = item / nT;             // rank (K2) or reference tile (K1)
+    const int b = tile / nQt;            // lane
+    const int i = tile % nQt;            // query tile within the lane
+    const float* __restrict__ qb = q + 3 * (size_t)b * Q;
+    const float* __restrict__ refb = ref + 3 * (size_t)b * R;
+    u64* keys = keys_all + (size_t)b * Q;
 
     int first, n;
     if (PRUNED) {
-      const float bound = lb[(size_t)i * nR + j];
+      const float bound = lb[(size_t)tile * nR + j];
       if (!(bound < cutoff2)) continue;
       float m = -INFINITY;
       for (int s = t; s < qt; s += NT)
         m = fmaxf(m, key_d2(__ldcg(keys + (size_t)i * qt + s)));
       m = block_max<NT>(m, s_warp);
       if (!(bound < m)) continue;
-      first = order[(size_t)i * nR + j] * rt;
+      first = order[(size_t)tile * nR + j] * rt;
       n = rt;
-      if (scanned != nullptr && t == 0) atomicAdd(scanned + i, n);
+      if (scanned != nullptr && t == 0) atomicAdd(scanned + tile, n);
     } else {
       first = j * rt;
       n = min(rt, R - first);
@@ -145,9 +163,9 @@ nn_items_kernel(const float* __restrict__ q, const float* __restrict__ ref,
       const int slot = lane + u * NN_GROUP;
       qi[u] = slot < qt ? min(i * qt + slot, Q) : Q;   // Q: no query
       const size_t row = 3 * (size_t)(qi[u] < Q ? qi[u] : 0);
-      qx[u] = q[row];
-      qy[u] = q[row + 1];
-      qz[u] = q[row + 2];
+      qx[u] = qb[row];
+      qy[u] = qb[row + 1];
+      qz[u] = qb[row + 2];
       best[u] = INFINITY;
       published[u] = INFINITY;
       best_i[u] = 0;
@@ -157,7 +175,7 @@ nn_items_kernel(const float* __restrict__ q, const float* __restrict__ ref,
 #pragma unroll
     for (int s = 0; s < NN_STAGES - 1; ++s) {
       if (s < nchunks)
-        stage_chunk<NT>(ring + s * CHUNK, ref, (size_t)first + s * CHUNK,
+        stage_chunk<NT>(ring + s * CHUNK, refb, (size_t)first + s * CHUNK,
                         min(CHUNK, n - s * CHUNK));
       cp_async_commit();
     }
@@ -166,7 +184,7 @@ nn_items_kernel(const float* __restrict__ q, const float* __restrict__ ref,
       __syncthreads();                   // ... for every thread; c-1 is free
       const int ahead = c + NN_STAGES - 1;
       if (ahead < nchunks)
-        stage_chunk<NT>(ring + (ahead % NN_STAGES) * CHUNK, ref,
+        stage_chunk<NT>(ring + (ahead % NN_STAGES) * CHUNK, refb,
                         (size_t)first + ahead * CHUNK,
                         min(CHUNK, n - ahead * CHUNK));
       cp_async_commit();
@@ -183,7 +201,7 @@ nn_items_kernel(const float* __restrict__ q, const float* __restrict__ ref,
 template <bool PRUNED, int GROUPS>
 static cudaError_t launch_items(int grid, const float* q, const float* ref,
                                 int Q, int R, int qt, int rt, int nQt,
-                                int n_items, const int* order,
+                                int nT, int n_items, const int* order,
                                 const float* lb, int nR, float cutoff2,
                                 u64* keys, int* scanned,
                                 cudaStream_t stream) {
@@ -195,27 +213,67 @@ static cudaError_t launch_items(int grid, const float* q, const float* ref,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   nn_items_kernel<PRUNED, GROUPS><<<grid, GROUPS * NN_GROUP, smem, stream>>>(
-      q, ref, Q, R, qt, rt, nQt, n_items, order, lb, nR, cutoff2, keys,
+      q, ref, Q, R, qt, rt, nQt, nT, n_items, order, lb, nR, cutoff2, keys,
       scanned);
   return cudaGetLastError();
 }
 
 extern "C" {
 
-// K1.  keys: Q + 1 entries filled with NN_INIT_KEY.
-int lsl_nn_indices(const float* q, const float* ref, int Q, int R,
-                   u64* keys, float* d2_out, int* idx_out, int device,
-                   void* stream) {
+// K1 over lanes: q [lanes, Q, 3], ref [lanes, R, 3]; keys: lanes*Q + 1
+// entries filled with NN_INIT_KEY; d2_out, idx_out [lanes, Q].
+int lsl_nn_indices_lanes(const float* q, const float* ref, int lanes, int Q,
+                         int R, u64* keys, float* d2_out, int* idx_out,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   const int nQt = (Q + NN_QT - 1) / NN_QT;
-  const int n_items = nQt * ((R + NN_K1_RT - 1) / NN_K1_RT);
+  const int nT = lanes * nQt;
+  const int n_items = nT * ((R + NN_K1_RT - 1) / NN_K1_RT);
   err = launch_items<false, NN_K1_GROUPS>(
-      n_items, q, ref, Q, R, NN_QT, NN_K1_RT, nQt, n_items, nullptr,
+      n_items, q, ref, Q, R, NN_QT, NN_K1_RT, nQt, nT, n_items, nullptr,
       nullptr, 0, 0.f, keys, nullptr, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_unpack(keys, Q, nullptr, d2_out, idx_out, s);
+  return (int)launch_unpack(keys, lanes * Q, nullptr, d2_out, idx_out, s);
+}
+
+// K1.  keys: Q + 1 entries filled with NN_INIT_KEY.
+int lsl_nn_indices(const float* q, const float* ref, int Q, int R,
+                   u64* keys, float* d2_out, int* idx_out, int device,
+                   void* stream) {
+  return lsl_nn_indices_lanes(q, ref, 1, Q, R, keys, d2_out, idx_out,
+                              device, stream);
+}
+
+// K2 over lanes.  Each lane holds Q = nQ * qb Morton-sorted queries
+// (q_sorted [lanes, Q, 3]) and its sorted reference (ref_sorted [lanes,
+// nR*rb, 3]); order, lb: [lanes, nQ, nR]; qperm [lanes*Q] int64 (sorted
+// row -> original row of the flat [lanes*Q] output); keys: lanes*Q + 1
+// entries filled with NN_INIT_KEY; scanned: [lanes*nQ] zeros, or null.
+int lsl_nn_indices_pruned_lanes(const float* q_sorted,
+                                const float* ref_sorted, const int* order,
+                                const float* lb, const long long* qperm,
+                                int lanes, int Q, int qb, int rb, int nR,
+                                float cutoff2, u64* keys, int* scanned,
+                                float* d2_out, int* idx_out, int device,
+                                void* stream) {
+  if (qb < 1 || qb > NN_QT || Q % qb != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int nQ = Q / qb;
+  const int nT = lanes * nQ;
+  const int n_items = nT * nR;
+  const int grid = min(n_items, NN_K2_BLOCKS_PER_SM * n_sm);
+  err = launch_items<true, NN_K2_GROUPS>(
+      grid, q_sorted, ref_sorted, Q, nR * rb, qb, rb, nQ, nT, n_items, order,
+      lb, nR, cutoff2, keys, scanned, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_unpack(keys, lanes * Q, qperm, d2_out, idx_out, s);
 }
 
 // K2.  Q = nQ * qb Morton-sorted queries; order, lb: [nQ, nR]; qperm
@@ -227,21 +285,10 @@ int lsl_nn_indices_pruned(const float* q_sorted, const float* ref_sorted,
                           int nR, float cutoff2, u64* keys, int* scanned,
                           float* d2_out, int* idx_out, int device,
                           void* stream) {
-  if (qb < 1 || qb > NN_QT || Q % qb != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  int n_sm = 0;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int nQ = Q / qb;
-  const int n_items = nQ * nR;
-  const int grid = min(n_items, NN_K2_BLOCKS_PER_SM * n_sm);
-  err = launch_items<true, NN_K2_GROUPS>(
-      grid, q_sorted, ref_sorted, Q, nR * rb, qb, rb, nQ, n_items, order, lb,
-      nR, cutoff2, keys, scanned, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_unpack(keys, Q, qperm, d2_out, idx_out, s);
+  return lsl_nn_indices_pruned_lanes(q_sorted, ref_sorted, order, lb, qperm,
+                                     1, Q, qb, rb, nR, cutoff2, keys,
+                                     scanned, d2_out, idx_out, device,
+                                     stream);
 }
 
 }  // extern "C"

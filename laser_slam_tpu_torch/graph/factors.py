@@ -202,3 +202,72 @@ class HostGraph:
             prior_sqrt_info=up(self.prior_sqrt_info[:pcap]),
             prior_weight=up(self.prior_weight[:pcap]),
         )
+
+
+# ---------------------------------------------------------------------------
+# Lanes: B graphs of one shape (the fleet, parallel/fleet.py)
+# ---------------------------------------------------------------------------
+
+def lane_graph(graphs: FactorGraphData, b: int) -> FactorGraphData:
+    """Lane b of a lane-axis graph."""
+    return FactorGraphData(*(leaf[b] for leaf in graphs))
+
+
+def join_lanes(graphs: FactorGraphData, n_poses: int) -> FactorGraphData:
+    """One graph over ``B * n_poses`` poses from a lane-axis graph (every
+    field [B, ...]): lane b's factors follow lane b-1's, its pose keys
+    offset by ``b * n_poses``.  The joined Hessian is block-diagonal
+    across lanes, and lane b keeps its factor slots contiguous, so
+    per-lane sums are reshapes (graph/solver.py ``lanes``)."""
+    B = graphs.rel_meas.shape[0]
+    offset = n_poses * torch.arange(B, dtype=torch.int32,
+                                    device=graphs.rel_keys.device)
+
+    def flat(a):
+        return a.reshape((-1,) + a.shape[2:])
+
+    return FactorGraphData(
+        rel_meas=flat(graphs.rel_meas),
+        rel_keys=flat(graphs.rel_keys + offset[:, None, None]),
+        rel_sqrt_info=flat(graphs.rel_sqrt_info),
+        rel_robust=flat(graphs.rel_robust),
+        rel_fixed_a=flat(graphs.rel_fixed_a),
+        rel_weight=flat(graphs.rel_weight),
+        prior_meas=flat(graphs.prior_meas),
+        prior_keys=flat(graphs.prior_keys + offset[:, None]),
+        prior_sqrt_info=flat(graphs.prior_sqrt_info),
+        prior_weight=flat(graphs.prior_weight))
+
+
+def build_fleet_chain_graphs(rel_meas, rel_valid, first_poses, odo_sigmas,
+                             prior_sigma: float = 1e-7):
+    """Batched chain graphs from fleet odometry output (the JAX package's
+    ``parallel/fleet.py`` function of the same name).
+
+    rel_meas: [B,T,7] ICP relative transforms (entry 0 ignored)
+    rel_valid: [B,T] — invalid steps get weight 0 (odometry-only fallback,
+        mirroring the reference's convergence-failure semantics)
+    first_poses: [B,7] prior measurement per lane
+    Returns (FactorGraphData with leading B axis, pose_mask [B,T]).
+    """
+    B, T, _ = rel_meas.shape
+    F = T - 1
+    dev = rel_meas.device
+    keys = torch.stack([torch.arange(F, device=dev),
+                        torch.arange(1, T, device=dev)], dim=-1)
+    sigmas = torch.as_tensor(odo_sigmas, dtype=torch.float32, device=dev)
+    graphs = FactorGraphData(
+        rel_meas=rel_meas[:, 1:],
+        rel_keys=keys.to(torch.int32).expand(B, F, 2).contiguous(),
+        rel_sqrt_info=(1.0 / sigmas).expand(B, F, 6).contiguous(),
+        rel_robust=torch.zeros((B, F), dtype=torch.bool, device=dev),
+        rel_fixed_a=torch.zeros((B, F), dtype=torch.bool, device=dev),
+        rel_weight=rel_valid[:, 1:].to(torch.float32),
+        prior_meas=first_poses[:, None, :],
+        prior_keys=torch.zeros((B, 1), dtype=torch.int32, device=dev),
+        prior_sqrt_info=torch.full((B, 1, 6), 1.0 / prior_sigma,
+                                   dtype=torch.float32, device=dev),
+        prior_weight=torch.ones((B, 1), dtype=torch.float32, device=dev),
+    )
+    pose_mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+    return graphs, pose_mask

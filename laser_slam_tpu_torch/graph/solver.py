@@ -29,10 +29,25 @@ all K x 6 directions as one batched PCG; the exact path factors the
 Hessian densely in float64 with torch where JAX calls scipy's sparse LU.
 Not ported: the delta closure solve ``solve_closure_cached`` and
 ``marginal_covariance_cached`` (ROADMAP, "Do not port").
+
+Lanes (:func:`solve_lanes`, JAX's ``vmap(solve)`` in the fleet): B
+graphs of one shape are joined into one graph whose pose keys are offset
+by ``lane * T``, so every linearization, matvec and preconditioner runs
+once for the fleet; the Hessian is block-diagonal across lanes.  What
+``vmap`` keeps per lane stays per lane: PCG's dot products, step sizes
+and stop; the GN early-out; the error sums; the off-chain selection of
+the 'chain' matvec and the Woodbury preconditioner (``offchain_capacity``
+factors a lane); every factorization.  The cyclic reduction runs on a
+[lanes, T] block axis with its own padding and dense root a lane, the
+Woodbury capacitance is one [6L,6L] matrix a lane, the dense method one
+[6T,6T] system a lane, and the chain matvec shifts within a lane, so a
+lane whose factorization fails (NaN, not positive definite) leaves every
+other lane as its own solve would.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -125,10 +140,11 @@ class _LinearizedGraph(NamedTuple):
     w_prior: torch.Tensor   # [P]
     prior_keys: torch.Tensor  # [P] int64
     free: torch.Tensor      # [N] f32: 1 for optimizable poses, 0 frozen/invalid
+    lanes: int = 1          # equal lanes joined along N and F (solve_lanes)
 
 
 def _linearize(graph: FactorGraphData, poses, pose_mask,
-               cauchy_k) -> _LinearizedGraph:
+               cauchy_k, lanes: int = 1) -> _LinearizedGraph:
     keys = graph.rel_keys.long()
     T_a = poses[keys[:, 0]]
     T_b = poses[keys[:, 1]]
@@ -150,7 +166,7 @@ def _linearize(graph: FactorGraphData, poses, pose_mask,
     Jp_w = Jp * sp[:, :, None]
     wp = graph.prior_weight
     return _LinearizedGraph(Ja_w, Jb_w, r_w, w, keys, Jp_w, rp_w, wp, pkeys,
-                            _free(graph, poses, pose_mask))
+                            _free(graph, poses, pose_mask), lanes)
 
 
 def _free(graph: FactorGraphData, poses, pose_mask):
@@ -207,25 +223,35 @@ def _offchain_mask(lin: _LinearizedGraph):
     return (lin.w_rel > 0) & ~_chain_mask(lin) & touches_free
 
 
-def _first_true_indices(flags, L: int):
+def _first_true_indices(flags, L: int, lanes: int = 1):
     """Indices [L] of the first L True entries of ``flags`` (in index
     order) plus a validity mask.  Slots beyond the True count hold the
     out-of-bounds sentinel F (JAX writes them with ``mode='drop'``; here
-    they land in an overflow row that is cut off)."""
+    they land in an overflow row that is cut off).  With ``lanes`` equal
+    lanes of flags, the first L of each lane: [lanes * L] slots."""
     F = flags.shape[0]
-    pos = torch.cumsum(flags, dim=0) - 1          # rank among True entries
-    dest = torch.where(flags & (pos < L), pos, torch.full_like(pos, L))
-    sel = torch.full((L + 1,), F, dtype=torch.int64, device=flags.device)
+    lane_flags = flags.reshape(lanes, -1)
+    pos = torch.cumsum(lane_flags, dim=1) - 1     # rank among True entries
+    slot = pos + L * torch.arange(lanes, device=flags.device)[:, None]
+    dest = torch.where(lane_flags & (pos < L), slot,
+                       torch.full_like(pos, lanes * L)).reshape(-1)
+    sel = torch.full((lanes * L + 1,), F, dtype=torch.int64,
+                     device=flags.device)
     sel[dest] = torch.arange(F, device=flags.device)
-    sel = sel[:L]
+    sel = sel[:lanes * L]
     return sel, sel < F
 
 
+def _lane_capacity(lin: _LinearizedGraph, capacity: int) -> int:
+    """Off-chain slots a lane: ``capacity``, at most the lane's factors."""
+    return min(capacity, lin.keys.shape[0] // lin.lanes)
+
+
 def _select_offchain(lin: _LinearizedGraph, capacity: int):
-    """Indices [L] of up to ``capacity`` active off-chain factors, plus a
-    validity mask (False slots are padding)."""
-    L = min(capacity, lin.keys.shape[0])
-    return _first_true_indices(_offchain_mask(lin), L)
+    """Indices of up to ``capacity`` active off-chain factors a lane,
+    plus a validity mask (False slots are padding)."""
+    return _first_true_indices(_offchain_mask(lin),
+                               _lane_capacity(lin, capacity), lin.lanes)
 
 
 def _without(lin: _LinearizedGraph, sel, valid):
@@ -240,8 +266,11 @@ def _without(lin: _LinearizedGraph, sel, valid):
 def _offchain_blocks(lin: _LinearizedGraph, sel, valid):
     """Per-selected-factor U blocks: Ua/Ub [L,6(state),6(col)] with weight
     and free-gating folded in, plus their pose keys.  Padding slots gather
-    a clamped row and get zero blocks."""
-    sc = torch.clamp(sel, max=lin.keys.shape[0] - 1)
+    their lane's last factor and get zero blocks."""
+    F = lin.keys.shape[0]
+    lane = torch.arange(sel.shape[0], device=sel.device) // max(
+        sel.shape[0] // lin.lanes, 1)
+    sc = torch.where(sel < F, sel, (lane + 1) * (F // lin.lanes) - 1)
     sw = torch.sqrt(lin.w_rel[sc] * valid)[:, None, None]
     ka = lin.keys[sc, 0]
     kb = lin.keys[sc, 1]
@@ -264,19 +293,20 @@ def _make_matvec(lin: _LinearizedGraph, damping, config, offchain=None):
     chain form when it fits, the scatter form otherwise.  The two forms
     are the same operator, so a bound above the true count changes only
     the rounding.  Without ``offchain`` the count is read back (one sync
-    per linearization), which a direct call may accept.
+    per linearization), which a direct call may accept.  Over lanes the
+    count and the capacity are a lane's: the largest lane decides.
     """
     if getattr(config, 'matvec', 'chain') != 'chain':
         return lambda x: _hessian_matvec(lin, x, damping)
 
-    F = lin.keys.shape[0]
-    L = min(config.offchain_capacity, F)
+    L = _lane_capacity(lin, config.offchain_capacity)
     off = _offchain_mask(lin)
     if offchain is None:
-        offchain = int(torch.sum(off))
+        offchain = int(torch.amax(torch.sum(off.reshape(lin.lanes, -1),
+                                            dim=1)))
     if offchain > L:
         return lambda x: _hessian_matvec(lin, x, damping)
-    sel, valid = _first_true_indices(off, L)
+    sel, valid = _first_true_indices(off, L, lin.lanes)
     # T excludes the selected off-chain factors entirely; their diagonal
     # AND coupling ride in U U^T (exact, no boost).
     B, A = _build_tridiag(lin, damping, w_scale=_without(lin, sel, valid),
@@ -287,9 +317,12 @@ def _make_matvec(lin: _LinearizedGraph, damping, config, offchain=None):
     A_up = torch.cat([A[1:].transpose(-1, -2), zero])
 
     def mv_chain(x):
-        zrow = torch.zeros((1,) + x.shape[1:], dtype=x.dtype, device=x.device)
-        x_prev = torch.cat([zrow, x[:-1]])
-        x_next = torch.cat([x[1:], zrow])
+        # Shift within each lane: no row reads its neighbour lane.
+        xl = x.reshape((lin.lanes, -1) + x.shape[1:])
+        zrow = torch.zeros((lin.lanes, 1) + x.shape[1:], dtype=x.dtype,
+                           device=x.device)
+        x_prev = torch.cat([zrow, xl[:, :-1]], dim=1).reshape(x.shape)
+        x_next = torch.cat([xl[:, 1:], zrow], dim=1).reshape(x.shape)
         y = (torch.einsum('nij,nj...->ni...', B, x)
              + torch.einsum('nij,nj...->ni...', A, x_prev)
              + torch.einsum('nij,nj...->ni...', A_up, x_next))
@@ -428,38 +461,42 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def _tridiag_factor(B, A, stop=None):
+def _tridiag_factor(B, A, stop=None, lanes: int = 1):
     """Cyclic-reduction factorization of an SPD block-tridiagonal system.
 
     B: [N,6,6] diagonal blocks; A: [N,6,6] sub-diagonal (A[0] ignored).
-    N is padded to a power of two with decoupled identity blocks.  Returns
-    ``(levels, root_inv)`` for :func:`_tridiag_apply`; ``root_inv`` is the
-    dense inverse of the final <= ``stop``-block system.
+    ``lanes`` equal lanes joined along N are factored apart ([lanes, n]
+    blocks; JAX's ``vmap``), each padded to a power of two with decoupled
+    identity blocks.  Returns ``(levels, root_inv)`` for
+    :func:`_tridiag_apply`; ``root_inv`` [lanes, 6m, 6m] is each lane's
+    dense inverse of its final <= ``stop``-block system.
     """
     if stop is None:
         stop = _CR_STOP
-    n0 = B.shape[0]
+    B = B.reshape((lanes, -1, 6, 6))
+    A = A.reshape((lanes, -1, 6, 6))
+    n0 = B.shape[1]
     n = _next_pow2(n0)
     eye = _eye6(B)
     if n != n0:
         pad = n - n0
-        B = torch.cat([B, eye.expand(pad, 6, 6)])
-        A = torch.cat([A, torch.zeros((pad, 6, 6), dtype=A.dtype,
-                                      device=A.device)])
-    zero = torch.zeros((1, 6, 6), dtype=B.dtype, device=B.device)
+        B = torch.cat([B, eye.expand(lanes, pad, 6, 6)], dim=1)
+        A = torch.cat([A, torch.zeros((lanes, pad, 6, 6), dtype=A.dtype,
+                                      device=A.device)], dim=1)
+    zero = torch.zeros((lanes, 1, 6, 6), dtype=B.dtype, device=B.device)
     # C[i] couples i to i+1: C_i = A_{i+1}^T.
-    C = torch.cat([A[1:].transpose(-1, -2), zero])
-    A = torch.cat([zero, A[1:]])
+    C = torch.cat([A[:, 1:].transpose(-1, -2), zero], dim=1)
+    A = torch.cat([zero, A[:, 1:]], dim=1)
 
     levels = []
-    while B.shape[0] > stop:
-        half = B.shape[0] // 2
-        Be, Ae, Ce = B[0::2], A[0::2], C[0::2]
-        Bo, Ao, Co = B[1::2], A[1::2], C[1::2]
+    while B.shape[1] > stop:
+        half = B.shape[1] // 2
+        Be, Ae, Ce = B[:, 0::2], A[:, 0::2], C[:, 0::2]
+        Bo, Ao, Co = B[:, 1::2], A[:, 1::2], C[:, 1::2]
         Bo_inv = _chol_inverse6(Bo)
-        BoL_inv = torch.cat([zero, Bo_inv[:half - 1]])
-        AoL = torch.cat([zero, Ao[:half - 1]])
-        CoL = torch.cat([zero, Co[:half - 1]])
+        BoL_inv = torch.cat([zero, Bo_inv[:, :half - 1]], dim=1)
+        AoL = torch.cat([zero, Ao[:, :half - 1]], dim=1)
+        CoL = torch.cat([zero, Co[:, :half - 1]], dim=1)
         G_left = Ae @ BoL_inv
         G_right = Ce @ Bo_inv
         levels.append((Bo_inv, Ao, Co, G_left, G_right))
@@ -467,18 +504,18 @@ def _tridiag_factor(B, A, stop=None):
         A = -G_left @ AoL
         C = -G_right @ Co
 
-    # Dense root: the remaining m-block tridiagonal system as one [6m,6m]
-    # SPD matrix, inverted once.
-    m = B.shape[0]
+    # Dense root: each lane's remaining m-block tridiagonal system as one
+    # [6m,6m] SPD matrix, inverted once.
+    m = B.shape[1]
     if m == 1:
-        root_inv = _chol_inverse6(B)[0]
+        root_inv = _chol_inverse6(B)
     else:
         idx = torch.arange(m, device=B.device)
-        H4 = torch.zeros((m, m, 6, 6), dtype=B.dtype, device=B.device)
-        H4[idx, idx] = B
-        H4[idx[1:], idx[:-1]] = A[1:]
-        H4[idx[:-1], idx[1:]] = A[1:].transpose(-1, -2)
-        Hd = H4.permute(0, 2, 1, 3).reshape(6 * m, 6 * m)
+        H4 = torch.zeros((lanes, m, m, 6, 6), dtype=B.dtype, device=B.device)
+        H4[:, idx, idx] = B
+        H4[:, idx[1:], idx[:-1]] = A[:, 1:]
+        H4[:, idx[:-1], idx[1:]] = A[:, 1:].transpose(-1, -2)
+        Hd = H4.permute(0, 1, 3, 2, 4).reshape(lanes, 6 * m, 6 * m)
         # cholesky_ex: no error check, so no device read.
         chol = torch.linalg.cholesky_ex(Hd)[0]
         root_inv = torch.cholesky_inverse(chol)
@@ -487,44 +524,48 @@ def _tridiag_factor(B, A, stop=None):
 
 def _tridiag_apply(factors, r):
     """Solve T x = r given a cyclic-reduction factorization; ``r`` is
-    [N,6] or [N,6,K] (K right-hand sides together)."""
+    [N,6] or [N,6,K] (K right-hand sides together), N joining the
+    factorization's lanes."""
     levels, root_inv = factors
-    n0 = r.shape[0]
+    lanes = root_inv.shape[0]
+    rest = r.shape[1:]
+    r = r.reshape((lanes, -1) + rest)
+    n0 = r.shape[1]
     n = _next_pow2(n0)
     if n != n0:
-        r = torch.cat([r, torch.zeros((n - n0,) + r.shape[1:],
-                                      dtype=r.dtype, device=r.device)])
+        r = torch.cat([r, torch.zeros((lanes, n - n0) + rest,
+                                      dtype=r.dtype, device=r.device)],
+                      dim=1)
 
     ros = []
     for Bo_inv, Ao, Co, G_left, G_right in levels:
-        re, ro = r[0::2], r[1::2]
+        re, ro = r[:, 0::2], r[:, 1::2]
         ros.append(ro)
-        roL = torch.cat([torch.zeros((1,) + ro.shape[1:], dtype=r.dtype,
-                                     device=r.device), ro[:-1]])
-        r = (re - torch.einsum('nij,nj...->ni...', G_left, roL)
-             - torch.einsum('nij,nj...->ni...', G_right, ro))
+        roL = torch.cat([torch.zeros((lanes, 1) + rest, dtype=r.dtype,
+                                     device=r.device), ro[:, :-1]], dim=1)
+        r = (re - torch.einsum('bnij,bnj...->bni...', G_left, roL)
+             - torch.einsum('bnij,bnj...->bni...', G_right, ro))
 
-    # Dense root solve: [6m,6m] @ [6m,K...].
-    m6 = root_inv.shape[0]
-    r_flat = r.reshape((m6,) + r.shape[2:])
-    x = torch.tensordot(root_inv, r_flat, dims=([1], [0]))
-    x = x.reshape((m6 // 6, 6) + r.shape[2:])
+    # Dense root solve: [6m,6m] @ [6m,K...] a lane.
+    m6 = root_inv.shape[-1]
+    x = root_inv @ r.reshape(lanes, m6, -1)
+    x = x.reshape((lanes, m6 // 6) + rest)
 
     for (Bo_inv, Ao, Co, _, _), ro in zip(reversed(levels), reversed(ros)):
         # x holds the even positions; recover the odds:
         # x_odd[k] = Bo_inv[k] (ro[k] - Ao[k] x_even[k] - Co[k] x_even[k+1])
         x_even_next = torch.cat(
-            [x[1:], torch.zeros((1,) + x.shape[1:], dtype=x.dtype,
-                                device=x.device)])
-        rhs = (ro - torch.einsum('nij,nj...->ni...', Ao, x)
-               - torch.einsum('nij,nj...->ni...', Co, x_even_next))
-        x_odd = torch.einsum('nij,nj...->ni...', Bo_inv, rhs)
-        out = torch.empty((x.shape[0] * 2,) + x.shape[1:], dtype=x.dtype,
+            [x[:, 1:], torch.zeros((lanes, 1) + rest, dtype=x.dtype,
+                                   device=x.device)], dim=1)
+        rhs = (ro - torch.einsum('bnij,bnj...->bni...', Ao, x)
+               - torch.einsum('bnij,bnj...->bni...', Co, x_even_next))
+        x_odd = torch.einsum('bnij,bnj...->bni...', Bo_inv, rhs)
+        out = torch.empty((lanes, x.shape[1] * 2) + rest, dtype=x.dtype,
                           device=x.device)
-        out[0::2] = x
-        out[1::2] = x_odd
+        out[:, 0::2] = x
+        out[:, 1::2] = x_odd
         x = out
-    return x[:n0]
+    return x[:, :n0].reshape((lanes * n0,) + rest)
 
 
 def _tridiag_solve(B, A, r):
@@ -563,6 +604,7 @@ class WoodburyCache(NamedTuple):
     ka: torch.Tensor          # [L] int64 pose keys
     kb: torch.Tensor          # [L]
     chol_inv: torch.Tensor    # [K,K] INVERSE lower Cholesky of the capacitance
+    #                           ([lanes,K,K] for joined lanes, K a lane's)
     n_used: torch.Tensor      # 0-d int64: occupied slots (append cursor)
 
 
@@ -581,7 +623,8 @@ def _factor_or_nan(C):
     """Lower Cholesky factor of C; NaN where C is not positive definite
     (JAX's ``cholesky`` returns NaN there), read by no one on the host."""
     L, info = torch.linalg.cholesky_ex(C)
-    return torch.where(info == 0, L, torch.full_like(L, float('nan')))
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float('nan')))
 
 
 def _build_woodbury_cache(lin: _LinearizedGraph, damping,
@@ -590,10 +633,11 @@ def _build_woodbury_cache(lin: _LinearizedGraph, damping,
     # T0 excludes the SELECTED off-chain factors (their diagonal rides in
     # U U^T); unselected overflow keeps its diagonal in T0, degrading
     # gracefully to 'tridiagonal'.
+    lanes = lin.lanes
     factors = _tridiag_factor(*_build_tridiag(
-        lin, damping, w_scale=_without(lin, sel, valid)))
+        lin, damping, w_scale=_without(lin, sel, valid)), lanes=lanes)
     Ua, Ub, ka, kb = _offchain_blocks(lin, sel, valid)
-    L = Ua.shape[0]
+    L = Ua.shape[0] // lanes          # slots a lane; lane b's are b*L + l
     n = lin.free.shape[0]
     K = 6 * L
     # With Utilde = U diag(s):  H^-1 = T0^-1 - T0^-1 Utilde Ctilde^-1
@@ -602,40 +646,48 @@ def _build_woodbury_cache(lin: _LinearizedGraph, damping,
     s, diag_c = _column_scale(cn)                         # [L,6]
     Ua = Ua * s[:, None, :]
     Ub = Ub * s[:, None, :]
-    # U[k, :, l, :] += Ua[l] at k = ka[l] (and Ub at kb[l]); accumulate,
-    # since padding slots repeat a key (with zero blocks).
-    lidx = torch.arange(L, device=Ua.device)
+    # U[k, :, l, :] += Ua[l] at k = ka[l] (and Ub at kb[l]), l the slot
+    # within its lane (a key's row holds its own lane's columns only);
+    # accumulate, since padding slots repeat a key (with zero blocks).
+    lidx = torch.arange(lanes * L, device=Ua.device) % L
     U = torch.zeros((n, L, 6, 6), dtype=Ua.dtype, device=Ua.device)
     U.index_put_((ka, lidx), Ua, accumulate=True)
     U.index_put_((kb, lidx), Ub, accumulate=True)
     V = _tridiag_apply(factors, U.permute(0, 2, 1, 3).reshape(n, 6, K))
     Vl = V.reshape(n, 6, L, 6)                            # T0^-1 Utilde
     C = (torch.einsum('lsc,lsmd->lcmd', Ua, Vl[ka]) +
-         torch.einsum('lsc,lsmd->lcmd', Ub, Vl[kb])).reshape(K, K)
-    C = C + torch.diag(diag_c.reshape(K))
+         torch.einsum('lsc,lsmd->lcmd', Ub, Vl[kb])).reshape(lanes, K, K)
+    C = C + torch.diag_embed(diag_c.reshape(lanes, K))
     # Multiplicative diagonal jitter: rows span many orders of magnitude,
     # so a relative nudge toward SPD keeps the small rows.
-    C = C + torch.diag(1e-5 * torch.abs(torch.diagonal(C)))
+    C = C + torch.diag_embed(1e-5 * torch.abs(torch.diagonal(
+        C, dim1=-2, dim2=-1)))
     eye = torch.eye(K, dtype=C.dtype, device=C.device)
+    # One capacitance a lane; one lane's is [K,K].
     chol_inv = torch.linalg.solve_triangular(_factor_or_nan(C), eye,
                                              upper=False)
+    if lanes == 1:
+        chol_inv = chol_inv[0]
     return WoodburyCache(factors=factors, Ua=Ua, Ub=Ub, ka=ka, kb=kb,
                          chol_inv=chol_inv, n_used=torch.sum(valid))
 
 
 def _apply_from_cache(cache: WoodburyCache):
-    """apply_M(r) ~= H^-1 r from a (possibly extended) WoodburyCache."""
+    """apply_M(r) ~= H^-1 r from a (possibly extended) WoodburyCache;
+    a cache of joined lanes has one capacitance a lane."""
     L = cache.Ua.shape[0]
     Ua, Ub, ka, kb = cache.Ua, cache.Ub, cache.ka, cache.kb
+    lanes = cache.factors[1].shape[0]
 
     def apply_M(r):
         batch = r.shape[2:]
         t1 = _tridiag_apply(cache.factors, r)
         c = (torch.einsum('lsc,ls...->lc...', Ua, t1[ka]) +
              torch.einsum('lsc,ls...->lc...', Ub, t1[kb])
-             ).reshape((6 * L,) + batch)
+             ).reshape(lanes, 6 * L // lanes, math.prod(batch))
         # C^-1 c = L^-T (L^-1 c): two products with the prebuilt inverse.
-        y = (cache.chol_inv.T @ (cache.chol_inv @ c)).reshape((L, 6) + batch)
+        y = (cache.chol_inv.mT @ (cache.chol_inv @ c)).reshape(
+            (L, 6) + batch)
         z = torch.zeros_like(r)
         z.index_add_(0, ka, torch.einsum('lsc,lc...->ls...', Ua, y))
         z.index_add_(0, kb, torch.einsum('lsc,lc...->ls...', Ub, y))
@@ -654,7 +706,8 @@ def _make_preconditioner(lin: _LinearizedGraph, damping, config):
         Minv = _block_jacobi(lin, damping)
         return lambda r: torch.einsum('nij,nj...->ni...', Minv, r)
     if kind == 'tridiagonal':
-        factors = _tridiag_factor(*_build_tridiag(lin, damping))
+        factors = _tridiag_factor(*_build_tridiag(lin, damping),
+                                  lanes=lin.lanes)
         return lambda r: _tridiag_apply(factors, r)
     if kind == 'woodbury':
         return _apply_from_cache(_build_woodbury_cache(lin, damping, config))
@@ -671,8 +724,10 @@ def _dense_factor(lin: _LinearizedGraph, damping):
     frozen poses, damping.  ``cholesky_ex`` reports failure in ``info``
     without a device read; a matrix that is not positive definite then
     gives an all-NaN factor, which the caller zeroes, as with the JAX
-    package's ``cho_factor``."""
-    n = lin.free.shape[0]
+    package's ``cho_factor``.  Joined lanes get one [6n,6n] system a lane
+    ([lanes, 6n, 6n]), so a lane that fails leaves the others alone."""
+    lanes = lin.lanes
+    n = lin.free.shape[0] // lanes
     w = lin.w_rel[:, None, None]
     k0, k1 = lin.keys[:, 0], lin.keys[:, 1]
     Ha = torch.einsum('fji,fjk->fik', lin.Ja, lin.Ja * w)
@@ -680,34 +735,51 @@ def _dense_factor(lin: _LinearizedGraph, damping):
     Hab = torch.einsum('fji,fjk->fik', lin.Ja, lin.Jb * w)
     Hp = torch.einsum('pji,pjk->pik', lin.Jp,
                       lin.Jp * lin.w_prior[:, None, None])
-    H4 = torch.zeros((n, n, 6, 6), dtype=Ha.dtype, device=Ha.device)
+    H4 = torch.zeros((lanes, n, n, 6, 6), dtype=Ha.dtype, device=Ha.device)
     pk = lin.prior_keys
     for (ia, ib), blocks in (((k0, k0), Ha), ((k1, k1), Hb),
                              ((k0, k1), Hab),
                              ((k1, k0), Hab.transpose(-1, -2)),
                              ((pk, pk), Hp)):
-        H4.index_put_((ia, ib), blocks, accumulate=True)
-    f = lin.free
-    H4 = H4 * f[:, None, None, None] * f[None, :, None, None]
-    H = H4.permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
-    H = H + torch.diag(torch.repeat_interleave(damping + (1.0 - f), 6))
-    return _factor_or_nan(H)
+        H4.index_put_((ia // n, ia % n, ib % n), blocks, accumulate=True)
+    f = lin.free.reshape(lanes, n)
+    H4 = H4 * f[:, :, None, None, None] * f[:, None, :, None, None]
+    H = H4.permute(0, 1, 3, 2, 4).reshape(lanes, 6 * n, 6 * n)
+    H = H + torch.diag_embed(torch.repeat_interleave(damping + (1.0 - f),
+                                                     6, dim=-1))
+    chol = _factor_or_nan(H)
+    return chol[0] if lanes == 1 else chol
 
 
 def _dense_apply(chol, b):
-    n6 = b.shape[0] * b.shape[1]
-    return torch.cholesky_solve(b.reshape(n6, 1), chol).reshape(b.shape)
+    lanes = chol.shape[0] if chol.dim() == 3 else 1
+    n6 = b.shape[0] * b.shape[1] // lanes
+    rhs = b.reshape(n6, 1) if lanes == 1 else b.reshape(lanes, n6, 1)
+    return torch.cholesky_solve(rhs, chol).reshape(b.shape)
 
 
 # ---------------------------------------------------------------------------
 # PCG and the Gauss-Newton loop
 # ---------------------------------------------------------------------------
 
-def _dot(u, v):
-    """<u, v> of [N,6] states; one per problem for a batch [N,6,B]."""
+def _dot(u, v, lanes: int = 1):
+    """<u, v> of [N,6] states; one per problem for a batch [N,6,B]; one
+    per lane ([lanes]) for states of ``lanes`` joined lanes."""
+    if lanes > 1:
+        return torch.sum((u * v).reshape(lanes, -1), dim=1)
     if u.dim() == 2:
         return torch.sum(u * v)
     return torch.sum(u * v, dim=(0, 1))
+
+
+def _lane_rows(s, lanes: int, like):
+    """Per-lane values [lanes] repeated over each lane's rows of ``like``
+    [N, ...] (unchanged for one lane)."""
+    if lanes == 1:
+        return s
+    n = like.shape[0]
+    return s[:, None].expand(lanes, n // lanes).reshape(
+        (n,) + (1,) * (like.dim() - 1))
 
 
 def _pcg(lin: _LinearizedGraph, b, damping, iterations, tol, apply_M,
@@ -718,9 +790,18 @@ def _pcg(lin: _LinearizedGraph, b, damping, iterations, tol, apply_M,
 
     Runs ``iterations`` steps; once the residual is within ``tol`` of
     ``|b|`` the state is frozen, which is where JAX's while loop stops.
-    Returns (x, iterations that changed the state)."""
+    Over joined lanes (``lin.lanes``) each lane has its own step sizes and
+    stop, as under JAX's ``vmap``.  Returns (x, iterations that changed
+    the state; one a lane)."""
     if matvec is None:
         matvec = lambda v: _hessian_matvec(lin, v, damping)  # noqa: E731
+    lanes = lin.lanes
+
+    def dot(u, v):
+        return _dot(u, v, lanes)
+
+    def rows(s):
+        return _lane_rows(s, lanes, b)
 
     if x0 is None:
         x = torch.zeros_like(b)
@@ -730,22 +811,22 @@ def _pcg(lin: _LinearizedGraph, b, damping, iterations, tol, apply_M,
         r = b - matvec(x0)
     z = apply_M(r)
     p = z
-    rz = _dot(r, z)
-    b_norm = torch.sqrt(_dot(b, b)) + 1e-30
-    it = torch.zeros((), dtype=torch.int32, device=b.device)
+    rz = dot(r, z)
+    b_norm = torch.sqrt(dot(b, b)) + 1e-30
+    it = torch.zeros(rz.shape, dtype=torch.int32, device=b.device)
     for _ in range(iterations):
-        running = torch.sqrt(_dot(r, r)) > tol * b_norm
+        running = torch.sqrt(dot(r, r)) > tol * b_norm
         Hp = matvec(p)
-        alpha = rz / torch.clamp(_dot(p, Hp), min=1e-30)
-        x_n = x + alpha * p
-        r_n = r - alpha * Hp
+        alpha = rz / torch.clamp(dot(p, Hp), min=1e-30)
+        x_n = x + rows(alpha) * p
+        r_n = r - rows(alpha) * Hp
         z = apply_M(r_n)
-        rz_n = _dot(r_n, z)
+        rz_n = dot(r_n, z)
         beta = rz_n / torch.clamp(rz, min=1e-30)
-        p_n = z + beta * p
-        x = torch.where(running, x_n, x)
-        r = torch.where(running, r_n, r)
-        p = torch.where(running, p_n, p)
+        p_n = z + rows(beta) * p
+        x = torch.where(rows(running), x_n, x)
+        r = torch.where(rows(running), r_n, r)
+        p = torch.where(rows(running), p_n, p)
         rz = torch.where(running, rz_n, rz)
         it = it + running.to(torch.int32)
     return x, it
@@ -758,20 +839,27 @@ class SolveResult(NamedTuple):
     pcg_iterations: torch.Tensor
 
 
-def graph_error(graph: FactorGraphData, poses) -> torch.Tensor:
-    """Total weighted squared error (0.5 * sum r^T W r), for diagnostics."""
+def graph_error(graph: FactorGraphData, poses, lanes: int = 1
+                ) -> torch.Tensor:
+    """Total weighted squared error (0.5 * sum r^T W r), for diagnostics;
+    one a lane ([lanes]) for a graph of joined lanes."""
     keys = graph.rel_keys.long()
     r = se3.log(_rel_error(poses[keys[:, 0]], poses[keys[:, 1]],
                            graph.rel_meas))
     r_w = r * graph.rel_sqrt_info
     sq = torch.sum(r_w * r_w, dim=-1)
     # Cauchy loss for robust factors.
-    e_rel = torch.sum(graph.rel_weight * torch.where(
+    def total(x):
+        if lanes > 1:
+            return torch.sum(x.reshape(lanes, -1), dim=1)
+        return torch.sum(x)
+
+    e_rel = total(graph.rel_weight * torch.where(
         graph.rel_robust, torch.log1p(sq), sq))
     rp = se3.log(se3.compose(se3.inverse(graph.prior_meas),
                              poses[graph.prior_keys.long()]))
     rp_w = rp * torch.clamp(graph.prior_sqrt_info, max=GAUGE_FIX_THRESHOLD)
-    e_pri = torch.sum(graph.prior_weight * torch.sum(rp_w * rp_w, dim=-1))
+    e_pri = total(graph.prior_weight * torch.sum(rp_w * rp_w, dim=-1))
     return 0.5 * (e_rel + e_pri)
 
 
@@ -791,12 +879,12 @@ def _snap_gauge(graph: FactorGraphData, poses):
 
 
 def _pcg_step(graph: FactorGraphData, pose_mask, config, damping, apply_M,
-              offchain=None):
+              offchain=None, lanes: int = 1):
     """One GN step's linear solve by PCG with the fresh linearization's
     matvec and a preconditioner ``apply_M`` built before the loop.
     Returns ``step(poses) -> (lin, delta, pcg iterations)``."""
     def step(poses):
-        lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
+        lin = _linearize(graph, poses, pose_mask, config.cauchy_k, lanes)
         b = -_gradient(lin)
         mv = _make_matvec(lin, damping, config, offchain)
         x0 = apply_M(b) if config.pcg_init == 'precond' else None
@@ -808,63 +896,101 @@ def _pcg_step(graph: FactorGraphData, pose_mask, config, damping, apply_M,
 
 
 def solve(graph: FactorGraphData, poses, pose_mask,
-          config: SolverConfig, offchain=None) -> SolveResult:
+          config: SolverConfig, offchain=None, lanes: int = 1
+          ) -> SolveResult:
     """Run ``config.gn_iterations`` Gauss-Newton steps from ``poses``
     (warm-started; the incremental deployment calls this once per scan,
     mirroring IncrementalEstimator::estimate).  ``offchain``: the
     caller's bound on the off-chain factors, which picks the matvec
     without a device read (:func:`_make_matvec`); without it each
-    linearization reads one count back."""
+    linearization reads one count back.  ``lanes`` > 1: the graph joins
+    that many equal lanes (:func:`solve_lanes`), and the errors and PCG
+    counts come back one a lane."""
     if config.method not in ('pcg', 'dense'):
         raise ValueError(f'unknown solver method {config.method!r}')
     damping = float(config.damping)
     poses = _snap_gauge(graph, poses)
-    e0 = _error(graph, poses, config)
+    e0 = _error(graph, poses, config, lanes)
     if config.method == 'dense':
         # The [6N,6N] normal equations are factored again at every GN
-        # step (the exact Newton direction).
+        # step (the exact Newton direction); joined lanes make one
+        # block-diagonal system.
         def step(poses):
-            lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
+            lin = _linearize(graph, poses, pose_mask, config.cauchy_k, lanes)
             delta = _dense_apply(_dense_factor(lin, damping),
                                  -_gradient(lin))
-            return lin, delta, torch.ones((), dtype=torch.int32,
+            return lin, delta, torch.ones(() if lanes == 1 else (lanes,),
+                                          dtype=torch.int32,
                                           device=poses.device)
     else:
         # The preconditioner is built once from the initial linearization
         # and reused across all GN steps (staleness only costs PCG
         # iterations).
-        lin0 = _linearize(graph, poses, pose_mask, config.cauchy_k)
+        lin0 = _linearize(graph, poses, pose_mask, config.cauchy_k, lanes)
         step = _pcg_step(graph, pose_mask, config, damping,
                          _make_preconditioner(lin0, damping, config),
-                         offchain)
-    return _gauss_newton(graph, poses, pose_mask, config, step, e0)
+                         offchain, lanes)
+    return _gauss_newton(graph, poses, pose_mask, config, step, e0, lanes)
 
 
-def _error(graph: FactorGraphData, poses, config) -> torch.Tensor:
+def solve_lanes(graphs: FactorGraphData, poses, pose_masks,
+                config: SolverConfig, offchain=None) -> SolveResult:
+    """:func:`solve` of B independent graphs at once, JAX's
+    ``vmap(solve)``: every field of ``graphs`` and ``poses`` [B,T,7],
+    ``pose_masks`` [B,T] carries a leading lane axis, and so does every
+    field of the result.  The lanes are joined into one graph
+    (``factors.join_lanes``) and solved with per-lane PCG scalars, stops,
+    gauge snaps and GN early-outs.  ``offchain``: a bound on any one
+    lane's off-chain factors (without it, one count is read per
+    linearization)."""
+    from laser_slam_tpu_torch.graph.factors import join_lanes
+    B, T = poses.shape[:2]
+    res = solve(join_lanes(graphs, T), poses.reshape(B * T, 7),
+                pose_masks.reshape(B * T), config, offchain, lanes=B)
+    err = (lambda e: e) if config.compute_errors else (
+        lambda e: e.expand(B))
+    return SolveResult(poses=res.poses.reshape(B, T, 7),
+                       error_initial=err(res.error_initial),
+                       error_final=err(res.error_final),
+                       pcg_iterations=res.pcg_iterations)
+
+
+def _error(graph: FactorGraphData, poses, config,
+           lanes: int = 1) -> torch.Tensor:
     """graph_error, or -1 when ``config.compute_errors`` is off."""
     if config.compute_errors:
-        return graph_error(graph, poses)
+        return graph_error(graph, poses, lanes)
     return torch.full((), -1.0, dtype=poses.dtype, device=poses.device)
 
 
 def _gauss_newton(graph: FactorGraphData, poses, pose_mask, config, step,
-                  e0) -> SolveResult:
+                  e0, lanes: int = 1) -> SolveResult:
     """``config.gn_iterations`` GN steps of ``step(poses) -> (lin, delta,
     iterations)`` from the snapped ``poses``, each retracted on the free
-    poses, with the ``gn_tolerance`` early-out."""
+    poses, with the ``gn_tolerance`` early-out (lane by lane over joined
+    lanes)."""
     # gn_tolerance compares against the RMS step per ACTIVE pose.
-    n_active = torch.clamp(torch.sum(pose_mask.to(poses.dtype)), min=1.0)
+    n_active = torch.clamp(torch.sum(pose_mask.to(poses.dtype).reshape(
+        lanes, -1), dim=1), min=1.0)
+    if lanes == 1:
+        n_active = n_active[0]
 
     def one_step(poses):
         lin, delta, it = step(poses)
         delta = torch.nan_to_num(delta) * lin.free[:, None]
         new_poses = se3.normalize(se3.compose(poses, se3.exp(delta)))
         new_poses = torch.where(pose_mask[:, None], new_poses, poses)
-        return new_poses, it, torch.linalg.norm(delta) / torch.sqrt(n_active)
+        if lanes == 1:
+            rms = torch.linalg.norm(delta) / torch.sqrt(n_active)
+        else:
+            rms = (torch.linalg.norm(delta.reshape(lanes, -1), dim=1)
+                   / torch.sqrt(n_active))
+        return new_poses, it, rms
 
     gn_tol = config.gn_tolerance
-    total = torch.zeros((), dtype=torch.int32, device=poses.device)
-    last_delta = torch.full((), float('inf'), dtype=poses.dtype,
+    shape = () if lanes == 1 else (lanes,)
+    total = torch.zeros(shape, dtype=torch.int32, device=poses.device)
+    last_delta = torch.full(shape, float('inf'), dtype=poses.dtype,
                             device=poses.device)
     for _ in range(config.gn_iterations):
         new_poses, it, dnorm = one_step(poses)
@@ -872,13 +998,14 @@ def _gauss_newton(graph: FactorGraphData, poses, pose_mask, config, step,
             # GN early-out: once a step's RMS falls below gn_tolerance the
             # remaining steps leave the poses as they are.
             run = last_delta >= gn_tol
-            poses = torch.where(run, new_poses, poses)
+            poses = torch.where(_lane_rows(run, lanes, poses), new_poses,
+                                poses)
             total = total + torch.where(run, it, torch.zeros_like(it))
             last_delta = torch.where(run, dnorm, last_delta)
         else:
             poses, total, last_delta = new_poses, total + it, dnorm
     return SolveResult(poses=poses, error_initial=e0,
-                       error_final=_error(graph, poses, config),
+                       error_final=_error(graph, poses, config, lanes),
                        pcg_iterations=total)
 
 

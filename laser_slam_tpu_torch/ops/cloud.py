@@ -217,22 +217,27 @@ def voxel_filter(cloud: Cloud, voxel_size_m: float,
     """Voxel-grid downsample: keep the first valid point hashed into each
     voxel, and drop voxels with fewer than ``min_points_per_voxel``
     points (PCL VoxelGrid, laser_slam_worker.cpp:70-72,439-440, with a
-    first-point representative as in the JAX package)."""
+    first-point representative as in the JAX package).  Leading lane
+    dimensions ([B,N,3]) filter each lane over its own hash table."""
     n = cloud.capacity
     if hash_capacity is None:
         hash_capacity = max(2 * n, 1024)
     cell = torch.floor(cloud.points / voxel_size_m).to(torch.int32)
     h = _hash_cells(cell, hash_capacity)
     h = torch.where(cloud.mask, h, torch.full_like(h, hash_capacity))
-    counts = torch.zeros(hash_capacity + 1, dtype=torch.int64,
-                         device=h.device)
+    # One table of hash_capacity + 1 buckets a lane, laid end to end.
+    slots = hash_capacity + 1
+    lanes = h[..., 0].numel()
+    h = (h + slots * torch.arange(lanes, device=h.device).reshape(
+        h.shape[:-1] + (1,))).reshape(-1)
+    counts = torch.zeros(lanes * slots, dtype=torch.int64, device=h.device)
     counts.index_add_(0, h, torch.ones_like(h))
-    idx = torch.arange(n, device=h.device)
-    first = torch.full((hash_capacity + 1,), n, dtype=torch.int64,
+    idx = torch.arange(n, device=h.device).repeat(lanes)
+    first = torch.full((lanes * slots,), n, dtype=torch.int64,
                        device=h.device)
     first.scatter_reduce_(0, h, idx, reduce='amin')
     keep = ((first[h] == idx) & (counts[h] >= min_points_per_voxel)
-            & cloud.mask)
+            ).reshape(cloud.mask.shape) & cloud.mask
     return park_invalid(Cloud(cloud.points, keep))
 
 

@@ -58,6 +58,44 @@ def nn_brute(queries: torch.Tensor, ref_points: torch.Tensor):
     return idx, d2
 
 
+def nn_brute_lanes(queries: torch.Tensor, ref_points: torch.Tensor):
+    """Exact 1-NN of each lane's queries [B,Q,3] against that lane's
+    reference [B,R,3] (``nn_brute`` under the JAX package's ``vmap``).
+
+    Blocks of (lane, query) rows keep each [rows, R] distance block within
+    the size :func:`query_chunks` allows.  Ties go to the lowest index of
+    the lane.  Returns (idx [B,Q] int32 within the lane, sq_dist [B,Q])."""
+    B, Q = queries.shape[:2]
+    R = ref_points.shape[1]
+    idx = torch.empty((B, Q), dtype=torch.int32, device=queries.device)
+    d2 = torch.empty((B, Q), dtype=queries.dtype, device=queries.device)
+    rows = next(query_chunks(B * Q, R, queries.device))[1]
+    if rows >= Q:
+        lanes = rows // Q
+        for s in range(0, B, lanes):
+            e = min(s + lanes, B)
+            m, i = torch.min(sqdist_lanes(queries[s:e], ref_points[s:e]),
+                             dim=-1)
+            d2[s:e] = m
+            idx[s:e] = i.to(torch.int32)
+        return idx, d2
+    for b in range(B):
+        for s, e in query_chunks(Q, R, queries.device):
+            m, i = torch.min(sqdist(queries[b, s:e], ref_points[b]), dim=1)
+            d2[b, s:e] = m
+            idx[b, s:e] = i.to(torch.int32)
+    return idx, d2
+
+
+def sqdist_lanes(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """:func:`sqdist` of each lane: [L,Q,3] and [L,R,3] -> [L,Q,R], in the
+    same order of operations."""
+    dx = q[:, :, None, 0] - r[:, None, :, 0]
+    dy = q[:, :, None, 1] - r[:, None, :, 1]
+    dz = q[:, :, None, 2] - r[:, None, :, 2]
+    return (dx * dx + dy * dy) + dz * dz
+
+
 def knn_brute(queries: torch.Tensor, ref_points: torch.Tensor, k: int):
     """Exact k-NN indices [Q,k] int32 and squared distances [Q,k],
     nearest first."""

@@ -8,6 +8,11 @@ in ``csrc/nn.cu`` (see its header for the design and what bounds them):
 * K2 ``nn_indices_pruned`` replaces the Pallas ``_nn_pruned_kernel``: the
   Morton-sorted, AABB-pruned, radius-bounded exact 1-NN that ICP uses by
   default (``IcpConfig.pallas_prune``).
+* K1L ``nn_indices_lanes`` and K2L ``nn_indices_pruned_lanes`` launch the
+  same two kernels over a lane axis: B independent problems [B,Q,3]
+  against [B,R,3] in one launch, the fleet's ``vmap`` of the Pallas call
+  in the JAX package.  Their plain versions are ``neighbors.
+  nn_brute_lanes`` and a per-lane loop of :func:`nn_indices_pruned_plain`.
 
 Both run one work item per (query tile, reference tile) on the card and
 merge the items' results exactly: each query's result is a 64-bit key
@@ -28,7 +33,8 @@ The pruning tables (Morton codes, tile AABBs, the [nQ, nR] lower bounds,
 their stable argsort and the aliasing of the pruned suffix) are plain
 torch, as they are plain XLA in the JAX package, with the JAX tile sizes
 and stable sorts so that the sorted-reference index and the visit order
-match it.
+match it.  They take a leading lane axis as they are: each lane's Morton
+box comes from its own finite points, as under JAX's ``vmap``.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from typing import NamedTuple
 
 import torch
 
-from laser_slam_tpu_torch.ops.neighbors import nn_brute, query_chunks, sqdist
+from laser_slam_tpu_torch.ops.neighbors import (nn_brute, nn_brute_lanes,
+                                                query_chunks, sqdist)
 
 # Tile sizes of the JAX package (pallas_nn._QB/_RB).  K2's tables keep
 # them: the reference tile is the unit of pruning and of the sorted index.
@@ -73,6 +80,11 @@ def _kernels() -> ctypes.CDLL:
         lib.lsl_nn_indices_pruned.argtypes = [p, p, p, p, p, i, i, i, i, f,
                                               p, p, p, p, i, p]
         lib.lsl_nn_indices_pruned.restype = i
+        lib.lsl_nn_indices_lanes.argtypes = [p, p, i, i, i, p, p, p, i, p]
+        lib.lsl_nn_indices_lanes.restype = i
+        lib.lsl_nn_indices_pruned_lanes.argtypes = [
+            p, p, p, p, p, i, i, i, i, i, f, p, p, p, p, i, p]
+        lib.lsl_nn_indices_pruned_lanes.restype = i
         _lib = lib
     return _lib
 
@@ -102,10 +114,11 @@ def _check_launch(name: str, err: int) -> None:
                            f'{err}')
 
 
-def _check_points(name: str, **arrays) -> None:
+def _check_points(name: str, ndim: int = 2, **arrays) -> None:
+    want = '[N,3]' if ndim == 2 else '[B,N,3]'
     for key, a in arrays.items():
-        if a.dtype != torch.float32 or a.ndim != 2 or a.shape[1] != 3:
-            raise ValueError(f'{name}: {key} must be float32 [N,3], got '
+        if a.dtype != torch.float32 or a.ndim != ndim or a.shape[-1] != 3:
+            raise ValueError(f'{name}: {key} must be float32 {want}, got '
                              f'{a.dtype} {tuple(a.shape)}')
 
 
@@ -153,17 +166,63 @@ def nn_indices(queries: torch.Tensor, ref_points: torch.Tensor):
 nn_indices.launches = 0
 
 
+def nn_indices_lanes_plain(queries: torch.Tensor, ref_points: torch.Tensor):
+    """Plain torch K1L (``neighbors.nn_brute_lanes``): (d2 [B,Q] f32,
+    idx [B,Q] i32 within the lane), ties to the lowest index."""
+    idx, d2 = nn_brute_lanes(queries, ref_points)
+    return d2, idx
+
+
+def nn_indices_lanes(queries: torch.Tensor, ref_points: torch.Tensor):
+    """:func:`nn_indices` of each lane: queries [B,Q,3] against
+    ref_points [B,R,3], one launch for every lane.  Returns (d2 [B,Q] f32,
+    idx [B,Q] i32, an index into the lane's reference).  CPU tensors run
+    :func:`nn_indices_lanes_plain`; CUDA tensors launch K1L."""
+    _check_points('nn_indices_lanes', 3, queries=queries,
+                  ref_points=ref_points)
+    if queries.shape[0] != ref_points.shape[0]:
+        raise ValueError('nn_indices_lanes: queries and references need '
+                         'the same lanes')
+    if queries.device.type == 'cpu' and ref_points.device.type == 'cpu':
+        return nn_indices_lanes_plain(queries, ref_points)
+    device = _check_cuda('nn_indices_lanes', queries, ref_points)
+    B, Q = queries.shape[:2]
+    R = ref_points.shape[1]
+    d2 = torch.empty((B, Q), dtype=torch.float32, device=device)
+    idx = torch.empty((B, Q), dtype=torch.int32, device=device)
+    if B * Q == 0:
+        return d2, idx
+    if R == 0:
+        raise ValueError('nn_indices_lanes: empty reference')
+    keys = _merge_keys(B * Q, device)
+    err = _kernels().lsl_nn_indices_lanes(
+        queries.data_ptr(), ref_points.data_ptr(), B, Q, R, keys.data_ptr(),
+        d2.data_ptr(), idx.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    _check_launch('nn_indices_lanes', err)
+    nn_indices_lanes.launches += 1
+    return d2, idx
+
+
+nn_indices_lanes.launches = 0
+
+
 # --------------------------------------------------------------------------
 # K2: Morton-pruned radius-bounded exact 1-NN
 # --------------------------------------------------------------------------
 
 class PrunedRef(NamedTuple):
     """Morton-sorted reference with per-tile AABBs (build once per
-    reference cloud; reuse across ICP iterations and readings)."""
+    reference cloud; reuse across ICP iterations and readings).  Over
+    lanes every field has a leading [B] axis."""
     points: torch.Tensor    # [R,3] sorted copy of the reference points
     perm: torch.Tensor      # [R] i32: sorted row -> original row
     tile_lo: torch.Tensor   # [nR,3] per-tile AABB lower corners
     tile_hi: torch.Tensor   # [nR,3] per-tile AABB upper corners
+
+    def lane(self, b: int) -> 'PrunedRef':
+        """Lane b of a lane-axis reference."""
+        return PrunedRef(*(a[b] for a in self))
 
 
 def _morton3d(points: torch.Tensor, lo: torch.Tensor,
@@ -172,7 +231,7 @@ def _morton3d(points: torch.Tensor, lo: torch.Tensor,
     Out-of-box points (e.g. SENTINEL-parked rows) clip to the boundary
     cells, which sorts them to the box corner."""
     u = torch.clamp((points - lo) * inv_extent, 0.0, 1.0)
-    g = (u * 1023.0).to(torch.int32)                       # [N,3] 10 bits
+    g = (u * 1023.0).to(torch.int32)                     # [...,N,3] 10 bits
 
     def spread(x):
         x = (x | (x << 16)) & 0x030000FF
@@ -181,39 +240,47 @@ def _morton3d(points: torch.Tensor, lo: torch.Tensor,
         x = (x | (x << 2)) & 0x09249249
         return x
 
-    return (spread(g[:, 0]) | (spread(g[:, 1]) << 1)
-            | (spread(g[:, 2]) << 2))
+    return (spread(g[..., 0]) | (spread(g[..., 1]) << 1)
+            | (spread(g[..., 2]) << 2))
 
 
 def _finite_bounds(points: torch.Tensor):
-    """AABB over non-parked rows (|coord| < 1e5)."""
-    finite = torch.all(torch.abs(points) < 1.0e5, dim=1, keepdim=True)
+    """AABB over non-parked rows (|coord| < 1e5), per lane."""
+    finite = torch.all(torch.abs(points) < 1.0e5, dim=-1, keepdim=True)
     big = torch.full_like(points, 3.0e5)
-    lo = torch.amin(torch.where(finite, points, big), dim=0)
-    hi = torch.amax(torch.where(finite, points, -big), dim=0)
+    lo = torch.amin(torch.where(finite, points, big), dim=-2)
+    hi = torch.amax(torch.where(finite, points, -big), dim=-2)
     # Degenerate (all parked): fall back to a unit box.
-    bad = lo[0] > hi[0]
+    bad = (lo[..., 0] > hi[..., 0])[..., None]
     lo = torch.where(bad, torch.zeros_like(lo), lo)
     hi = torch.where(bad, torch.ones_like(hi), hi)
     return lo, hi
 
 
 def _tile_aabbs(points_sorted: torch.Tensor, tile: int):
-    n = points_sorted.shape[0] // tile
-    p = points_sorted.reshape(n, tile, 3)
-    return torch.amin(p, dim=1), torch.amax(p, dim=1)
+    n = points_sorted.shape[-2] // tile
+    p = points_sorted.reshape(points_sorted.shape[:-2] + (n, tile, 3))
+    return torch.amin(p, dim=-2), torch.amax(p, dim=-2)
+
+
+def _rows_of(points: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """points[perm] within each lane: [...,N,3] gathered by [...,N]."""
+    if points.dim() == 2:
+        return points[perm]
+    return torch.gather(points, -2, perm[..., None].expand(points.shape))
 
 
 def build_pruned_ref(ref_points: torch.Tensor, rb: int | None = None
                      ) -> PrunedRef:
-    """Sort the reference by Morton code and record per-tile AABBs."""
-    R = ref_points.shape[0]
+    """Sort the reference [R,3] (or each lane of [B,R,3]) by Morton code
+    and record per-tile AABBs."""
+    R = ref_points.shape[-2]
     rb = _tile(R, rb or _RB)
     lo, hi = _finite_bounds(ref_points)
     inv = 1.0 / torch.clamp(hi - lo, min=1e-6)
-    code = _morton3d(ref_points, lo, inv)
-    perm = torch.argsort(code, stable=True)
-    pts = ref_points[perm]
+    code = _morton3d(ref_points, lo[..., None, :], inv[..., None, :])
+    perm = torch.argsort(code, dim=-1, stable=True)
+    pts = _rows_of(ref_points, perm)
     tlo, thi = _tile_aabbs(pts, rb)
     return PrunedRef(points=pts, perm=perm.to(torch.int32),
                      tile_lo=tlo, tile_hi=thi)
@@ -225,36 +292,38 @@ def pruned_tables(queries: torch.Tensor, pref: PrunedRef, cutoff: float):
     Returns (qperm [Q] int64, q_sorted [Q,3], order [nQ,nR] i32 — the
     ascending-bound visit order with the pruned suffix aliased to the last
     useful tile —, lb [nQ,nR] f32 — the sorted bounds, +inf beyond the
-    cutoff —, qb, rb)."""
-    Q = queries.shape[0]
-    R = pref.points.shape[0]
+    cutoff —, qb, rb); over lanes ([B,Q,3] queries and a lane-axis
+    ``pref``) each array gets a leading [B] axis."""
+    Q = queries.shape[-2]
+    R = pref.points.shape[-2]
     qb = _tile(Q, _QB)
-    rb = R // pref.tile_lo.shape[0]
+    rb = R // pref.tile_lo.shape[-2]
     nR = R // rb
     cutoff2 = float(cutoff) ** 2
 
     lo, hi = _finite_bounds(pref.points)
     inv = 1.0 / torch.clamp(hi - lo, min=1e-6)
-    qperm = torch.argsort(_morton3d(queries, lo, inv), stable=True)
-    q_sorted = queries[qperm]
+    qperm = torch.argsort(_morton3d(queries, lo[..., None, :],
+                                    inv[..., None, :]), dim=-1, stable=True)
+    q_sorted = _rows_of(queries, qperm)
 
     # Per-query-tile AABBs -> tile-pair lower bounds [nQ, nR], summed in
     # the kernel's order so each bound stays below every pair distance.
     q_lo, q_hi = _tile_aabbs(q_sorted, qb)
-    gap = torch.clamp(torch.maximum(pref.tile_lo[None] - q_hi[:, None],
-                                    q_lo[:, None] - pref.tile_hi[None]),
-                      min=0.0)
+    gap = torch.clamp(torch.maximum(
+        pref.tile_lo[..., None, :, :] - q_hi[..., :, None, :],
+        q_lo[..., :, None, :] - pref.tile_hi[..., None, :, :]), min=0.0)
     lb2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) \
         + gap[..., 2] * gap[..., 2]
 
-    order = torch.argsort(lb2, dim=1, stable=True)
-    lb_sorted = torch.gather(lb2, 1, order)
+    order = torch.argsort(lb2, dim=-1, stable=True)
+    lb_sorted = torch.gather(lb2, -1, order)
     keep = lb_sorted <= cutoff2
-    cnt = torch.sum(keep, dim=1)
+    cnt = torch.sum(keep, dim=-1)
     jidx = torch.minimum(
-        torch.arange(nR, device=queries.device)[None, :],
-        torch.clamp(cnt - 1, min=0)[:, None])
-    order_aliased = torch.gather(order, 1, jidx).to(torch.int32)
+        torch.arange(nR, device=queries.device),
+        torch.clamp(cnt - 1, min=0)[..., None])
+    order_aliased = torch.gather(order, -1, jidx).to(torch.int32)
     lb_eff = torch.where(keep, lb_sorted, torch.full_like(lb_sorted,
                                                           float('inf')))
     return qperm, q_sorted, order_aliased, lb_eff, qb, rb
@@ -300,34 +369,108 @@ def _launch_pruned(tables, pref: PrunedRef, cutoff: float,
                    scanned: torch.Tensor | None = None):
     """Launch K2 on the tables of :func:`pruned_tables` and unsort its
     results on the card: (d2 [Q], idx [Q]) in the original query order.
+    Tables with a lane axis (and a lane-axis ``pref``) launch K2L and
+    return [B,Q] results.
 
-    ``scanned``, an [nQ] int32 tensor of zeros, receives the number of
-    reference points the kernel scanned for each query tile (which tiles
-    it scans depends on block timing; the results do not)."""
+    ``scanned``, an int32 tensor of zeros shaped like ``order[..., 0]``,
+    receives the number of reference points the kernel scanned for each
+    query tile (which tiles it scans depends on block timing; the results
+    do not)."""
     qperm, q_sorted, order, lb, qb, rb = tables
+    lanes = q_sorted.dim() == 3
+    name = 'nn_indices_pruned_lanes' if lanes else 'nn_indices_pruned'
     extra = () if scanned is None else (scanned,)
-    device = _check_cuda('nn_indices_pruned', q_sorted, pref.points, order,
-                         lb, qperm, *extra)
-    Q = q_sorted.shape[0]
-    nR = order.shape[1]
+    device = _check_cuda(name, q_sorted, pref.points, order, lb, qperm,
+                         *extra)
+    B = q_sorted.shape[0] if lanes else 1
+    Q = q_sorted.shape[-2]
+    nR = order.shape[-1]
     if scanned is not None and (scanned.dtype != torch.int32
-                                or scanned.shape != (order.shape[0],)):
-        raise ValueError('nn_indices_pruned: scanned must be int32 [nQ]')
-    keys = _merge_keys(Q, device)
-    d2 = torch.empty(Q, dtype=torch.float32, device=device)
-    idx = torch.empty(Q, dtype=torch.int32, device=device)
-    err = _kernels().lsl_nn_indices_pruned(
+                                or scanned.shape != order.shape[:-1]):
+        raise ValueError(f'{name}: scanned must be int32 {order.shape[:-1]}')
+    keys = _merge_keys(B * Q, device)
+    d2 = torch.empty(q_sorted.shape[:-1], dtype=torch.float32, device=device)
+    idx = torch.empty(q_sorted.shape[:-1], dtype=torch.int32, device=device)
+    if lanes:
+        # Rows of the flat [B*Q] output.
+        qperm = (qperm + Q * torch.arange(B, device=device)[:, None]
+                 ).contiguous()
+    lane_args = (B,) if lanes else ()
+    launch = (_kernels().lsl_nn_indices_pruned_lanes if lanes
+              else _kernels().lsl_nn_indices_pruned)
+    err = launch(
         q_sorted.data_ptr(), pref.points.data_ptr(), order.data_ptr(),
-        lb.data_ptr(), qperm.data_ptr(), Q, qb, rb, nR, float(cutoff) ** 2,
-        keys.data_ptr(), None if scanned is None else scanned.data_ptr(),
-        d2.data_ptr(), idx.data_ptr(), device.index,
+        lb.data_ptr(), qperm.data_ptr(), *lane_args, Q, qb, rb, nR,
+        float(cutoff) ** 2, keys.data_ptr(),
+        None if scanned is None else scanned.data_ptr(), d2.data_ptr(),
+        idx.data_ptr(), device.index,
         torch.cuda.current_stream(device).cuda_stream)
-    _check_launch('nn_indices_pruned', err)
-    nn_indices_pruned.launches += 1
+    _check_launch(name, err)
+    if lanes:
+        nn_indices_pruned_lanes.launches += 1
+    else:
+        nn_indices_pruned.launches += 1
     return d2, idx
 
 
 nn_indices_pruned.launches = 0
+
+
+def build_pruned_ref_lanes(ref_points: torch.Tensor,
+                           rb: int | None = None) -> PrunedRef:
+    """:func:`build_pruned_ref` of each lane of [B,R,3]: every field of the
+    :class:`PrunedRef` gets a leading [B] axis, and each lane is sorted
+    over its own Morton box."""
+    _check_points('build_pruned_ref_lanes', 3, ref_points=ref_points)
+    return build_pruned_ref(ref_points, rb)
+
+
+def pruned_tables_lanes(queries: torch.Tensor, pref: PrunedRef,
+                        cutoff: float):
+    """:func:`pruned_tables` of each lane (queries [B,Q,3], a
+    :func:`build_pruned_ref_lanes` reference): one set of torch launches
+    for all B lanes."""
+    _check_points('pruned_tables_lanes', 3, queries=queries,
+                  ref_points=pref.points)
+    return pruned_tables(queries, pref, cutoff)
+
+
+def nn_indices_pruned_lanes_plain(queries: torch.Tensor, pref: PrunedRef,
+                                  cutoff: float = 3.0):
+    """Plain torch K2L: :func:`nn_indices_pruned_plain` lane by lane."""
+    out = [nn_indices_pruned_plain(queries[b], pref.lane(b), cutoff)
+           for b in range(queries.shape[0])]
+    return (torch.stack([d for d, _ in out]),
+            torch.stack([i for _, i in out]))
+
+
+def nn_indices_pruned_lanes(queries: torch.Tensor, pref: PrunedRef,
+                            cutoff: float = 3.0):
+    """:func:`nn_indices_pruned` of each lane: queries [B,Q,3] against a
+    :func:`build_pruned_ref_lanes` reference, one launch for every lane.
+    Returns (d2 [B,Q], idx [B,Q]) in each lane's original query order; idx
+    indexes the lane's SORTED reference (``pref.points[b]``).  CPU tensors
+    run :func:`nn_indices_pruned_lanes_plain`; CUDA tensors build the
+    tables of every lane (:func:`pruned_tables_lanes`) and launch K2L.
+    """
+    _check_points('nn_indices_pruned_lanes', 3, queries=queries,
+                  ref_points=pref.points)
+    if queries.shape[0] != pref.points.shape[0]:
+        raise ValueError('nn_indices_pruned_lanes: queries and references '
+                         'need the same lanes')
+    if queries.device.type == 'cpu' and pref.points.device.type == 'cpu':
+        return nn_indices_pruned_lanes_plain(queries, pref, cutoff)
+    device = _check_cuda('nn_indices_pruned_lanes', queries, pref.points)
+    if queries.shape[0] * queries.shape[1] == 0:
+        return (torch.empty(queries.shape[:2], dtype=torch.float32,
+                            device=device),
+                torch.empty(queries.shape[:2], dtype=torch.int32,
+                            device=device))
+    return _launch_pruned(pruned_tables_lanes(queries, pref, cutoff), pref,
+                          cutoff)
+
+
+nn_indices_pruned_lanes.launches = 0
 
 
 def pruned_visits(queries: torch.Tensor, pref: PrunedRef,

@@ -25,6 +25,13 @@ Port notes:
   reads the W cells of each query's window from it by index.  The
   results are the same: the same candidates in the same order, empty
   where JAX's rolled rows are zero.
+* Lanes: a reference [B,R,3] renders B images into one flat slot table,
+  lane b's pixel p at row ``b * rows * cols + p``, with one empty row
+  after all of them that every lane's out-of-image window cells read;
+  queries [B,N,3] read their own lane's image.  This is the JAX package's
+  ``vmap`` of the build and the match in the fleet.  A shared reference
+  needs one image for every lane: pass the queries flattened, or [B,N,3]
+  against a one-lane image.
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ class RangeImage(NamedTuple):
 
     ``slots`` is ``[rows*cols + 1, 7]``: point(3) + normal(3) +
     occupied(1) per pixel, then one empty row that window cells beyond
-    the top or bottom row read."""
+    the top or bottom row read.  An image of ``lanes`` lanes holds each
+    lane's pixels one after the other (``[lanes*rows*cols (+1), ...]``)."""
     payload: torch.Tensor    # [rows*cols, 6] (point xyz, normal xyz)
     depth: torch.Tensor      # [rows*cols] range (inf = empty)
     slots: torch.Tensor      # [rows*cols + 1, 7]
@@ -56,6 +64,7 @@ class RangeImage(NamedTuple):
     elev_min: float
     elev_max: float
     window: str
+    lanes: int = 1
 
 
 def _window_offsets(window: str):
@@ -117,13 +126,21 @@ def build_range_image(reference: Cloud, ref_normals, rows: int = 64,
                       elev_max: float = DEFAULT_ELEV_MAX,
                       window: str = '3x3') -> RangeImage:
     """Render the reference cloud (in its own sensor frame) into a range
-    image keeping the CLOSEST point per pixel."""
+    image keeping the CLOSEST point per pixel; a reference [B,R,3] renders
+    one image a lane."""
     pts = reference.points
+    lanes = pts.shape[0] if pts.dim() == 3 else 1
     row, col, r = _project(pts, rows, cols, elev_min, elev_max)
-    flat = row * cols + col
-    r = torch.where(reference.mask, r, torch.full_like(r, math.inf))
     n_pix = rows * cols
-    depth, winner = _zbuffer(flat, r, reference.mask, n_pix)
+    flat = row * cols + col
+    mask = reference.mask
+    if pts.dim() == 3:
+        flat = (flat + n_pix * torch.arange(lanes, device=flat.device)
+                [:, None]).reshape(-1)
+        r, mask = r.reshape(-1), mask.reshape(-1)
+        pts, ref_normals = pts.reshape(-1, 3), ref_normals.reshape(-1, 3)
+    r = torch.where(mask, r, torch.full_like(r, math.inf))
+    depth, winner = _zbuffer(flat, r, mask, lanes * n_pix)
     payload = _winner_rows(torch.cat([pts, ref_normals], dim=1), winner)
     occupied = torch.isfinite(depth).to(payload.dtype)
     slots = torch.cat([torch.cat([payload, occupied[:, None]], dim=1),
@@ -131,7 +148,7 @@ def build_range_image(reference: Cloud, ref_normals, rows: int = 64,
                                    device=payload.device)])
     return RangeImage(payload=payload, depth=depth, slots=slots, rows=rows,
                       cols=cols, elev_min=elev_min, elev_max=elev_max,
-                      window=window)
+                      window=window, lanes=lanes)
 
 
 def range_image_normals(cloud: Cloud, rows: int = 64, cols: int = 1024,
@@ -257,28 +274,43 @@ def compute_normals(cloud: Cloud, icp_config) -> torch.Tensor:
 
 
 def _window_index(row, col, image: RangeImage) -> torch.Tensor:
-    """Slot rows [Q, W] of each query pixel's window: columns wrap,
-    cells beyond the top or bottom row read the empty last row."""
+    """Slot rows [..., Q, W] of each query pixel's window: columns wrap,
+    cells beyond the top or bottom row read the empty last row.  Queries
+    [B,Q] of a lane image read their own lane's pixels."""
     rows, cols = image.rows, image.cols
     off = torch.tensor(_window_offsets(image.window), dtype=torch.int64,
                        device=row.device)
-    r2 = row[:, None] + off[:, 0]
-    c2 = torch.remainder(col[:, None] + off[:, 1], cols)
+    r2 = row[..., None] + off[:, 0]
+    c2 = torch.remainder(col[..., None] + off[:, 1], cols)
     inside = (r2 >= 0) & (r2 < rows)
-    return torch.where(inside, r2 * cols + c2,
-                       torch.full_like(r2, rows * cols))
+    cell = r2 * cols + c2
+    if row.dim() == 2:
+        cell = cell + (rows * cols * torch.arange(
+            image.lanes, device=row.device))[:, None, None]
+    return torch.where(inside, cell,
+                       torch.full_like(r2, image.lanes * rows * cols))
 
 
 def nn_projective(queries: torch.Tensor, image: RangeImage):
     """Projective 1-NN: project each query, test its pixel window, return
     (nearest point [Q,3], normal [Q,3], sq distance [Q]).  The first
-    window cell wins a tie; inf where the whole window is empty."""
+    window cell wins a tie; inf where the whole window is empty.  Queries
+    [B,Q,3] give [B,Q] results: against their own lanes of a lane image,
+    or all against a one-lane image."""
+    if queries.dim() == 3 and image.lanes == 1:
+        q, n, d2 = nn_projective(queries.reshape(-1, 3), image)
+        B, Q = queries.shape[:2]
+        return q.reshape(B, Q, 3), n.reshape(B, Q, 3), d2.reshape(B, Q)
+    if queries.dim() == 3 and queries.shape[0] != image.lanes:
+        raise ValueError(f'nn_projective: {queries.shape[0]} lanes of '
+                         f'queries against an image of {image.lanes}')
     row, col, _ = _project(queries, image.rows, image.cols, image.elev_min,
                            image.elev_max)
-    cand = image.slots[_window_index(row, col, image)]        # [Q,W,7]
-    d = cand[..., 0:3] - queries[:, None, :]
+    cand = image.slots[_window_index(row, col, image)]     # [...,Q,W,7]
+    d = cand[..., 0:3] - queries[..., None, :]
     d2 = torch.sum(d * d, dim=-1)
     d2 = torch.where(cand[..., 6] > 0.5, d2, torch.full_like(d2, math.inf))
     best_d2, best = torch.min(d2, dim=-1)
-    sel = torch.gather(cand, 1, best[:, None, None].expand(-1, 1, 7))[:, 0]
-    return sel[:, 0:3], sel[:, 3:6], best_d2
+    sel = torch.gather(cand, -2, best[..., None, None].expand(
+        best.shape + (1, 7)))[..., 0, :]
+    return sel[..., 0:3], sel[..., 3:6], best_d2

@@ -153,6 +153,48 @@ class SyntheticStream:
                             gt_pose7=gt)
 
 
+def make_scene(rng: np.random.Generator, n_world: int = 200_000,
+               extent: float = 80.0) -> np.ndarray:
+    """bench.py's Velodyne-like structured scene (bench.py:129-152):
+    ground, a ring of walls and 40 boxes, [n_world, 3] f32."""
+    n1 = n_world // 3
+    ground = np.stack([rng.uniform(-extent, extent, n1),
+                       rng.uniform(-extent, extent, n1),
+                       rng.normal(0, 0.02, n1)], 1)
+    n2 = n_world // 3
+    angs = rng.uniform(0, 2 * np.pi, n2)
+    walls = np.stack([extent * 0.9 * np.cos(angs),
+                      extent * 0.9 * np.sin(angs),
+                      rng.uniform(0, 6, n2)], 1)
+    m = n_world - n1 - n2
+    centers = rng.uniform(-60, 60, size=(40, 2))
+    boxes = []
+    per = m // 40
+    for cx, cy in centers:
+        face = rng.integers(0, 4, per)
+        u = rng.uniform(-2, 2, per)
+        z = rng.uniform(0, 4, per)
+        x = np.where(face == 0, cx + 2, np.where(face == 1, cx - 2, cx + u))
+        y = np.where(face < 2, cy + u, np.where(face == 2, cy + 2, cy - 2))
+        boxes.append(np.stack([x, y, z], 1))
+    pts = np.concatenate([ground, walls] + boxes)[:n_world]
+    return pts.astype(np.float32)
+
+
+def sample_scan(rng: np.random.Generator, world: np.ndarray,
+                pose_t: np.ndarray, n_pts: int,
+                noise: float = 0.02) -> np.ndarray:
+    """bench.py's scan of ``make_scene`` (bench.py:155-161): up to
+    ``n_pts`` points within 75 m of ``pose_t``, in its frame, with
+    Gaussian noise."""
+    local = world - pose_t[None, :]
+    d = np.linalg.norm(local, axis=1)
+    idx = np.flatnonzero(d < 75.0)
+    idx = rng.choice(idx, min(n_pts, len(idx)), replace=False)
+    return (local[idx] + rng.normal(size=(len(idx), 3)) * noise
+            ).astype(np.float32)
+
+
 def save_npz_stream(frames: Sequence[ScanFrame], path: str) -> None:
     """Persist a stream as one npz (ragged scans stored object-free by
     concatenation + offsets), in the JAX package's format."""

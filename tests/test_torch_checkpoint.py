@@ -7,6 +7,10 @@
   the port, a file the port wrote resumes in the JAX package, and each
   resumed run matches the other package's within the stream tolerance
   (1 mm / 0.01 degree a pose, sampling 1.0 on both sides).
+* An online file in the older layout of the same format version (an
+  archive without its per-track index, single-map ``ml_``/``md_`` keys)
+  loads in both packages with the same archive index and maps, and the
+  two resumed runs agree within the stream tolerance.
 * A two-track runner with device maps and a scan archive keeps its
   groups, prior slots, archive and maps, and links its tracks after the
   resume exactly as without it.
@@ -321,3 +325,53 @@ def test_two_track_runner_keeps_groups_archive_and_maps(tmp_path):
     for t in range(2):
         np.testing.assert_array_equal(r2.mapper.full_map(t),
                                       r.mapper.full_map(t))
+
+
+def legacy_layout(src, dst):
+    """JAX's online file rewritten in the older layout that JAX's loader
+    still reads (laser_slam_tpu/core/checkpoint.py:144-160, :166,
+    :178-181): no per-track archive index, single-map ``ml_``/``md_``
+    keys and no map track count."""
+    dropped = ('a_track_pos', 'a_track_keys', 'a_track_count',
+               'mapper_n_tracks')
+    with np.load(src) as z:
+        d = {k: z[k] for k in z.files if k not in dropped}
+    for k in list(d):
+        for old, new in (('ml0_', 'ml_'), ('md0_', 'md_')):
+            if k.startswith(old):
+                d[new + k[len(old):]] = d.pop(k)
+    np.savez(dst, **d)
+
+
+def test_legacy_online_checkpoint_resumes_in_both(tmp_path):
+    """A file JAX saved, in the older layout: both loaders rebuild the
+    same archive index and track-0 maps, and the resumed runs stay within
+    the stream tolerance of each other."""
+    cfg = small_config()
+    map_cfg = WorkerConfig(local_map_capacity=1 << 14, voxel_size_m=0.2)
+    fs = frames()
+    jrun = feed_runner(jon.OnlineRunner(
+        to_jax(cfg), archive_points=512, map_config=to_jax(map_cfg),
+        **CROSSED_CAPS), fs[:SPLIT])
+    src = os.path.join(tmp_path, 'online.npz')
+    legacy = os.path.join(tmp_path, 'legacy.npz')
+    jck.save_online_checkpoint(src, jrun)
+    legacy_layout(src, legacy)
+    with np.load(legacy) as z:
+        assert 'ml_points' in z and 'ml0_points' not in z
+        assert 'a_points' in z and 'a_track_pos' not in z
+    j = jck.load_online_checkpoint(legacy, to_jax(cfg),
+                                   map_config=to_jax(map_cfg))
+    t = tck.load_online_checkpoint(legacy, cfg, map_config=map_cfg,
+                                   device='cpu')
+    for name in ('track_pos', 'track_keys', 'track_count'):
+        np.testing.assert_array_equal(getattr(t.archive, name).numpy(),
+                                      np.asarray(getattr(jrun.archive,
+                                                         name)))
+        np.testing.assert_array_equal(getattr(t.archive, name).numpy(),
+                                      np.asarray(getattr(j.archive, name)))
+    np.testing.assert_array_equal(t.mapper.full_map(0),
+                                  j.mapper.full_map(0))
+    assert t.mapper._cursor_bound[0] == int(j.mapper.local_maps[0].cursor)
+    assert_close_trajectory(feed_runner(j, fs[SPLIT:]).trajectory(),
+                            feed_runner(t, fs[SPLIT:]).trajectory())

@@ -7,7 +7,8 @@ GPU machine (which has no jax), with the repo's conftest left out:
         tests/test_torch_kernels.py
 
 There the ``gpu`` tests build csrc/nn.cu and csrc/nn_variants.cu and
-hold K1, K2 and the shootout's kernels (E1-E6) to their plain versions
+hold K1, K2, their lane forms K1L and K2L (fleet mode) and the
+shootout's kernels (E1-E6) to their plain versions
 (E4/E5 also at awkward shapes, with copies across tiles, and for their
 work items and launches); here they skip.  Tolerances: K1 — d2 bit-equal and indices equal to its
 plain version (ties go to the lowest index); K2 — within the cutoff d2
@@ -258,6 +259,156 @@ def test_k2_counts_the_points_it_scans_on_card():
     _k2_holds(qc, pref, 3.0, d2, idx)
     assert bool(torch.all(scanned % rb == 0))
     assert 1 <= int(scanned.min()) and int(scanned.max()) <= 81920
+
+
+def _lane_scene(seed, lanes, n_q, n_ref):
+    """Lanes of queries against their own references, each lane its own
+    cloud; lane 0 holds exact copies of 40 points in a later reference
+    tile, lane 1 has every third reference row parked."""
+    g = np.random.default_rng(seed)
+    ref = (g.normal(size=(lanes, n_ref, 3)) * 5).astype(np.float32)
+    q = (g.normal(size=(lanes, n_q, 3)) * 5).astype(np.float32)
+    if n_ref > 4200 and n_q >= 40:
+        ref[0, 4100:4140] = ref[0, 10:50]
+        q[0, :40] = ref[0, 10:50] + 0.01
+    if lanes > 1:
+        ref[1, ::3] = 1.0e6
+    return q, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('lanes,n_q,n_ref', [(1, 250, 3001), (3, 250, 3001),
+                                             (5, 1, 7), (4, 8192, 16384),
+                                             (32, 4096, 4096)])
+def test_lane_kernels_match_plain_on_card(lanes, n_q, n_ref):
+    """K1L equals its plain version exactly and K2L keeps K2's contract
+    in every lane, one launch a call, at ragged query tiles, references
+    shorter than a tile, copies across tiles (the first copy wins) and
+    parked rows (never win); lane b equals single-lane K1 on lane b."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref = _lane_scene(12, lanes, n_q, n_ref)
+    qc, rc = torch.tensor(q, device='cuda'), torch.tensor(ref, device='cuda')
+    before = nk.nn_indices_lanes.launches
+    d2, idx = nk.nn_indices_lanes(qc, rc)
+    assert nk.nn_indices_lanes.launches == before + 1
+    pd2, pidx = nk.nn_indices_lanes_plain(qc, rc)
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    for b in range(lanes):
+        one = nk.nn_indices(qc[b], rc[b])
+        assert torch.equal(d2[b], one[0]) and torch.equal(idx[b], one[1])
+    if n_ref > 4200 and n_q >= 40:
+        assert torch.equal(idx[0, :40].cpu(),
+                           torch.arange(10, 50, dtype=torch.int32))
+    if lanes > 1:
+        assert not bool(torch.any(idx[1] % 3 == 0))
+    pref = nk.build_pruned_ref_lanes(rc)
+    for cutoff in (1.0, 3.0):
+        before = nk.nn_indices_pruned_lanes.launches
+        d2, idx = nk.nn_indices_pruned_lanes(qc, pref, cutoff)
+        assert nk.nn_indices_pruned_lanes.launches == before + 1
+        for b in range(lanes):
+            _k2_holds(qc[b], pref.lane(b), cutoff, d2[b], idx[b])
+        if lanes > 1:
+            inside = d2[1] <= cutoff ** 2
+            parked = pref.perm[1].long()[idx[1].long()] % 3 == 0
+            assert not bool(torch.any(parked & inside))
+
+
+@pytest.mark.gpu
+def test_k2l_counts_the_points_it_scans_on_card():
+    """K2L's ``scanned`` over every lane's query tiles: whole tiles, at
+    least one a query tile, and the same results as the wrapper."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref = _lane_scene(13, 6, 4096, 16384)
+    qc, rc = torch.tensor(q, device='cuda'), torch.tensor(ref, device='cuda')
+    pref = nk.build_pruned_ref_lanes(rc)
+    tables = nk.pruned_tables_lanes(qc, pref, 3.0)
+    qb, rb = tables[4], tables[5]
+    scanned = torch.zeros((6, 4096 // qb), dtype=torch.int32, device='cuda')
+    d2, idx = nk._launch_pruned(tables, pref, 3.0, scanned=scanned)
+    for b in range(6):
+        _k2_holds(qc[b], pref.lane(b), 3.0, d2[b], idx[b])
+    assert bool(torch.all(scanned % rb == 0))
+    assert 1 <= int(scanned.min()) and int(scanned.max()) <= 16384
+
+
+@pytest.mark.gpu
+def test_k2l_skips_far_tiles_on_clustered_lanes_on_card():
+    """On lanes of separate clusters K2L scans fewer pairs than all of
+    them (a K2L that never skips fails) and keeps K2's contract."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    g = np.random.default_rng(14)
+    centres = g.uniform(-40, 40, size=(4, 16, 3))
+    ref = (centres[:, :, None] + g.normal(size=(4, 16, 1024, 3))
+           ).reshape(4, -1, 3).astype(np.float32)
+    q = (centres[:, :4, None] + g.normal(size=(4, 4, 512, 3))
+         ).reshape(4, -1, 3).astype(np.float32)
+    qc, rc = torch.tensor(q, device='cuda'), torch.tensor(ref, device='cuda')
+    pref = nk.build_pruned_ref_lanes(rc)
+    tables = nk.pruned_tables_lanes(qc, pref, 3.0)
+    qb = tables[4]
+    scanned = torch.zeros((4, 2048 // qb), dtype=torch.int32, device='cuda')
+    d2, idx = nk._launch_pruned(tables, pref, 3.0, scanned=scanned)
+    for b in range(4):
+        _k2_holds(qc[b], pref.lane(b), 3.0, d2[b], idx[b])
+    assert int(scanned.sum()) * qb < 4 * 2048 * 16384
+
+
+@pytest.mark.gpu
+def test_fleet_runs_the_lane_kernels_on_card():
+    """A small fleet on the card with 'pallas' under both prune values:
+    K2L or K1L launches once an ICP iteration, never K1/K2, and the poses
+    agree with the same fleet on the CPU (plain versions) within 1e-4;
+    the map query launches K1L once."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from laser_slam_tpu_torch.config import IcpConfig
+    from laser_slam_tpu_torch.ops import cloud as pc
+    from laser_slam_tpu_torch.parallel import fleet
+    g = np.random.default_rng(14)
+    lanes, steps, n = 4, 3, 1024
+    base = (g.normal(size=(n, 3)) * [10, 10, 2]).astype(np.float32)
+    pts = np.stack([np.stack([base + [0.2 * t, 0.1 * b, 0] + g.normal(
+        size=(n, 3)).astype(np.float32) * 0.01 for t in range(steps)])
+        for b in range(lanes)]).astype(np.float32)
+    cpu = dict(points=torch.tensor(pts),
+               masks=torch.ones((lanes, steps, n), dtype=torch.bool))
+    cpu['normals'] = torch.stack([torch.stack([
+        pc.estimate_normals(pc.Cloud(cpu['points'][b, t],
+                                     cpu['masks'][b, t]), knn=8)
+        for t in range(steps)]) for b in range(lanes)])
+    cpu['init_pose'] = torch.tensor([1.0, 0, 0, 0, 0, 0, 0]).expand(
+        lanes, 7).contiguous()
+    odom = np.zeros((lanes, steps, 7), np.float32)
+    odom[..., 0] = 1.0
+    odom[:, 1:, 4] = 0.2
+    cpu['odom_rel'] = torch.tensor(odom)
+    card = {k: v.cuda() for k, v in cpu.items()}
+    for prune, counter in ((True, nk.nn_indices_pruned_lanes),
+                           (False, nk.nn_indices_lanes)):
+        cfg = IcpConfig(matcher='pallas', pallas_prune=prune,
+                        reading_capacity=n, reading_sampling_ratio=1.0,
+                        max_iterations=10)
+        singles = (nk.nn_indices.launches, nk.nn_indices_pruned.launches)
+        before = counter.launches
+        got = fleet.fleet_icp_odometry(**card, config=cfg)
+        assert counter.launches - before == 10 * (steps - 1)
+        assert (nk.nn_indices.launches,
+                nk.nn_indices_pruned.launches) == singles
+        want = fleet.fleet_icp_odometry(**cpu, config=cfg)
+        np.testing.assert_allclose(got.poses.cpu().numpy(),
+                                   want.poses.numpy(), atol=1e-4)
+    maps = fleet.init_fleet_maps(lanes, 2 * n)
+    maps = fleet.fleet_accumulate(maps, card['points'][:, 0],
+                                  card['masks'][:, 0], card['init_pose'])
+    before = nk.nn_indices_lanes.launches
+    idx, d2 = fleet.fleet_map_query(maps, card['points'][:, 1])
+    assert nk.nn_indices_lanes.launches == before + 1
+    pd2, pidx = nk.nn_indices_lanes_plain(card['points'][:, 1], maps.points)
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
 
 
 def _card_scenes():
