@@ -67,9 +67,9 @@ result line):
    normals, the dense window solve, packed uint16 ingest) through
    ``OnlineRunner(production_config(...), device='cuda')``; it has no
    hand-written kernel (the JAX package computes it outside Pallas).
-   (a) Accuracy at 16k density: 64 beam scans of 64 x 256 (2 laps of a
-   20 m circle, seed 11 as bench.py) with closures (i - 32, i) every 10
-   scans of lap 2, in ``production_config(16384, 16384, 512, 256)``, fed
+   (a) Accuracy at 16k density: the first 44 of 64 beam scans of 64 x
+   256 (2 laps of a 20 m circle, seed 11 as bench.py) with closures (i -
+   32, i) every 10 scans of lap 2, in ``production_config(16384, 16384, 512, 256)``, fed
    packed words; the same frames through the slice-1 exact path (K2,
    kNN normals, full-graph PCG) with the production noise models as the
    witness, as test_parity's oracle.  Production's mean error to ground
@@ -80,10 +80,10 @@ result line):
    on the card: the solver's float ``index_add_`` is atomic there, and
    two per-scan runs differ as much).  K1 and K2 must not launch in the
    production runs.
-   (b) Speed at KITTI density: the first 53 scans of bench.py's 116-scan
+   (b) Speed at KITTI density: the first 37 scans of bench.py's 116-scan
    64 x 2048 stream (131072 beams a scan, seed 12) in
    ``production_config(131072, 32768, 1024, 1024)``, packed: scans/s over
-   40 scans after 8 warm-up scans (host clock, ended by a synchronize),
+   24 scans after 8 warm-up scans (host clock, ended by a synchronize),
    ``torch.profiler`` over 4 more (launches a scan, busy share, top
    device ops), and each stage alone on the state left behind (upload,
    decode and pack, filters and normals, range-image build, ICP, window
@@ -191,14 +191,35 @@ result line):
    across tiles and parked rows (K2L also on 4 clustered lanes of 2048 x
    16384, four tiles a lane, where it must scan fewer than all pairs:
    ``clustered_scanned_share``), and their times at (b)'s shape.
+13. The data path in and out (slice 7).  (a) The first 48 frames of phase
+   9b's KITTI-density stream (64 x 2048 beams, seed 22) written as a
+   KITTI sequence (velodyne .bin with reflectance 0, times.txt, calib.txt
+   with a fixed Tr, camera-frame poses); read back through
+   ``replay.KittiStream`` (points byte-equal, poses within 1e-5 m / 1e-4
+   rad of the ground truth) and through the native ``PrefetchLoader``
+   (the library must be built and loaded); then
+   ``examples/kitti_replay.main`` at its defaults but
+   ``--scan-capacity 131072``, with a trajectory CSV and an occupancy map:
+   scans/s after 8 warm-up scans, ATE (mean < 0.10 m, max < 0.35 m),
+   RPE per 10 m, occupied cells (> 0), insert and read ms a scan, and the
+   points a scan beyond the default 32768; the same entry with
+   ``--matcher pallas`` over 16 scans (K2 at least 40 launches a scan, K1
+   none, the same ATE limits) and K2 held to its plain version at the
+   leg's submap (5 x 131072 points).  (b) The bag example's demo bag at
+   its defaults (24 revolutions x 15 VLP-16 packets) replayed on the card
+   through ``examples/bag_replay.replay``: at least 23 revolutions, ATE
+   rmse < 0.5 m, more than 100 occupied cells, one revolution's packets
+   decoded by the native library bit-equal to the numpy version, and
+   both decoders' ms a packet.  Its numbers go on a ``data_path`` line.
 
 The kernel counters are reset right before phase 5 (K2), phase 6 (K1),
 the shootout run of phase 7, the production, flagship and multi-robot
-runs of phases 8-10, the host-API lap and closure of phase 11 and the
-fleet and map runs of phase 12 (K1L, K2L), the main-path runs, and read
-right after; launches made to compare a kernel
-with its plain version are not counted.  Each kernel's bound is the larger of its bytes (inputs read
-once, outputs written once) over 3.35 TB/s and its operations over the
+runs of phases 8-10, the host-API lap and closure of phase 11, the
+fleet and map runs of phase 12 (K1L, K2L) and the KITTI example's K2
+leg of phase 13, the main-path runs, and read right after; launches
+made to compare a kernel with its plain version are not counted.  Each
+kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its operations over the
 card's rate for their type: f32 lane instructions over SMs x 128 lanes x
 the card's max SM clock (67 TFLOP/s counts an FMA as 2), bf16 tensor-core
 FLOPs over 989 TFLOP/s.  The pruned kernels' work depends on the data,
@@ -214,8 +235,9 @@ query is left out.  Device launches a call, set-up included, are counted
 by ``torch.profiler`` and must be at most 12 for E6 and 6 for E4 and
 E5.  The second-to-last line is the kernels' JSON
 record (K2's ``launches`` from phase 5, ``launches_host_api`` from phase
-11; K1L's and K2L's from phase 12, with the map query's ms through K1L
-and through the plain path); the last line is the result record.
+11, ``launches_kitti`` from phase 13; K1L's and K2L's from phase 12, with
+the map query's ms through K1L and through the plain path); the last line
+is the result record.
 """
 
 import dataclasses
@@ -251,12 +273,14 @@ INSTR_MIN_SCORE = 4     # 3 FMA, min (E4, E5, E6)
 LAUNCH_PROFILED = 5     # calls whose device launches are counted (E4-E6)
 E6_MAX_LAUNCHES = 12    # device launches an E6 call may make, set-up included
 MM_MAX_LAUNCHES = 6     # the same for E4 and E5
-# Phase 8, the production path.  (a) 64 scans over 2 laps (3.9 m a step);
-# (b) the first 53 scans of bench.py's 116-scan KITTI-density stream:
-# 8 warm-up, 40 timed, 4 profiled and one for the stage split.
-PROD_SCANS = 64
+# Phase 8, the production path.  (a) the first 44 of 64 scans over 2
+# laps (3.9 m a step; all 64 before phase 13 came, whose time this and
+# (b)'s 16 fewer timed scans make up); (b) the first 37 scans of
+# bench.py's 116-scan KITTI-density stream: 8 warm-up, 24 timed, 4
+# profiled and one for the stage split.
+PROD_SCANS, PROD_TAKE = 64, 44
 CHUNK_ATOL_M, CHUNK_ATOL_DEG = 0.01, 0.1
-KITTI_STREAM, KITTI_WARM, KITTI_TIMED, KITTI_PROFILE = 116, 8, 40, 4
+KITTI_STREAM, KITTI_WARM, KITTI_TIMED, KITTI_PROFILE = 116, 8, 24, 4
 # Phase 9, the flagship (SLAM with loop-closure detection).  (a) bench.py's
 # 16k place-recognition stream cut from 128 to 64 scans over its 2 laps;
 # (b) its 116-scan KITTI-density stream: 10 warm-up scans, a chunk of 8,
@@ -325,6 +349,20 @@ SERVE_LANE_ATOL = 1e-5
 # mean error of the batched solutions to the true offset, against
 # tests/test_parity.py's 10 cm for the projective production path.
 SERVE_TRUTH_M = 0.10
+# Phase 13, the data path: the first 48 frames of phase 9b's stream as a
+# KITTI sequence through the KITTI example at the full width of an HDL-64
+# scan (8 warm-up scans), 16 of them with K2; the bag example's defaults.
+DATA_SCANS, DATA_WARM, DATA_K2_SCANS = 48, 8, 16
+DATA_SCAN_CAP, DATA_DEFAULT_CAP = 131072, 32768
+DATA_ATE_MEAN_M, DATA_ATE_MAX_M = 0.10, 0.35
+DATA_POSE_ATOL = (1e-5, 1e-4)      # m, rad: the written poses read back
+BAG_REVOLUTIONS, BAG_RMSE_M, BAG_OCCUPIED = 23, 0.5, 100
+# A KITTI-like Tr (camera from velodyne): camera axes (right, down,
+# forward) = velodyne (-y, -z, +x), plus a lever arm.
+KITTI_TR = np.array([[0.0, -1.0, 0.0, -0.01],
+                     [0.0, 0.0, -1.0, -0.07],
+                     [1.0, 0.0, 0.0, -0.27],
+                     [0.0, 0.0, 0.0, 1.0]])
 _POOL = []
 
 
@@ -613,16 +651,16 @@ def production_phase(nk, streams):
 
     # (a) Accuracy at 16k density.
     t0 = time.perf_counter()
-    frames = list(vs.BeamStream(
+    frames = list(itertools.islice(vs.BeamStream(
         n_scans=PROD_SCANS, n_beams=64, n_azimuth=256, trajectory='circle',
         radius_m=20.0, world_size_m=80.0, range_noise_m=0.01,
-        odom_noise=0.005, seed=11, laps=2, packed=True))
+        odom_noise=0.005, seed=11, laps=2, packed=True), PROD_TAKE))
     half = PROD_SCANS // 2
-    closures = {i: (i - half, i) for i in range(half + 10, PROD_SCANS, 10)}
+    closures = {i: (i - half, i) for i in range(half + 10, PROD_TAKE, 10)}
     gt = np.stack([f.gt_pose7 for f in frames])
-    log(f'production (a): {PROD_SCANS} beam scans of 64 x 256 (2 laps of a '
-        f'20 m circle, seed 11) made in {time.perf_counter() - t0:.1f} s, '
-        f'closures at {sorted(closures)}')
+    log(f'production (a): the first {PROD_TAKE} of {PROD_SCANS} beam scans '
+        f'of 64 x 256 (2 laps of a 20 m circle, seed 11) made in '
+        f'{time.perf_counter() - t0:.1f} s, closures at {sorted(closures)}')
     cfg16 = production_config(16384, 16384, 512, 256)
     nk.nn_indices.launches = 0
     nk.nn_indices_pruned.launches = 0
@@ -1967,6 +2005,238 @@ def fleet_phase(nk, smi, bound, nn_bytes):
              'where)')]
 
 
+def write_kitti_sequence(root, frames):
+    """``frames`` as KITTI sequence 00 under ``root``: velodyne .bin (x,
+    y, z, reflectance 0 in f32), times.txt, calib.txt with KITTI_TR, and
+    poses/00.txt holding Tr @ T_velodyne @ inv(Tr) (camera frame)."""
+    from laser_slam_tpu_torch.ops import se3
+    seq = os.path.join(root, 'sequences', '00')
+    os.makedirs(os.path.join(seq, 'velodyne'))
+    os.makedirs(os.path.join(root, 'poses'))
+    for i, f in enumerate(frames):
+        pts = np.zeros((len(f.points), 4), np.float32)
+        pts[:, :3] = f.points
+        pts.tofile(os.path.join(seq, 'velodyne', f'{i:06d}.bin'))
+    T = se3.to_matrix(torch.tensor(np.stack([f.gt_pose7 for f in frames]),
+                                   dtype=torch.float64)).numpy()
+    cam = KITTI_TR @ T @ np.linalg.inv(KITTI_TR)
+    np.savetxt(os.path.join(root, 'poses', '00.txt'),
+               cam[:, :3].reshape(len(frames), 12), fmt='%.9f')
+    np.savetxt(os.path.join(seq, 'times.txt'),
+               [f.time_ns * 1e-9 for f in frames], fmt='%.6f')
+    with open(os.path.join(seq, 'calib.txt'), 'w') as fh:
+        fh.write('Tr: ' + ' '.join(f'{v:.9f}' for v in KITTI_TR[:3].ravel())
+                 + '\n')
+
+
+def data_path_phase(nk, streams, smi):
+    """Phase 13: the data path in and out (slice 7) through the KITTI and
+    bag examples' entry points on the card.  Returns its numbers."""
+    import tempfile
+    from laser_slam_tpu_torch import native
+    from laser_slam_tpu_torch.examples import bag_replay, kitti_replay
+    from laser_slam_tpu_torch.ops import se3
+    from laser_slam_tpu_torch.pipeline import occupancy, online, replay
+    from laser_slam_tpu_torch.pipeline.rosbag import RosbagReader
+    from laser_slam_tpu_torch.core import evaluation as ev
+    t_phase = time.perf_counter()
+    out = {'card': smi}
+    lib = native.require_native()       # no numpy fallback on this host
+    out['native_library'] = os.path.basename(native.loaded_path())
+    log(f'data path: native IO library {native.loaded_path()} loaded '
+        f'({lib})')
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(tmp.name, 'kitti')
+
+    # (a) KITTI at full width: the fixture, read back two ways.
+    frames, waited = fetched(streams, 'flagship_kitti')
+    frames = frames[:DATA_SCANS]
+    t0 = time.perf_counter()
+    write_kitti_sequence(root, frames)
+    n_pts = np.array([len(f.points) for f in frames])
+    beyond = np.maximum(n_pts - DATA_DEFAULT_CAP, 0)
+    log(f'data path (a): {DATA_SCANS} frames of phase 9b\'s stream '
+        f'({n_pts.mean():.0f} points a scan mean, {n_pts.max()} max) '
+        f'written as a KITTI sequence in {time.perf_counter() - t0:.1f} s '
+        f'({waited:.1f} s waited for the stream); at the default '
+        f'--scan-capacity {DATA_DEFAULT_CAP} a scan loses {beyond.mean():.0f}'
+        f' points mean ({beyond.mean() / n_pts.mean():.1%}), {beyond.max()} '
+        'max')
+    stream = replay.KittiStream(root, '00')
+    gt = np.stack([f.gt_pose7 for f in frames]).astype(np.float32)
+    read = list(stream)
+    if len(read) != DATA_SCANS or any(
+            r.points.tobytes() != np.asarray(f.points, np.float32).tobytes()
+            for r, f in zip(read, frames)):
+        raise AssertionError('data path: KittiStream did not read back the '
+                             'written points byte for byte')
+    got = torch.tensor(np.stack([r.odom_pose7 for r in read]))
+    dt = float(se3.translation_distance(got, torch.tensor(gt)).max())
+    dr = float(se3.rotation_angle(got, torch.tensor(gt)).max())
+    log(f'  KittiStream: points byte-equal, poses {dt:.3e} m / {dr:.3e} rad '
+        f'from the ground truth (limits {DATA_POSE_ATOL})')
+    if not (dt <= DATA_POSE_ATOL[0] and dr <= DATA_POSE_ATOL[1]):
+        raise AssertionError('data path: KittiStream poses off')
+    paths = [os.path.join(stream.velo_dir, f) for f in stream.files]
+    with native.PrefetchLoader(paths, max_points=DATA_SCAN_CAP + 1,
+                               depth=4) as loader:
+        if not loader.native:
+            raise AssertionError('data path: PrefetchLoader on numpy')
+        loaded = list(loader)
+    if [i for i, _ in loaded] != list(range(DATA_SCANS)) or any(
+            p.tobytes() != r.points.tobytes()
+            for (_, p), r in zip(loaded, read)):
+        raise AssertionError('data path: PrefetchLoader scans differ')
+    log('  PrefetchLoader (native thread): the same scans in order')
+
+    # The example at --scan-capacity 131072.
+    flags = ['--root', root, '--sequence', '00', '--scan-capacity',
+             str(DATA_SCAN_CAP)]
+    csv = os.path.join(tmp.name, 'traj.csv')
+    map_path = os.path.join(tmp.name, 'map.npz')
+    t0 = time.perf_counter()
+    res = kitti_replay.main(flags + ['--traj-out', csv, '--map-out',
+                                     map_path])
+    wall = time.perf_counter() - t0
+    warm = res['scan_s'][DATA_WARM:]
+    ate = res['ate']
+    rows = np.loadtxt(csv, delimiter=',')
+    out.update(
+        kitti_scans=res['n'], kitti_scans_per_s=len(warm) / sum(warm),
+        kitti_ms_per_scan=1e3 * float(np.mean(warm)),
+        kitti_wall_s=wall, ate_mean_m=ate.translation.mean,
+        ate_max_m=ate.translation.max, ate_rmse_m=ate.translation.rmse,
+        ate_rot_mean_deg=ate.rotation_deg.mean,
+        rpe_10m_trans_pct=(100 * res['rpe'].translation.mean
+                           if res['rpe'] else None),
+        rpe_10m_rot_deg=(res['rpe'].rotation_deg.mean if res['rpe']
+                         else None),
+        occupied_cells=res['occupied'],
+        insert_ms_per_scan=1e3 * float(np.mean(res['insert_s'])),
+        read_ms_per_scan=1e3 * float(np.mean(res['read_s'])),
+        points_per_scan=float(n_pts.mean()),
+        points_beyond_default_cap=float(beyond.mean()))
+    log(f'  {smi}: kitti_replay --scan-capacity {DATA_SCAN_CAP} '
+        f'(projective): {res["n"]} scans, {out["kitti_scans_per_s"]:.4f} '
+        f'scans/s after {DATA_WARM} warm-up scans '
+        f'({out["kitti_ms_per_scan"]:.3f} ms a scan), {wall:.1f} s in all; '
+        f'ATE mean {ate.translation.mean:.6f} m, max {ate.translation.max:.6f}'
+        f' m (limits {DATA_ATE_MEAN_M}, {DATA_ATE_MAX_M}); RPE per 10 m '
+        f'{out["rpe_10m_trans_pct"]} %, {out["rpe_10m_rot_deg"]} deg; '
+        f'{res["occupied"]} occupied cells, insert '
+        f'{out["insert_ms_per_scan"]:.3f} ms a scan (synchronized), '
+        f'KittiStream read {out["read_ms_per_scan"]:.3f} ms a scan')
+    if not (res['n'] == DATA_SCANS and rows.shape == (DATA_SCANS, 4)
+            and np.all(np.isfinite(rows))):
+        raise AssertionError('data path: trajectory CSV or scan count')
+    if not (ate.translation.mean < DATA_ATE_MEAN_M
+            and ate.translation.max < DATA_ATE_MAX_M):
+        raise AssertionError('data path: ATE out of bounds')
+    if not res['occupied']:
+        raise AssertionError('data path: empty occupancy map')
+    if res['runner'].device.type != 'cuda':
+        raise AssertionError('data path: the example did not run on cuda')
+
+    # The same entry with K2 over the first 16 scans.
+    nk.nn_indices.launches = 0
+    nk.nn_indices_pruned.launches = 0
+    t0 = time.perf_counter()
+    k2 = kitti_replay.main(flags + ['--matcher', 'pallas', '--max-scans',
+                                    str(DATA_K2_SCANS)])
+    k2_wall = time.perf_counter() - t0
+    k2_launches, k1_launches = (nk.nn_indices_pruned.launches,
+                                nk.nn_indices.launches)
+    per_scan = k2_launches / max(k2['n'] - 1, 1)
+    k2_ate = k2['ate']
+    k2_warm = k2['scan_s'][DATA_WARM:]
+    out.update(k2_scans=k2['n'], k2_launches=k2_launches,
+               k2_launches_per_scan=per_scan,
+               k2_scans_per_s=len(k2_warm) / sum(k2_warm),
+               k2_ate_mean_m=k2_ate.translation.mean,
+               k2_ate_max_m=k2_ate.translation.max)
+    log(f'  {smi}: kitti_replay --matcher pallas, {k2["n"]} scans: K2 '
+        f'{k2_launches} launches ({per_scan:.1f} a scan), K1 {k1_launches};'
+        f' {out["k2_scans_per_s"]:.4f} scans/s after {DATA_WARM} warm-up '
+        f'scans, {k2_wall:.1f} s in all; ATE mean '
+        f'{k2_ate.translation.mean:.6f} m, max {k2_ate.translation.max:.6f} m')
+    if per_scan < 40 or k1_launches or k2['n'] != DATA_K2_SCANS:
+        raise AssertionError('data path: K2 must launch at least 40 times '
+                             'a scan and K1 never')
+    if not (k2_ate.translation.mean < DATA_ATE_MEAN_M
+            and k2_ate.translation.max < DATA_ATE_MAX_M):
+        raise AssertionError('data path: K2 leg ATE out of bounds')
+    # K2 at the leg's submap against its plain version (launched after
+    # the counts were read): the next frame's reading in the newest
+    # scan's frame.
+    state = k2['runner'].state
+    ref, _ = online.submap(state)
+    last = k2['traj'][max(k2['traj'])]
+    rel = se3.compose(se3.inverse(torch.tensor(last)),
+                      torch.tensor(gt[DATA_K2_SCANS]))
+    step = max(len(frames[DATA_K2_SCANS].points) // READING, 1)
+    q = se3.apply(rel, torch.tensor(
+        frames[DATA_K2_SCANS].points[::step][:READING])).to('cuda')
+    pref = nk.build_pruned_ref(ref.points)
+    d2_k, idx_k = nk.nn_indices_pruned(q, pref, CUTOFF)
+    d2_p, idx_p = nk.nn_indices_pruned_plain(q, pref, CUTOFF)
+    inside = d2_p <= CUTOFF ** 2
+    check_nn(f'K2 at the KITTI leg\'s submap, {q.shape[0]} x '
+             f'{ref.points.shape[0]}', q, pref.points, d2_k, idx_k, d2_p,
+             idx_p, rows=inside, ties=True)
+    if bool(torch.any(d2_k[~inside] <= CUTOFF ** 2)) or (
+            ref.points.shape[0] != 5 * DATA_SCAN_CAP):
+        raise AssertionError('data path: K2 at the leg\'s submap')
+    out['k2_check_shape'] = [q.shape[0], ref.points.shape[0]]
+
+    # (b) The raw-packet bag at the example's defaults.
+    t0 = time.perf_counter()
+    bag = os.path.join(tmp.name, 'demo.bag')
+    gt_path = bag_replay.make_demo_bag(bag)
+    made = time.perf_counter() - t0
+    bag_map = os.path.join(tmp.name, 'bag_map.npz')
+    t0 = time.perf_counter()
+    traj = bag_replay.replay(bag, gt_path=gt_path, map_path=bag_map)
+    bag_wall = time.perf_counter() - t0
+    a = ev.ate(traj, ev.load_trajectory_tum(gt_path), align='origin')
+    occupied = len(occupancy.OccupancyGrid.load(bag_map).occupied_points())
+    packets = [bytes(p) for m in itertools.islice(
+        RosbagReader(bag, topics={'/velodyne_packets'}), 15)
+        for p in m.data[1]]
+    decoded = [native.decode_velodyne_packets(p) for p in packets]
+    plain = [native.decode_velodyne_packets_plain(p) for p in packets]
+    same = all(x.tobytes() == y.tobytes() for x, y in zip(decoded, plain))
+    native_ms = host_ms(
+        lambda: [native.decode_velodyne_packets(p) for p in packets], 20)
+    numpy_ms = host_ms(
+        lambda: [native.decode_velodyne_packets_plain(p) for p in packets],
+        20)
+    out.update(bag_revolutions=len(traj), bag_make_s=made,
+               bag_replay_s=bag_wall, bag_ate_rmse_m=a.translation.rmse,
+               bag_ate_max_m=a.translation.max, bag_occupied_cells=occupied,
+               decode_native_ms_per_packet=native_ms / len(packets),
+               decode_numpy_ms_per_packet=numpy_ms / len(packets),
+               decode_points_per_revolution=int(sum(map(len, decoded))))
+    log(f'data path (b): demo bag (24 revolutions x 15 VLP-16 packets) made '
+        f'in {made:.1f} s; bag_replay on cuda {bag_wall:.1f} s: '
+        f'{len(traj)} revolutions, ATE rmse {a.translation.rmse:.6f} m '
+        f'(limit {BAG_RMSE_M}), {occupied} occupied cells; one revolution '
+        f'({len(packets)} packets, {out["decode_points_per_revolution"]} '
+        f'points) decoded {"bit-equal" if same else "NOT bit-equal"} by the '
+        f'library and numpy; {smi}: decode '
+        f'{out["decode_native_ms_per_packet"]:.4f} ms a packet native, '
+        f'{out["decode_numpy_ms_per_packet"]:.4f} numpy')
+    if not same:
+        raise AssertionError('data path: native and numpy decodes differ')
+    if len(traj) < BAG_REVOLUTIONS or not a.translation.rmse < BAG_RMSE_M:
+        raise AssertionError('data path: bag replay out of bounds')
+    if occupied <= BAG_OCCUPIED:
+        raise AssertionError('data path: near-empty bag occupancy map')
+    tmp.cleanup()
+    out['phase_s'] = time.perf_counter() - t_phase
+    log(f'  phase 13 took {out["phase_s"]:.1f} s')
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: chip_smoke.py runs on a GPU')
@@ -2538,6 +2808,11 @@ def main():
     elapsed(12)
     lane_records = fleet_phase(nk, smi, bound, nn_bytes)
 
+    # 13. The data path in and out (slice 7) ------------------------------
+    elapsed(13)
+    data_path = data_path_phase(nk, streams, smi)
+    kernels['K2']['launches_kitti'] = data_path['k2_launches']
+
     # Records ----------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'
     record = {'kernels': [
@@ -2558,6 +2833,7 @@ def main():
         for key in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6')] + lane_records}
     print(f'E3 sweep at {SHOOT_Q} x {SHOOT_R}: {json.dumps(sweep_line)}',
           flush=True)
+    print('data_path: ' + json.dumps(data_path), flush=True)
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {

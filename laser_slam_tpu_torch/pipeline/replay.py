@@ -4,14 +4,15 @@ Counterpart of ``ScanFrame`` and ``SyntheticStream`` in
 ``laser_slam_tpu/pipeline/replay.py``: the same box-room world, the same
 trajectories and the same numpy random stream, so one seed gives the
 same scans as the JAX package's stream; the portable npz log format
-(:func:`save_npz_stream` / :func:`load_npz_stream`); and the replay main
-loop of the host API (:func:`run_worker_on_stream`).  The KITTI reader
-is still to be ported (ROADMAP queue 1).
+(:func:`save_npz_stream` / :func:`load_npz_stream`); the KITTI odometry
+reader (:class:`KittiStream`); and the replay main loop of the host API
+(:func:`run_worker_on_stream`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -223,6 +224,75 @@ def load_npz_stream(path: str) -> List[ScanFrame]:
             points=points[offsets[i]:offsets[i + 1]].astype(np.float32),
             gt_pose7=None if np.isnan(gt[0]) else gt.astype(np.float32)))
     return frames
+
+
+class KittiStream:
+    """KITTI odometry sequence reader.
+
+    Expects the standard layout::
+
+        <root>/sequences/<seq>/velodyne/*.bin   (x,y,z,refl float32)
+        <root>/sequences/<seq>/times.txt        (optional: 0.1 s steps)
+        <root>/sequences/<seq>/calib.txt        (optional: Tr)
+        <root>/poses/<seq>.txt                  (optional, camera frame)
+
+    Poses are converted from the KITTI camera frame to the velodyne frame
+    as ``inv(Tr) @ T_cam @ Tr`` when calib.txt holds Tr, then to pose7
+    by the port's ``se3.from_matrix`` on float32 CPU tensors (the JAX
+    reader does the same in float32 ``jnp``).  Scans are read with
+    ``np.fromfile`` as the JAX reader reads them; the native
+    ``PrefetchLoader`` reads the same files in a background thread.
+    """
+
+    def __init__(self, root: str, sequence: str = '00',
+                 max_scans: Optional[int] = None, use_poses_as_odom=True):
+        self.seq_dir = os.path.join(root, 'sequences', sequence)
+        self.velo_dir = os.path.join(self.seq_dir, 'velodyne')
+        if not os.path.isdir(self.velo_dir):
+            raise FileNotFoundError(self.velo_dir)
+        self.files = sorted(os.listdir(self.velo_dir))
+        if max_scans:
+            self.files = self.files[:max_scans]
+        times_path = os.path.join(self.seq_dir, 'times.txt')
+        self.times = (np.loadtxt(times_path) if os.path.exists(times_path)
+                      else np.arange(len(self.files)) * 0.1)
+        self.poses = None
+        poses_path = os.path.join(root, 'poses', sequence + '.txt')
+        if use_poses_as_odom and os.path.exists(poses_path):
+            P = np.loadtxt(poses_path).reshape(-1, 3, 4)
+            Tr = self._load_calib_tr()
+            T = np.tile(np.eye(4), (len(P), 1, 1))
+            T[:, :3] = P
+            if Tr is not None:
+                T = np.linalg.inv(Tr) @ T @ Tr
+            poses = se3.from_matrix(torch.as_tensor(T, dtype=torch.float32))
+            self.poses = list(poses.numpy())
+
+    def _load_calib_tr(self):
+        calib = os.path.join(self.seq_dir, 'calib.txt')
+        if not os.path.exists(calib):
+            return None
+        with open(calib) as f:
+            for line in f:
+                if line.startswith('Tr'):
+                    vals = np.asarray(
+                        [float(x) for x in line.split()[1:]]).reshape(3, 4)
+                    T = np.eye(4)
+                    T[:3] = vals
+                    return T
+        return None
+
+    def __len__(self):
+        return len(self.files)
+
+    def __iter__(self) -> Iterator[ScanFrame]:
+        for i, fname in enumerate(self.files):
+            raw = np.fromfile(os.path.join(self.velo_dir, fname),
+                              dtype=np.float32).reshape(-1, 4)
+            pose = self.poses[i] if self.poses is not None else None
+            yield ScanFrame(
+                time_ns=int(self.times[i] * 1e9),
+                odom_pose7=pose, points=raw[:, :3].copy(), gt_pose7=pose)
 
 
 def run_worker_on_stream(worker, stream, max_scans: Optional[int] = None,

@@ -16,9 +16,9 @@ not device compute).
 
 Port copy: the same code as ``laser_slam_tpu/pipeline/velodyne_sim.py``
 (one seed gives bit-identical frames), with the port's ``ScanFrame``,
-the port's range encoder, and the two pieces of the JAX package's
-packet writer it needs (``VLP16_ELEV_DEG``, ``encode_velodyne_packet``)
-copied in, so it imports numpy only.
+the port's range encoder, ``VLP16_ELEV_DEG`` from the port's ``native``
+and the port's one definition of ``encode_velodyne_packet`` (which
+``bag_writer`` re-exports).
 """
 
 from __future__ import annotations
@@ -28,6 +28,9 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+# VLP16_ELEV_DEG: the VLP-16 table in FIRING order (the raw packet's
+# channel order, as the packet decoder reads it).
+from laser_slam_tpu_torch.native import VLP16_ELEV_DEG
 from laser_slam_tpu_torch.pipeline.replay import ScanFrame
 
 # HDL-64E-class elevation table: 64 beams from +2 deg down to -24.8 deg
@@ -35,10 +38,6 @@ from laser_slam_tpu_torch.pipeline.replay import ScanFrame
 HDL64_ELEV_DEG = np.linspace(2.0, -24.8, 64)
 # VLP-16 table in RING order (top to bottom), for 16-beam workloads.
 VLP16_ELEV_DEG_SORTED = np.linspace(15.0, -15.0, 16)
-# VLP-16 table in FIRING order (the raw packet's channel order, as the
-# native packet decoder of the JAX package reads it).
-VLP16_ELEV_DEG = (-15.0, 1.0, -13.0, 3.0, -11.0, 5.0, -9.0, 7.0,
-                  -7.0, 9.0, -5.0, 11.0, -3.0, 13.0, -1.0, 15.0)
 
 
 @dataclasses.dataclass

@@ -762,3 +762,47 @@ def test_host_api_runs_k2_and_resumes_from_a_checkpoint_on_card(tmp_path):
     assert nk.nn_indices_pruned.launches > before
     assert nk.nn_indices.launches == 0
     assert np.all(np.isfinite(est.pose_values()))
+
+
+@pytest.mark.gpu
+def test_kitti_replay_runs_k2_on_card(tmp_path):
+    """The KITTI example on a small KITTI-layout sequence with
+    ``--matcher pallas``: every scan's ICP launches K2 on the card, and the
+    trajectory ends within 1e-4 m of the same run on the CPU (both
+    exact; the card's float index_add_ may round otherwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from laser_slam_tpu_torch.examples import kitti_replay
+    from laser_slam_tpu_torch.pipeline import replay
+    seq = tmp_path / 'sequences' / '00'
+    os.makedirs(seq / 'velodyne')
+    os.makedirs(tmp_path / 'poses')
+    frames = list(replay.SyntheticStream(
+        n_scans=6, points_per_scan=4096, trajectory='line', step_m=1.2,
+        noise_m=0.01, seed=17))
+    rows = []
+    for i, f in enumerate(frames):
+        np.concatenate([f.points, np.zeros((len(f.points), 1), np.float32)],
+                       1).tofile(seq / 'velodyne' / f'{i:06d}.bin')
+        w, x, y, z = f.gt_pose7[:4].astype(np.float64)
+        R = [[1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+              2 * (x * z + w * y)],
+             [2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+              2 * (y * z - w * x)],
+             [2 * (x * z - w * y), 2 * (y * z + w * x),
+              1 - 2 * (x * x + y * y)]]
+        rows.append(np.concatenate([R, f.gt_pose7[4:, None]], 1).ravel())
+    np.savetxt(tmp_path / 'poses' / '00.txt', np.asarray(rows), fmt='%.9f')
+    flags = ['--root', str(tmp_path), '--sequence', '00', '--matcher',
+             'pallas', '--window', '0', '--scan-capacity', '4096',
+             '--reading-capacity', '2048', '--reading-sampling', '1.0']
+    nk.nn_indices.launches = nk.nn_indices_pruned.launches = 0
+    card = kitti_replay.main(flags)
+    assert card['runner'].device.type == 'cuda'
+    assert nk.nn_indices_pruned.launches >= 40 * (card['n'] - 1)
+    assert nk.nn_indices.launches == 0
+    cpu = kitti_replay.main(flags + ['--cpu'])
+    a = np.stack([card['traj'][t] for t in sorted(cpu['traj'])])
+    b = np.stack([cpu['traj'][t] for t in sorted(cpu['traj'])])
+    assert np.abs(a[:, 4:] - b[:, 4:]).max() < 1e-4
+    assert card['ate'].translation.mean < 0.3

@@ -276,12 +276,34 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_never_import_jax():
+    """No port source and no chip_smoke.py imports the JAX package (or
+    jax, scipy, experiments), nor names a path into it: the JAX native
+    directory, its library's file name (the port builds its own under
+    ``_build/`` with a hashed name), or a path component
+    ``'laser_slam_tpu'`` given to os.path.join or pathlib."""
     pattern = re.compile(r'^\s*(import|from)\s+'
                          r'(jax|laser_slam_tpu|experiments|scipy)(\.|\s|$)',
                          re.M)
+    path_patterns = [
+        re.compile(r'laser_slam_tpu[/\\]native'),
+        re.compile(r'liblaserslamio\.so'),
+        re.compile(r"""['"]laser_slam_tpu['"]"""),
+        re.compile(r"""import_module\(\s*['"](jax|laser_slam_tpu)\b"""),
+    ]
     files = [os.path.join(REPO, 'chip_smoke.py')]
-    for root, _, names in os.walk(os.path.join(REPO, 'laser_slam_tpu_torch')):
-        files += [os.path.join(root, n) for n in names if n.endswith('.py')]
+    for root, dirs, names in os.walk(os.path.join(REPO,
+                                                  'laser_slam_tpu_torch')):
+        dirs[:] = [d for d in dirs if d != '_build']
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith(('.py', '.cpp', '.cu', '.cuh'))]
     for path in files:
         with open(path) as fh:
-            assert not pattern.search(fh.read()), path
+            text = fh.read()
+        assert not pattern.search(text), path
+        for p in path_patterns:
+            assert not p.search(text), (path, p.pattern)
+    # The patterns catch what they are meant to.
+    for bad in ("os.path.join(REPO, 'laser_slam_tpu', 'native')",
+                'ctypes.CDLL("laser_slam_tpu/native/liblaserslamio.so")',
+                "importlib.import_module('laser_slam_tpu.native')"):
+        assert any(p.search(bad) for p in path_patterns), bad
