@@ -85,9 +85,13 @@ result line):
    ``production_config(131072, 32768, 1024, 1024)``, packed: scans/s over
    24 scans after 8 warm-up scans (host clock, ended by a synchronize),
    ``torch.profiler`` over 4 more (launches a scan, busy share, top
-   device ops), and each stage alone on the state left behind (upload,
-   decode and pack, filters and normals, range-image build, ICP, window
-   solve; synchronized ms a call).  ATE max < 0.35 m and final < 0.15 m.
+   device ops), and the stage split of the next scan on the runner left
+   behind: ``profiling.step_breakdown`` (full_step, device-busy ms of one
+   step on a clone of the state; decode_packed, ingest_filters,
+   store_decimate, normals, submap_assembly, reading_prep, icp with its
+   range-image build, window_solve, pr_query: synchronized ms a call)
+   beside the upload of the packed words, and the synchronized wall ms
+   of one step.  ATE max < 0.35 m and final < 0.15 m.
 9. The flagship path (slice 3: SLAM with loop-closure detection) through
    ``OnlineRunner(flagship_config(...), **FLAGSHIP_RUNNER,
    place_recognition=flagship_place_recognition(), device='cuda')``: the
@@ -211,20 +215,41 @@ result line):
    rmse < 0.5 m, more than 100 occupied cells, one revolution's packets
    decoded by the native library bit-equal to the numpy version, and
    both decoders' ms a packet.  Its numbers go on a ``data_path`` line.
+14. The demos and the profiling functions (slice 8).  (a) The port's
+   three demos at their defaults on the card through their ``main()``
+   (``laser_slam_tpu_torch/examples/``), each passing its own checks:
+   ``synthetic_slam_demo`` (20 scans of 8192 points on a 12 m circle,
+   the host API, a ground-truth closure; error max < 0.5 m) as is and
+   with ``--matcher pallas``, where K2 must launch at least 40 times a
+   scan after the first and K1 never, and K2 is held to its plain
+   version at the demo's submap (4096 x 24576);
+   ``auto_loop_closure_demo`` (48 scans, 2 laps, brute ICP, with and
+   without the detector; detections a lap apart, ATE max < 0.5 m);
+   ``multi_robot_demo`` (2 x 12 scans, the cross-track link and a
+   strong refine; combined-map error max < 0.10 m).  Their numbers go
+   on a ``demos`` line.  (b) ``profiling``: phase 8b's step_breakdown
+   must hold every key, finite and > 0, with full_step at most the
+   synchronized wall ms of a step; ``nn_kernel_utilization`` at phase
+   3's scene must give K1 within 25% of phase 3's time and a fraction of
+   its bound in (0, 1.05]; ``core/benchmarker.device_trace`` around 4
+   scans of a slice-1 runner must leave one trace that names
+   ``nn_items_kernel``.  Its numbers go on a ``profiling`` line.
 
 The kernel counters are reset right before phase 5 (K2), phase 6 (K1),
 the shootout run of phase 7, the production, flagship and multi-robot
 runs of phases 8-10, the host-API lap and closure of phase 11, the
-fleet and map runs of phase 12 (K1L, K2L) and the KITTI example's K2
-leg of phase 13, the main-path runs, and read right after; launches
+fleet and map runs of phase 12 (K1L, K2L), the KITTI example's K2
+leg of phase 13, the synthetic demo's K2 run and the K1 roofline of
+phase 14, the main-path runs, and read right after; launches
 made to compare a kernel with its plain version are not counted.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the
 card's rate for their type: f32 lane instructions over SMs x 128 lanes x
 the card's max SM clock (67 TFLOP/s counts an FMA as 2), bf16 tensor-core
-FLOPs over 989 TFLOP/s.  The pruned kernels' work depends on the data,
-so their bounds count the pairs that this run's data needs: the fewer of
-the pairs their Pallas walks scan, replayed in plain torch
+FLOPs over 989 TFLOP/s (``profiling.CardPeaks.bound``, the port's one
+definition of a kernel's bound).  The pruned kernels' work depends on
+the data, so their bounds count the pairs that this run's data needs:
+the fewer of the pairs their Pallas walks scan, replayed in plain torch
 (``nn_kernels.pruned_visits`` for K2, ``nn_variants.pruned_walk`` for
 E6, ``walk_share``), and the pairs the kernel itself scanned in the
 least of 5 counted calls (``scanned_share`` is their mean), since both
@@ -235,11 +260,13 @@ query is left out.  Device launches a call, set-up included, are counted
 by ``torch.profiler`` and must be at most 12 for E6 and 6 for E4 and
 E5.  The second-to-last line is the kernels' JSON
 record (K2's ``launches`` from phase 5, ``launches_host_api`` from phase
-11, ``launches_kitti`` from phase 13; K1L's and K2L's from phase 12, with
+11, ``launches_kitti`` from phase 13, ``launches_demo`` from phase 14;
+K1's ``launches_profiling`` from phase 14; K1L's and K2L's from phase 12, with
 the map query's ms through K1L and through the plain path); the last line
 is the result record.
 """
 
+import collections
 import dataclasses
 import itertools
 import json
@@ -252,6 +279,13 @@ import traceback
 import numpy as np
 import torch
 
+from laser_slam_tpu_torch.pipeline.online import clone_state
+# The card's peaks, the instructions a pair of each 1-NN form, the bytes
+# of a 1-NN call and the timers: one definition, the port's.
+from laser_slam_tpu_torch.pipeline.profiling import (
+    INSTR_ARGMIN, INSTR_EXACT, INSTR_MIN_SCORE, card_peaks, device_events,
+    event_ms, nn_bytes, sync_ms)
+
 N_SCANS = 64
 N_POINTS = 16384
 READING = 8192
@@ -260,16 +294,6 @@ CUTOFF = 3.0
 POSE_ATOL = 1e-4
 PROFILE_SCANS = range(12, 16)
 SHOOT_Q, SHOOT_R = 8192, 65536
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
-# f32 lane instructions per (query, reference) pair that the function
-# needs: the arithmetic and what keeps the running minimum (value and
-# index for the exact kernels; the score's minimum alone for the matmul
-# form, whose index, ties and payloads are an epilogue's second scoring of
-# one tile a query, not counted).
-INSTR_EXACT = 11        # 3 sub, 3 mul, 2 add, compare, 2 selects (K1, K2)
-INSTR_ARGMIN = 3        # compare, 2 selects (E1 bf16, product on tensor cores)
-INSTR_MIN_SCORE = 4     # 3 FMA, min (E4, E5, E6)
 LAUNCH_PROFILED = 5     # calls whose device launches are counted (E4-E6)
 E6_MAX_LAUNCHES = 12    # device launches an E6 call may make, set-up included
 MM_MAX_LAUNCHES = 6     # the same for E4 and E5
@@ -408,21 +432,6 @@ def fetched(streams, name):
     return frames, time.perf_counter() - t0
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call on the card (CUDA events, warmed up)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def pair_d2(q, ref, idx):
     """f32 d2 of each query to ref[idx], rounded as neighbors.sqdist."""
     d = q - ref[idx.long()]
@@ -493,11 +502,19 @@ def measured_closure(frames, traj, i, j, se3, torch):
     return se3.compose(T_a, se3.compose(rel, se3.inverse(T_b))).numpy()
 
 
+DeviceRow = collections.namedtuple('DeviceRow',
+                                   'key count self_device_time_total')
+
+
 def device_rows(prof):
-    """The profiler's averages of work that ran on the card."""
-    from torch.autograd import DeviceType
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    """The work that ran on the card summed by name, as the device rows of
+    the profiler's ``key_averages()`` (launches, self time in us), from
+    ``profiling.device_events`` (phase 4 checks that the two agree)."""
+    rows = {}
+    for name, _, dur in device_events(prof):
+        count, total = rows.get(name, (0, 0))
+        rows[name] = (count + 1, total + dur)
+    return [DeviceRow(k, c, t / 1e3) for k, (c, t) in rows.items()]
 
 
 def device_launches(prof):
@@ -531,9 +548,8 @@ def launches_a_call(name, call, items_kernel, most):
     if launches > most:
         raise AssertionError(f'{name}: {launches} device launches a call, '
                              f'above {most}')
-    split = {e.key.split('(')[0]: getattr(
-        e, 'self_device_time_total', getattr(e, 'self_cuda_time_total', 0))
-        / 1e3 / LAUNCH_PROFILED for e in rows}
+    split = {e.key.split('(')[0]: e.self_device_time_total / 1e3
+             / LAUNCH_PROFILED for e in rows}
     return launches, split
 
 
@@ -545,9 +561,7 @@ def profile_summary(prof, wall_s, scans, focus=(), top=5):
     Returns the numbers, or None when the profiler saw no device time."""
     t0 = time.perf_counter()
     rows = device_rows(prof)
-    t = {e.key: getattr(e, 'self_device_time_total',
-                        getattr(e, 'self_cuda_time_total', 0)) / 1e3
-         for e in rows}
+    t = {e.key: e.self_device_time_total / 1e3 for e in rows}
     total = sum(t.values())
     if total <= 0:
         log('  profiler: no device time recorded (not measured)')
@@ -568,20 +582,6 @@ def profile_summary(prof, wall_s, scans, focus=(), top=5):
         log(f'    {v:9.3f} ms  {100 * v / total:5.2f}%  {key[:90]}')
     return dict(launches_per_scan=launches / n, busy_pct=busy,
                 device_ms_per_scan=total / n)
-
-
-def sync_ms(fn, reps):
-    """Mean wall milliseconds of one call, synchronized before and after:
-    the host's issue and the card's work together."""
-    fn()
-    torch.cuda.synchronize()
-    spent = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        spent.append(time.perf_counter() - t0)
-    return 1e3 * float(np.mean(spent))
 
 
 def pose_gaps(a, b):
@@ -643,9 +643,9 @@ def production_phase(nk, streams):
     (a) accuracy at 16k density against the exact slice-1 path and
     ground truth, (b) speed and the stage split at KITTI density."""
     from laser_slam_tpu_torch.config import production_config, slice1_config
-    from laser_slam_tpu_torch.ops import icp as icp_mod, range_image as ri
-    from laser_slam_tpu_torch.ops import se3, spherical
-    from laser_slam_tpu_torch.pipeline import online, velodyne_sim as vs
+    from laser_slam_tpu_torch.ops import spherical
+    from laser_slam_tpu_torch.pipeline import online, profiling
+    from laser_slam_tpu_torch.pipeline import velodyne_sim as vs
     dev = torch.device('cuda')
     out = {}
 
@@ -759,54 +759,37 @@ def production_phase(nk, streams):
     scans = range(KITTI_WARM + KITTI_TIMED, len(feed))
     prof_out = profile_summary(prof, prof_wall, scans, top=12)
 
-    # The stage split: each stage alone on the state the run left, fed
-    # the next scan (synchronized wall ms of one call, mean of 5).
-    state = runner.state
+    # The stage split: profiling.step_breakdown on the runner the run
+    # left, fed the next scan (each stage synchronized wall ms of one call,
+    # mean of 5; full_step the device-busy ms of one step on a clone of
+    # the state, median of 5), beside the upload of its packed words,
+    # which the JAX package has no stage for.  full_step_wall_ms is the
+    # synchronized wall ms of the same step, for phase 14.
     nxt = frames[-1]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    table = runner._beam_table
-    stage = {}
-    stage['upload'] = sync_ms(
-        lambda: spherical.words_to_device(nxt.range_words, dev), 5)
-    words = spherical.words_to_device(nxt.range_words, dev)
-    stage['decode_and_pack'] = sync_ms(
-        lambda: spherical.decode_and_pack(words, table), 5)
-    points, n_valid = spherical.decode_and_pack(words, table)
-    stage['filters_and_normals'] = sync_ms(
-        lambda: online.ingest(points, n_valid, cfg, gen), 5)
-    scan, _ = online.ingest(points, n_valid, cfg, gen)
-    icp_cfg = cfg.laser_track.icp
-    reference, ref_normals = online.submap(state)
-    reading = online.reading_of(scan, cfg, gen)
-    last = int(state.track_last_key[0])
-    guess = se3.compose(se3.inverse(state.pose_meas[last]), se3.normalize(
-        torch.tensor(nxt.odom_pose7, device=dev)))
-    stage['range_image_build'] = sync_ms(lambda: ri.build_range_image(
-        reference, ref_normals, rows=icp_cfg.range_image_rows,
-        cols=icp_cfg.range_image_cols, elev_min=icp_cfg.range_image_elev_min,
-        elev_max=icp_cfg.range_image_elev_max,
-        window=icp_cfg.range_image_window), 5)
-    stage['icp'] = sync_ms(lambda: icp_mod.icp_point_to_plane(
-        reading, reference, ref_normals, guess, icp_cfg), 5)
-    res = icp_mod.icp_point_to_plane(reading, reference, ref_normals, guess,
-                                     icp_cfg)
-    i = state.n_poses - 1
-    stage['window_solve'] = sync_ms(lambda: online._window_solve(
-        state._replace(traj_poses=state.traj_poses.clone()), i, cfg), 5)
-    log(f'  stage split (ms a call, synchronized, mean of 5; the ICP '
-        f'includes the range-image build and ran '
-        f'{int(res.iterations)} iterations): '
-        + ', '.join(f'{k} {v:.3f}' for k, v in stage.items()))
+    t0 = time.perf_counter()
+    stage = {'upload': sync_ms(
+        lambda: spherical.words_to_device(nxt.range_words, dev), 5)}
+    stage.update(profiling.step_breakdown(
+        runner, nxt.points, nxt.odom_pose7, ranges_u16=nxt.range_words,
+        reps=5))
+    step_wall = profiling.full_step_wall_ms(runner, nxt.points,
+                                            nxt.odom_pose7, reps=5)
+    log(f'  stage split (profiling.step_breakdown; ms a call, synchronized, '
+        f'mean of 5; full_step device-busy, median of 5; the ICP includes '
+        f'the range-image build): '
+        + ', '.join(f'{k} {v:.3f}' for k, v in stage.items())
+        + f'; one step {step_wall:.3f} ms synchronized wall (median of 5); '
+        f'taken in {time.perf_counter() - t0:.1f} s')
     if not (ate.max() < 0.35 and ate[-1] < 0.15):
         raise AssertionError(f'production (b): ATE out of bounds (max '
                              f'{ate.max()}, final {ate[-1]})')
     out.update(kitti_scans_per_s=rate, kitti_ate_max_m=float(ate.max()),
-               kitti_ate_final_m=float(ate[-1]),
-               stage_ms={k: round(v, 4) for k, v in stage.items()})
+               kitti_ate_final_m=float(ate[-1]), stage_ms=stage,
+               full_step_wall_ms=step_wall)
     if prof_out is not None:
         out.update(prof_out)
     log('  production: ' + json.dumps(out))
+    return out
 
 
 def detection_alignment(state, key_a, key_b, yaw):
@@ -817,10 +800,6 @@ def detection_alignment(state, key_a, key_b, yaw):
     rz = torch.tensor([np.cos(yaw / 2), 0, 0, np.sin(yaw / 2), 0, 0, 0],
                       dtype=torch.float32)
     return se3.compose(pair[0], se3.compose(rz, se3.inverse(pair[1])))
-
-
-def clone_state(state):
-    return type(state)(*(t.clone() for t in state))
 
 
 def flagship_run(cfg, frames, pr, chunk=None):
@@ -1627,7 +1606,7 @@ def host_api_phase(nk, frames, smi, online_lap=None, flag_frames=None):
     return out
 
 
-def fleet_phase(nk, smi, bound, nn_bytes):
+def fleet_phase(nk, smi, bound):
     """Phase 12: fleet mode and the batched serving path
     (``parallel/fleet.py``) at bench.py's full width, and the kernel
     checks of K1L/K2L.  Returns the kernels' record entries."""
@@ -1795,8 +1774,7 @@ def fleet_phase(nk, smi, bound, nn_bytes):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
-    dev_ms = {e.key: getattr(e, 'self_device_time_total', getattr(
-        e, 'self_cuda_time_total', 0)) / 1e3 for e in rows}
+    dev_ms = {e.key: e.self_device_time_total / 1e3 for e in rows}
     total = sum(dev_ms.values())
     k1l_dev = sum(v for k, v in dev_ms.items() if 'nn_items_kernel' in k)
     log(f'  profiler over one K1L fleet call: {device_launches(prof)} '
@@ -1858,9 +1836,9 @@ def fleet_phase(nk, smi, bound, nn_bytes):
         raise AssertionError(f'phase 12: K1L {k1l_launches}, K2L '
                              f'{k2l_launches} launches; K1/K2 launched')
     qps = B * N * FLEET_MAP_REPS / map_s
-    map_plain_ms = cuda_ms(lambda: nk.nn_indices_lanes_plain(q0, maps.points),
+    map_plain_ms = event_ms(lambda: nk.nn_indices_lanes_plain(q0, maps.points),
                            1)
-    map_ms = cuda_ms(lambda: fleet.fleet_map_query(maps, q0), 5)
+    map_ms = event_ms(lambda: fleet.fleet_map_query(maps, q0), 5)
     log(f'phase 12 (c) maps: {B} lanes of {FLEET_MAP_CAP}, {T} scans: '
         f'fleet_map_query {qps:.1f} queries/s through K1L ({map_ms:.4f} '
         f'ms a call by CUDA events), the plain path on the same maps '
@@ -1953,22 +1931,22 @@ def fleet_phase(nk, smi, bound, nn_bytes):
 
     # Times at the fleet ICP's shape.
     pairs = B * N * N
-    k1l_ms = cuda_ms(lambda: nk.nn_indices_lanes(q_b, r_b), 20)
-    k1l_plain = cuda_ms(lambda: nk.nn_indices_lanes_plain(q_b, r_b), 2)
+    k1l_ms = event_ms(lambda: nk.nn_indices_lanes(q_b, r_b), 20)
+    k1l_plain = event_ms(lambda: nk.nn_indices_lanes_plain(q_b, r_b), 2)
     # cdist's exact direct path (the single-lane yardstick) refuses a
     # batch of 256 lanes (cudaErrorInvalidConfiguration); its matmul path
     # computes the same function up to the expansion's rounding.
     lib_call = ('torch.cdist(compute_mode=use_mm_for_euclid_dist)'
                 '.min(-1) over the lane batch')
-    lib_ms = cuda_ms(lambda: torch.cdist(
+    lib_ms = event_ms(lambda: torch.cdist(
         q_b, r_b, compute_mode='use_mm_for_euclid_dist').min(-1), 2)
     k1l_bound = bound(pairs, INSTR_EXACT, nn_bytes(B * N, B * N))
     pref = nk.build_pruned_ref_lanes(r_b)
-    k2l_ms = cuda_ms(lambda: nk.nn_indices_pruned_lanes(q_b, pref, CUTOFF),
+    k2l_ms = event_ms(lambda: nk.nn_indices_pruned_lanes(q_b, pref, CUTOFF),
                      20)
     tables = nk.pruned_tables_lanes(q_b, pref, CUTOFF)
-    k2l_kernel = cuda_ms(lambda: nk._launch_pruned(tables, pref, CUTOFF), 20)
-    k2l_plain = cuda_ms(lambda: nk.nn_indices_pruned_lanes_plain(
+    k2l_kernel = event_ms(lambda: nk._launch_pruned(tables, pref, CUTOFF), 20)
+    k2l_plain = event_ms(lambda: nk.nn_indices_pruned_lanes_plain(
         q_b, pref, CUTOFF), 1)
     qb = tables[4]
     shares = []
@@ -2237,6 +2215,168 @@ def data_path_phase(nk, streams, smi):
     return out
 
 
+def demo_phase(nk, smi):
+    """Phase 14 (a): the three demos at their defaults on the card through
+    their ``main()``; the synthetic one also with ``--matcher pallas``,
+    whose K2 is held to its plain version at the demo's submap.  Returns
+    their numbers."""
+    from laser_slam_tpu_torch.examples import (auto_loop_closure_demo,
+                                               multi_robot_demo,
+                                               synthetic_slam_demo)
+    from laser_slam_tpu_torch.ops import se3
+    from laser_slam_tpu_torch.pipeline.online import assemble_submap
+    t_phase = time.perf_counter()
+    out = {'card': smi}
+
+    def on_card(obj, label):
+        if obj.device.type != 'cuda':
+            raise AssertionError(f'demos: {label} did not run on cuda')
+
+    res = synthetic_slam_demo.main([])
+    on_card(res['estimator'], 'synthetic_slam_demo')
+    out['synthetic'] = dict(n=res['n'], error_mean_m=res['error_mean_m'],
+                            error_max_m=res['error_max_m'],
+                            scans_per_s=res['scans_per_s'],
+                            wall_s=res['wall_s'])
+    nk.nn_indices.launches = 0
+    nk.nn_indices_pruned.launches = 0
+    pal = synthetic_slam_demo.main(['--matcher', 'pallas'])
+    k2, k1 = nk.nn_indices_pruned.launches, nk.nn_indices.launches
+    on_card(pal['estimator'], 'synthetic_slam_demo --matcher pallas')
+    out['synthetic_pallas'] = dict(
+        n=pal['n'], error_mean_m=pal['error_mean_m'],
+        error_max_m=pal['error_max_m'], scans_per_s=pal['scans_per_s'],
+        wall_s=pal['wall_s'], k2_launches=k2,
+        k2_launches_per_scan=k2 / max(pal['n'] - 1, 1), k1_launches=k1)
+    log(f'demos: {smi}: synthetic_slam_demo {res["n"]} scans, '
+        f'{res["scans_per_s"]:.4f} scans/s (warm-up included), error mean '
+        f'{res["error_mean_m"]:.6f} m, max {res["error_max_m"]:.6f} m; with '
+        f'--matcher pallas {pal["scans_per_s"]:.4f} scans/s, error max '
+        f'{pal["error_max_m"]:.6f} m, K2 {k2} launches, K1 {k1}')
+    if k2 < 40 * (pal['n'] - 1) or k1:
+        raise AssertionError('demos: K2 must launch at least 40 times a scan '
+                             'after the first and K1 never')
+    # K2 at the demo's submap against its plain version (launched after the
+    # counts were read): the ring of the last 3 scans in the newest one's
+    # frame, queried by the first frame's points (the revisit) moved there
+    # by ground truth, 4096 of them as the reading.
+    args = synthetic_slam_demo.parse_args([])
+    fs = synthetic_slam_demo.frames(args)
+    track = pal['worker'].laser_track
+    traj = pal['traj']
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+    T_a_w = se3.inverse(t(traj[int(track._ring_times[-1])]))
+    rels = torch.stack([se3.compose(T_a_w, t(traj[int(k)]))
+                        for k in track._ring_times]).to('cuda')
+    submap, _ = assemble_submap(track._ring_points, track._ring_mask,
+                                track._ring_normals, rels)
+    rel = se3.compose(se3.inverse(t(fs[-1].gt_pose7)), t(fs[0].gt_pose7))
+    reading = args.points // 2
+    q = se3.apply(rel, t(fs[0].points[::2][:reading])).to('cuda')
+    pref = nk.build_pruned_ref(submap.points)
+    d2_k, idx_k = nk.nn_indices_pruned(q, pref, CUTOFF)
+    d2_p, idx_p = nk.nn_indices_pruned_plain(q, pref, CUTOFF)
+    inside = d2_p <= CUTOFF ** 2
+    n_ref = submap.points.shape[0]
+    out['synthetic_pallas']['k2_max_abs_err'] = check_nn(
+        f'K2 at the demo\'s submap, {q.shape[0]} x {n_ref}', q, pref.points,
+        d2_k, idx_k, d2_p, idx_p, rows=inside, ties=True)
+    if bool(torch.any(d2_k[~inside] <= CUTOFF ** 2)) or (
+            n_ref != 3 * args.points or q.shape[0] != reading
+            or int(inside.sum()) < reading // 2):
+        raise AssertionError('demos: K2 at the demo\'s submap')
+
+    auto = auto_loop_closure_demo.main([])
+    on_card(auto['runner'], 'auto_loop_closure_demo')
+    out['auto_closure'] = dict(
+        detections=len(auto['detections']),
+        lap_distances=[b - a for a, b, _, _ in auto['detections']],
+        ate_with_mean_m=auto['ate_with'].translation.mean,
+        ate_with_max_m=auto['ate_with'].translation.max,
+        ate_without_mean_m=auto['ate_without'].translation.mean,
+        ate_without_max_m=auto['ate_without'].translation.max,
+        scans_per_s=auto['scans_per_s'], wall_s=auto['wall_s'])
+    multi = multi_robot_demo.main([])
+    on_card(multi['runner'], 'multi_robot_demo')
+    out['multi_robot'] = dict(
+        error_mean_m=multi['error_mean_m'], error_max_m=multi['error_max_m'],
+        scans_per_s=multi['scans_per_s'], integrate_s=multi['integrate_s'],
+        refine_s=multi['refine_s'])
+    out['phase_s'] = time.perf_counter() - t_phase
+    log('demos: ' + json.dumps(out))
+    return out
+
+
+def profiling_phase(nk, smi, production, k1_ms, queries, submap, frames):
+    """Phase 14 (b): the port's profiling functions on the card: phase
+    8b's step_breakdown (``production``) checked, nn_kernel_utilization at
+    phase 3's scene (K1 within 25% of phase 3's ``k1_ms``) and
+    device_trace around 4 scans of a slice-1 runner.  Returns the
+    numbers."""
+    import tempfile
+    from laser_slam_tpu_torch.config import slice1_config
+    from laser_slam_tpu_torch.core import benchmarker as bench
+    from laser_slam_tpu_torch.pipeline import online, profiling
+    t_phase = time.perf_counter()
+    out = {'card': smi}
+    stage = production['stage_ms']
+    want = ['upload', 'full_step', 'decode_packed', 'ingest_filters',
+            'store_decimate', 'normals', 'submap_assembly', 'reading_prep',
+            'icp', 'window_solve', 'pr_query']
+    wall = production['full_step_wall_ms']
+    out['step_breakdown_ms'] = stage
+    out['full_step_wall_ms'] = wall
+    log(f'profiling: {smi}: step_breakdown at KITTI density (phase 8b): '
+        f'full_step {stage["full_step"]:.3f} ms of device work against '
+        f'{wall:.3f} ms of synchronized wall time a step')
+    if list(stage) != want or not all(
+            np.isfinite(v) and v > 0 for v in stage.values()):
+        raise AssertionError(f'profiling: step_breakdown keys or values '
+                             f'{stage}')
+    if not stage['full_step'] <= wall:
+        raise AssertionError('profiling: full_step above the wall time of '
+                             'a step')
+
+    nk.nn_indices.launches = 0
+    util = profiling.nn_kernel_utilization(queries, submap, reps=20)
+    out['k1_launches'] = nk.nn_indices.launches
+    out['nn_kernel_utilization'] = util
+    out['k1_ms_phase3'] = k1_ms
+    log(f'  nn_kernel_utilization at {queries.shape[0]} x '
+        f'{submap.shape[0]}: ' + json.dumps(util))
+    if not (abs(util['k1_ms'] - k1_ms) <= 0.25 * k1_ms
+            and 0 < util['k1_fraction_of_bound'] <= 1.05
+            and out['k1_launches'] > 0):
+        raise AssertionError(f'profiling: K1 at {util["k1_ms"]} ms against '
+                             f'phase 3\'s {k1_ms} ms, fraction '
+                             f'{util["k1_fraction_of_bound"]}')
+
+    runner = online.OnlineRunner(
+        slice1_config(scan_capacity=N_POINTS, reading_capacity=READING),
+        pose_capacity=128, factor_capacity=512, device='cuda')
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with bench.device_trace(tmp):
+            for f in frames[:4]:
+                runner.process_scan(f.time_ns, f.points, f.odom_pose7)
+        traced_s = time.perf_counter() - t0
+        files = [os.path.join(tmp, n) for n in os.listdir(tmp)
+                 if n.endswith('.pt.trace.json')]
+        found = False
+        for path in files:
+            with open(path, 'rb') as fh:
+                found = found or b'nn_items_kernel' in fh.read()
+        out['trace'] = dict(files=len(files), seconds=traced_s,
+                            mib=sum(os.path.getsize(p) for p in files) / 2**20,
+                            names_nn_items_kernel=found)
+    log(f'  device_trace over 4 slice-1 scans: {out["trace"]}')
+    if len(files) != 1 or not found:
+        raise AssertionError('profiling: no trace naming nn_items_kernel')
+    out['phase_s'] = time.perf_counter() - t_phase
+    log('profiling: ' + json.dumps(out))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: chip_smoke.py runs on a GPU')
@@ -2265,22 +2405,12 @@ def main():
         ['nvidia-smi', '--query-gpu=clocks.max.sm',
          '--format=csv,noheader,nounits'], capture_output=True, text=True,
         timeout=60, check=True).stdout.split()[0]) * 1e6
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    f32_issue = n_sm * 128 * sm_clock
-    log(f'f32 issue rate: {n_sm} SMs x 128 lanes x {sm_clock / 1e9:.3f} '
-        f'GHz = {f32_issue / 1e12:.2f} T instructions/s')
-
-    def bound(pairs, instr, nbytes, tensor_flops=0.0):
-        """(bound_ms, bound_by): the larger of bytes over HBM and
-        operations over their unit's peak."""
-        t_ops = max(pairs * instr / f32_issue,
-                    tensor_flops / BF16_TENSOR_FLOPS)
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        return (1e3 * max(t_ops, t_bytes),
-                'operations' if t_ops >= t_bytes else 'bytes')
-
-    def nn_bytes(nq, nr, payload=0):
-        return 4 * (3 * nq + 3 * nr + 2 * nq + payload * (nr + nq))
+    peaks = card_peaks(sm_clock_hz=sm_clock)
+    bound = peaks.bound
+    log(f'f32 issue rate: {peaks.sm_count} SMs x {peaks.lanes_per_sm} lanes'
+        f' x {sm_clock / 1e9:.3f} GHz = {peaks.f32_issue_per_s / 1e12:.2f} T '
+        f'instructions/s; HBM {peaks.hbm_bytes_per_s / 1e12:.2f} TB/s, bf16 '
+        f'tensor {peaks.bf16_tensor_flops / 1e12:.0f} TFLOP/s')
 
     # 2. Build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -2346,14 +2476,14 @@ def main():
         raise AssertionError('K1: a SENTINEL-parked row won')
     check_nn('parked reference', q_odd, parked, d2_k, idx_k,
              *nk.nn_indices_plain(q_odd, parked))
-    k1_ms = cuda_ms(lambda: nk.nn_indices(queries, submap), 20)
-    k1_plain_ms = cuda_ms(lambda: nk.nn_indices_plain(queries, submap), 5)
+    k1_ms = event_ms(lambda: nk.nn_indices(queries, submap), 20)
+    k1_plain_ms = event_ms(lambda: nk.nn_indices_plain(queries, submap), 5)
     log(f'  time at {READING} x {SUBMAP_SCANS * N_POINTS}: kernel '
         f'{k1_ms:.4f} ms, plain '
         f'{k1_plain_ms:.4f} ms')
     n_sub = SUBMAP_SCANS * N_POINTS
     lib_exact = sh.EXACT_LIBRARY_CALL
-    k1_lib_ms = cuda_ms(lambda: sh.exact_library_call(queries, submap), 2)
+    k1_lib_ms = event_ms(lambda: sh.exact_library_call(queries, submap), 2)
     log(f'  library call ({lib_exact}): {k1_lib_ms:.4f} ms')
     k1_bound = bound(READING * n_sub, INSTR_EXACT, nn_bytes(READING, n_sub))
     kernels['K1'] = dict(max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain_ms,
@@ -2394,11 +2524,11 @@ def main():
         check_nn(f'{label} vs K1', q, ref, d2_k, orig, d2_1, idx_1,
                  rows=rows, ties=True)
     pref = nk.build_pruned_ref(submap)
-    k2_ms = cuda_ms(lambda: nk.nn_indices_pruned(queries, pref, CUTOFF), 20)
-    k2_plain_ms = cuda_ms(
+    k2_ms = event_ms(lambda: nk.nn_indices_pruned(queries, pref, CUTOFF), 20)
+    k2_plain_ms = event_ms(
         lambda: nk.nn_indices_pruned_plain(queries, pref, CUTOFF), 5)
     tables = nk.pruned_tables(queries, pref, CUTOFF)
-    k2_kernel_ms = cuda_ms(lambda: nk._launch_pruned(tables, pref, CUTOFF),
+    k2_kernel_ms = event_ms(lambda: nk._launch_pruned(tables, pref, CUTOFF),
                            20)
     k2_host = host_ms(lambda: nk.nn_indices_pruned(queries, pref, CUTOFF),
                       20)
@@ -2406,6 +2536,18 @@ def main():
             activities=[torch.profiler.ProfilerActivity.CUDA]) as one:
         nk.nn_indices_pruned(queries, pref, CUTOFF)
         torch.cuda.synchronize()
+    # device_rows reads the profiler's events directly: it must sum them
+    # as key_averages() does.
+    from torch.autograd import DeviceType
+    averaged = sorted((e.key, e.count, e.self_device_time_total)
+                      for e in one.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+    direct = sorted(device_rows(one))
+    if [r[:2] for r in averaged] != [r[:2] for r in direct] or not np.allclose(
+            [r[2] for r in averaged], [r[2] for r in direct], rtol=1e-6,
+            atol=1e-3):
+        raise AssertionError(f'device_rows {direct} differ from '
+                             f'key_averages {averaged}')
     log(f'  time at {READING} x {SUBMAP_SCANS * N_POINTS} (room): with its '
         f'tables {k2_ms:.4f} ms ({device_launches(one)} device launches a '
         f'call, which the host issues in {k2_host:.4f} ms), kernel alone '
@@ -2700,10 +2842,10 @@ def main():
     tab_mm = nv.mm_setup(q, r)
     tab6 = nv.pruned_setup(q, r)
     kernel_ms = dict(
-        E1=cuda_ms(lambda: nv._launch_mm_bf16(q, r_ext), 10),
-        E5=cuda_ms(lambda: nv._launch_mm_indices(q, tab_mm), 20),
-        E4=cuda_ms(lambda: nv._launch_payload(q, tab_mm, pay), 20),
-        E6=cuda_ms(lambda: nv._launch_pruned(tab6, pay), 20),
+        E1=event_ms(lambda: nv._launch_mm_bf16(q, r_ext), 10),
+        E5=event_ms(lambda: nv._launch_mm_indices(q, tab_mm), 20),
+        E4=event_ms(lambda: nv._launch_payload(q, tab_mm, pay), 20),
+        E6=event_ms(lambda: nv._launch_pruned(tab6, pay), 20),
         E2=rows['vpu']['ms'], E3=best3['ms'])
     issue_ms = dict(
         E4=host_ms(lambda: nv.nn_payload(q, r, pay), 20),
@@ -2740,7 +2882,7 @@ def main():
         E4=lambda: nv.nn_payload_plain(q, r, pay),
         E6=lambda: nv.nn_payload_pruned_plain(q, r, pay),
         E2=lambda: nk.nn_indices_plain(q, r))
-    plain_ms = {k: cuda_ms(fn, 3) for k, fn in plain.items()}
+    plain_ms = {k: event_ms(fn, 3) for k, fn in plain.items()}
     plain_ms['E3'] = plain_ms['E2']
     pairs = SHOOT_Q * SHOOT_R
     exact_b = nn_bytes(SHOOT_Q, SHOOT_R)
@@ -2785,7 +2927,7 @@ def main():
 
     # 8. The production path (slice 2) ---------------------------------
     t0 = time.perf_counter()
-    production_phase(nk, streams)
+    production = production_phase(nk, streams)
     log(f'phase 8 took {time.perf_counter() - t0:.1f} s')
 
     # 9. The flagship path (slice 3) ------------------------------------
@@ -2806,12 +2948,22 @@ def main():
 
     # 12. Fleet mode and batched serving (slice 6) ------------------------
     elapsed(12)
-    lane_records = fleet_phase(nk, smi, bound, nn_bytes)
+    lane_records = fleet_phase(nk, smi, bound)
 
     # 13. The data path in and out (slice 7) ------------------------------
     elapsed(13)
     data_path = data_path_phase(nk, streams, smi)
     kernels['K2']['launches_kitti'] = data_path['k2_launches']
+
+    # 14. The demos and the profiling functions (slice 8) ----------------
+    elapsed(14)
+    t0 = time.perf_counter()
+    demos = demo_phase(nk, smi)
+    kernels['K2']['launches_demo'] = demos['synthetic_pallas']['k2_launches']
+    prof14 = profiling_phase(nk, smi, production, kernels['K1']['ms'],
+                             queries, submap, frames)
+    kernels['K1']['launches_profiling'] = prof14['k1_launches']
+    log(f'phase 14 took {time.perf_counter() - t0:.1f} s')
 
     # Records ----------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'

@@ -10,7 +10,8 @@ into a timestamped results directory.  The compile-time
 
 Timers read the host clock: CUDA work is asynchronous, so a timer around
 a call measures the host's issue of it unless the call reads a result
-back (or the caller synchronizes).
+back (or the caller synchronizes).  :func:`device_trace` records the
+card's timeline beside them.
 """
 
 from __future__ import annotations
@@ -203,3 +204,25 @@ def scoped_timer(topic: str):
     finally:
         if _instance.enabled:
             record_value(topic, (time.perf_counter() - start) * 1e3)
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str):
+    """Device profiling: ``torch.profiler`` over the block, recording the
+    CPU activity, and the card's when CUDA is available, so device
+    timelines land next to the Benchmarker's host metrics.  On exit a
+    Chrome trace (``<host>_<pid>.<stamp>.pt.trace.json``) is written under
+    ``trace_dir``; TensorBoard's profiler plugin and Perfetto open it.
+    The counterpart of the JAX package's ``jax.profiler.trace`` wrapper."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()

@@ -204,6 +204,12 @@ def grow_state(state: OnlineState, pose_capacity: Optional[int] = None,
         prior_weight=_pad_rows(state.prior_weight, R))
 
 
+def clone_state(state: OnlineState) -> OnlineState:
+    """A copy of a state, every tensor cloned (the step writes into its
+    state's tensors)."""
+    return type(state)(*(t.clone() for t in state))
+
+
 def state_from_numpy(d: dict, device='cuda') -> OnlineState:
     """An :class:`OnlineState` on ``device`` from numpy arrays keyed by the
     JAX ``OnlineState`` field names (e.g. ``{k: np.asarray(v)}`` over a JAX
@@ -442,22 +448,36 @@ def ingest_track(points: torch.Tensor, n_valid, lt: LaserTrackConfig,
     """:func:`ingest` for one track's config; ``LaserTrack`` calls it too
     (the JAX package's ``laser_track._ingest_scan``)."""
     f = lt.input_filters
+    scan = store_decimate(input_filters(points, n_valid, f, generator), f)
+    return scan, compute_normals(scan, lt.icp)
+
+
+def input_filters(points: torch.Tensor, n_valid, f,
+                  generator: Optional[torch.Generator] = None) -> pc.Cloud:
+    """The input filters of :func:`ingest_track` (``f`` an
+    InputFilterConfig): the configured chain, or the range filter and
+    random sampling."""
     mask = torch.arange(points.shape[0], device=points.device) < n_valid
     scan = pc.park_invalid(pc.Cloud(points, mask))
     if f.chain:
         # The configured ordered chain (laser_track.cpp:24-30).
-        scan = pc.apply_filter_chain(scan, f.chain, generator)
-    else:
-        scan = pc.range_filter(scan, f.min_distance_m, f.max_distance_m)
-        if f.random_sampling_ratio < 1.0:
-            scan = pc.random_sampling_filter(scan, f.random_sampling_ratio,
-                                             generator)
+        return pc.apply_filter_chain(scan, f.chain, generator)
+    scan = pc.range_filter(scan, f.min_distance_m, f.max_distance_m)
+    if f.random_sampling_ratio < 1.0:
+        scan = pc.random_sampling_filter(scan, f.random_sampling_ratio,
+                                         generator)
+    return scan
+
+
+def store_decimate(scan: pc.Cloud, f) -> pc.Cloud:
+    """The stored scan: ``scan`` decimated to the store capacity when it
+    holds more rows."""
     store_cap = f.store_capacity or f.scan_capacity
     if store_cap < scan.points.shape[0]:
         # Even stride over the packed valid points (a plain compact would
         # keep only the first beams of a ring-major scan).
         scan = pc.compact_decimate(scan, store_cap)
-    return scan, compute_normals(scan, lt.icp)
+    return scan
 
 
 def submap(state: OnlineState, track_id: int = 0):
@@ -559,24 +579,8 @@ def online_step(state: OnlineState, points: torch.Tensor,
             last_icp_inliers=torch.zeros((), dtype=torch.int32, device=dev))
     else:
         prev_key = state.track_last_key[track_id].long()
-        prev_meas = state.pose_meas[prev_key]
         prev_traj = state.traj_poses[prev_key]
-        if odometry_free:
-            # Constant velocity: replay the last solved relative motion
-            # (identity until two poses exist).
-            ring_keys = state.ring_keys[track_id].long()
-            prev2_key = (ring_keys[-2] if ring_keys.shape[0] >= 2
-                         else torch.full((), -1, dtype=torch.int64,
-                                         device=dev))
-            prev2 = state.traj_poses[torch.clamp(prev2_key, min=0)]
-            rel = torch.where(
-                prev2_key >= 0,
-                se3.normalize(se3.compose(se3.inverse(prev2), prev_traj)),
-                se3.identity(device=dev))
-            odom_eff = se3.normalize(se3.compose(prev_meas, rel))
-        else:
-            rel = se3.compose(se3.inverse(prev_meas), odom)
-            odom_eff = odom
+        rel, odom_eff = step_guess(state, odom, track_id, odometry_free)
         propagated = se3.normalize(se3.compose(prev_traj, rel))
 
         # Scan-to-submap ICP in the previous scan's frame.
@@ -635,6 +639,31 @@ def online_step(state: OnlineState, points: torch.Tensor,
                     icp_inliers=state.last_icp_inliers,
                     solve_error=state.last_error)
     return state, info
+
+
+def step_guess(state: OnlineState, odom: torch.Tensor, track_id: int = 0,
+               odometry_free: bool = False):
+    """The motion since the track's last scan, as :func:`online_step`
+    takes it for a scan after the first.  Returns (rel, odom_eff): the
+    ICP guess and odometry factor, and the odometry pose stored for the
+    new key.  ``odometry_free``: constant velocity, the relative motion
+    between the last two solved poses replayed (identity until two poses
+    exist)."""
+    prev_key = state.track_last_key[track_id].long()
+    prev_meas = state.pose_meas[prev_key]
+    if not odometry_free:
+        return se3.compose(se3.inverse(prev_meas), odom), odom
+    ring_keys = state.ring_keys[track_id].long()
+    prev2_key = (ring_keys[-2] if ring_keys.shape[0] >= 2
+                 else torch.full((), -1, dtype=torch.int64,
+                                 device=odom.device))
+    prev_traj = state.traj_poses[prev_key]
+    prev2 = state.traj_poses[torch.clamp(prev2_key, min=0)]
+    rel = torch.where(
+        prev2_key >= 0,
+        se3.normalize(se3.compose(se3.inverse(prev2), prev_traj)),
+        se3.identity(device=odom.device))
+    return rel, se3.normalize(se3.compose(prev_meas, rel))
 
 
 def _append_lc_factor(state: OnlineState, key_a: int, key_b: int,
@@ -1684,7 +1713,7 @@ class OnlineRunner:
                              dtype=torch.bool, device=self.device)
                  if use_association else None)
         cache = self._lc_solver_cache()
-        self._closure(OnlineState(*(t.clone() for t in self.state)),
+        self._closure(clone_state(self.state),
                       None if cache is None else sv.clone_cache(cache),
                       0, 1, ident, use_association=use_association,
                       align_mask=amask, offchain=self._n_offchain_host + 1)

@@ -10,7 +10,8 @@ There the ``gpu`` tests build csrc/nn.cu and csrc/nn_variants.cu and
 hold K1, K2, their lane forms K1L and K2L (fleet mode) and the
 shootout's kernels (E1-E6) to their plain versions
 (E4/E5 also at awkward shapes, with copies across tiles, and for their
-work items and launches); here they skip.  Tolerances: K1 — d2 bit-equal and indices equal to its
+work items and launches), and ``profiling.nn_kernel_utilization``
+reports K1 against its ``CardPeaks`` bound; here they skip.  Tolerances: K1 — d2 bit-equal and indices equal to its
 plain version (ties go to the lowest index); K2 — within the cutoff d2
 bit-equal and an index at that exact d2, beyond it d2 > cutoff^2; E2/E3
 — d2 bit-equal to K1's plain version and indices equal except where
@@ -806,3 +807,32 @@ def test_kitti_replay_runs_k2_on_card(tmp_path):
     b = np.stack([cpu['traj'][t] for t in sorted(cpu['traj'])])
     assert np.abs(a[:, 4:] - b[:, 4:]).max() < 1e-4
     assert card['ate'].translation.mean < 0.3
+
+
+@pytest.mark.gpu
+def test_nn_kernel_utilization_on_card():
+    """``profiling.nn_kernel_utilization`` on the card at 2048 x 20480:
+    the brute and K1 keys, K1 launched, its time no less than the bound
+    that ``CardPeaks`` gives (fraction in (0, 1.05]) and its rates
+    consistent with that time."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from laser_slam_tpu_torch.pipeline import profiling
+    q, r = scene(11, 20480, 2048, scale=10.0)
+    nk.nn_indices.launches = 0
+    out = profiling.nn_kernel_utilization(q, r, reps=5)
+    assert nk.nn_indices.launches > 0
+    assert sorted(out) == sorted([
+        'nn_brute_ms', 'nn_brute_point_comparisons_per_sec',
+        'nn_brute_fraction_of_bound', 'k1_ms', 'k1_bound_ms', 'k1_bound_by',
+        'k1_fraction_of_bound', 'k1_achieved_hbm_gbps',
+        'k1_point_comparisons_per_sec'])
+    peaks = profiling.card_peaks()
+    bound = peaks.bound(2048 * 20480, profiling.INSTR_EXACT,
+                        profiling.nn_bytes(2048, 20480))
+    assert (out['k1_bound_ms'], out['k1_bound_by']) == bound
+    assert 0 < out['k1_fraction_of_bound'] <= 1.05
+    assert out['k1_point_comparisons_per_sec'] == pytest.approx(
+        2048 * 20480 / (out['k1_ms'] * 1e-3))
+    assert out['k1_achieved_hbm_gbps'] == pytest.approx(
+        profiling.nn_bytes(2048, 20480) / (out['k1_ms'] * 1e-3) / 1e9)
