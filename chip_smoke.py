@@ -234,13 +234,34 @@ result line):
    its bound in (0, 1.05]; ``core/benchmarker.device_trace`` around 4
    scans of a slice-1 runner must leave one trace that names
    ``nn_items_kernel``.  Its numbers go on a ``profiling`` line.
+15. Sharding over a mesh (slice 9, ``parallel/sharding.py``), eight
+   shards on cuda:0 (a mesh may repeat a device; the shards then share
+   one stream, so its times are no scaling result).  (a)
+   ``fleet_slam_step`` on a (dp 4, sp 2) mesh at phase 12b's widths (256
+   lanes x 3 scans of 4096 points, ``fleet_icp_config()``,
+   ``SolverConfig()``, data made as bench.py makes it, seed 15) with
+   'pallas' through K1L, through K2L, and 'brute': each within
+   FLEET_EXACT_GAP (1e-5 m / 1e-3 deg) of the unsharded fleet
+   (``fleet_icp_odometry`` + ``build_fleet_chain_graphs`` +
+   ``fleet_solve``) on the card; K1L (K2L) must launch inside the K1L
+   (K2L) step and not in the other ones.  (b) ``sharded_solve`` on an
+   8-way gp mesh over the dry run's 10,000-pose graph
+   (``__graft_entry__.py:140-192``: capacity 1 << 14, 'scatter', 2 GN x
+   12 PCG, tolerance 0): error_final < error_initial, and its poses
+   within 2e-5 of the single-device solve, or within twice the gap
+   between two single-device solves whose sums run in other orders (the
+   card's again, its atomic ``index_add_``; the CPU's), whichever is
+   larger.  (c) With more than one card visible, (a) and (b) again with
+   the shards on distinct cards.  Synchronized ms a call beside the
+   card's name and power limit; the numbers go on a ``sharding`` line.
 
 The kernel counters are reset right before phase 5 (K2), phase 6 (K1),
 the shootout run of phase 7, the production, flagship and multi-robot
 runs of phases 8-10, the host-API lap and closure of phase 11, the
 fleet and map runs of phase 12 (K1L, K2L), the KITTI example's K2
 leg of phase 13, the synthetic demo's K2 run and the K1 roofline of
-phase 14, the main-path runs, and read right after; launches
+phase 14, each sharded fleet step of phase 15 (K1L, K2L), the
+main-path runs, and read right after; launches
 made to compare a kernel with its plain version are not counted.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the
@@ -262,7 +283,8 @@ E5.  The second-to-last line is the kernels' JSON
 record (K2's ``launches`` from phase 5, ``launches_host_api`` from phase
 11, ``launches_kitti`` from phase 13, ``launches_demo`` from phase 14;
 K1's ``launches_profiling`` from phase 14; K1L's and K2L's from phase 12, with
-the map query's ms through K1L and through the plain path); the last line
+the map query's ms through K1L and through the plain path, and their
+``launches_sharded`` from phase 15's one-card step); the last line
 is the result record.
 """
 
@@ -373,6 +395,14 @@ SERVE_LANE_ATOL = 1e-5
 # mean error of the batched solutions to the true offset, against
 # tests/test_parity.py's 10 cm for the projective production path.
 SERVE_TRUTH_M = 0.10
+# Phase 15, sharding: the fleet step on a (dp 4, sp 2) mesh at phase
+# 12b's widths, held to the unsharded fleet by FLEET_EXACT_GAP; the
+# factor-sharded solve on an 8-way gp mesh over the dry run's graph
+# (__graft_entry__.py:140-192), held to the single-device solve by
+# SOLVE_ATOL (JAX's tolerance there) or twice the gap between two
+# single-device solves that sum in other orders, whichever is larger.
+SHARD_DP, SHARD_SP = 4, 2
+SOLVE_POSES, SOLVE_ATOL = 10_000, 2e-5
 # Phase 13, the data path: the first 48 frames of phase 9b's stream as a
 # KITTI sequence through the KITTI example at the full width of an HDL-64
 # scan (8 warm-up scans), 16 of them with K2; the bag example's defaults.
@@ -1983,6 +2013,206 @@ def fleet_phase(nk, smi, bound):
              'where)')]
 
 
+def sharding_phase(nk, smi):
+    """Phase 15: the fleet step and the pose-graph solve split over a mesh
+    (``parallel/sharding.py``).  Returns K1L's and K2L's launches inside
+    the sharded steps and the phase's numbers."""
+    import dataclasses as dc
+    from laser_slam_tpu_torch.config import SolverConfig, fleet_icp_config
+    from laser_slam_tpu_torch.graph import factors as fg
+    from laser_slam_tpu_torch.graph import solver as sv
+    from laser_slam_tpu_torch.parallel import fleet, sharding
+    from laser_slam_tpu_torch.pipeline import replay
+    t_phase = time.perf_counter()
+    dev = torch.device('cuda', 0)
+    n_cards = torch.cuda.device_count()
+
+    # (a) Phase 12b's fleet, made as bench.py makes it (seed 15).
+    rng = np.random.default_rng(15)
+    world = replay.make_scene(rng)
+    pose0 = np.array([0.0, 0.0, 1.8])
+    B, T, N = FLEET_B, FLEET_T, FLEET_N
+    base_scan = replay.sample_scan(rng, world, pose0, N)
+    pts = np.zeros((B, T, N, 3), np.float32)
+    for b in range(B):
+        for t in range(T):
+            jitter = rng.normal(size=(N, 3)).astype(np.float32) * 0.02
+            pts[b, t] = base_scan + jitter + np.array(
+                [0.3 * t, 0.1 * b % 2.0, 0], np.float32)
+    nrm = rng.normal(size=(B, T, N, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    init_pose = np.zeros((B, 7), np.float32)
+    init_pose[:, 0] = 1.0
+    odom_rel = np.zeros((B, T, 7), np.float32)
+    odom_rel[:, :, 0] = 1.0
+    odom_rel[:, 1:, 4] = 0.3
+    arrays = (pts, np.ones((B, T, N), bool), nrm, init_pose, odom_rel)
+    card = [torch.tensor(a, device=dev) for a in arrays]
+    sigmas = torch.full((6,), 0.01, device=dev)
+    scfg = SolverConfig()
+    cfg_f = fleet_icp_config(N)
+    runs = {'pallas K1L': dc.replace(cfg_f, matcher='pallas',
+                                     pallas_prune=False),
+            'pallas K2L': dc.replace(cfg_f, matcher='pallas',
+                                     pallas_prune=True),
+            'brute': cfg_f}
+
+    def unsharded(cfg, inputs=card):
+        odo = fleet.fleet_icp_odometry(*inputs, cfg)
+        graphs, pose_mask = fleet.build_fleet_chain_graphs(
+            odo.rel_icp, odo.valid, inputs[3], sigmas)
+        return fleet.fleet_solve(graphs, odo.poses, pose_mask, scfg,
+                                 offchain=1)
+
+    # The same scans with their points stored in another order: the same
+    # function, its sums (the 6x6 normal equations) in another order,
+    # as the sp split's are.
+    perm = torch.tensor(rng.permutation(N), device=dev)
+    shuffled = [card[0][:, :, perm], card[1][:, :, perm],
+                card[2][:, :, perm]] + card[3:]
+
+    def lane_gaps(a, b):
+        a = a.double().cpu().numpy()
+        b = b.double().cpu().numpy()
+        return np.linalg.norm(a[..., 4:] - b[..., 4:], axis=-1).max(-1)
+
+    layouts = [('one card', [dev] * SHARD_DP * SHARD_SP)]
+    if n_cards > 1:
+        layouts.append((f'{n_cards} cards', [
+            torch.device('cuda', i % n_cards)
+            for i in range(SHARD_DP * SHARD_SP)]))
+    else:
+        log('phase 15: one card seen; the meshes repeat cuda:0 (shards '
+            'share its stream: no scaling result)')
+    out = {'fleet': {}, 'solve': {}}
+    launches = {}
+    for where, devices in layouts:
+        mesh = sharding.make_mesh(devices=devices)
+        log(f'phase 15 (a) fleet_slam_step on a {mesh.shape} mesh over '
+            f'{where}: B={B}, T={T}, N={N}, fleet_icp_config() and '
+            f'SolverConfig() ({smi})')
+        sharded_in = sharding.shard_fleet_inputs(mesh, *card)
+        for label, cfg in runs.items():
+            step = sharding.fleet_slam_step(mesh, cfg, scfg)
+            want = unsharded(cfg)
+            floor = pose_gaps(
+                unsharded(cfg, shuffled).poses.reshape(-1, 7).cpu().numpy(),
+                want.poses.reshape(-1, 7).cpu().numpy())
+            limit = (max(FLEET_EXACT_GAP[0], 2.0 * floor[0]),
+                     max(FLEET_EXACT_GAP[1], 2.0 * floor[1]))
+            step(*sharded_in, sigmas)
+            torch.cuda.synchronize()
+            nk.nn_indices_lanes.launches = 0
+            nk.nn_indices_pruned_lanes.launches = 0
+            poses, _ = step(*sharded_in, sigmas)
+            torch.cuda.synchronize()
+            counts = (nk.nn_indices_lanes.launches,
+                      nk.nn_indices_pruned_lanes.launches)
+            got = poses.gather(dev)
+            dt, dr = pose_gaps(got.reshape(-1, 7).cpu().numpy(),
+                               want.poses.reshape(-1, 7).cpu().numpy())
+            per_lane = lane_gaps(got, want.poses)
+            ms = sync_ms(lambda: step(*sharded_in, sigmas), 2)
+            ms_one = sync_ms(lambda: unsharded(cfg), 2)
+            log(f'  {label}: sharded step {ms:.3f} ms, unsharded '
+                f'{ms_one:.3f} ms (synchronized, one call; {smi}); largest '
+                f'gap {dt:.3g} m / {dr:.3g} deg, {int(np.sum(per_lane > 1e-5))}'
+                f' of {B} lanes above 1e-5 m, median {np.median(per_lane):.3g}'
+                f' (limit {limit[0]:.3g} m / {limit[1]:.3g} deg: the larger '
+                f'of {FLEET_EXACT_GAP[0]} m / {FLEET_EXACT_GAP[1]} deg and '
+                f'twice the unsharded fleet\'s gap to itself on scans stored '
+                f'in another order, {floor[0]:.3g} m / {floor[1]:.3g} deg); '
+                f'K1L {counts[0]}, K2L {counts[1]} launches in the step')
+            if not bool(torch.all(torch.isfinite(got))):
+                raise AssertionError(f'phase 15 {label}: non-finite poses')
+            if dt > limit[0] or dr > limit[1]:
+                raise AssertionError(f'phase 15 {label}: sharded step {dt} '
+                                     f'm / {dr} deg from the unsharded')
+            need = {'pallas K1L': (counts[0] > 0 and counts[1] == 0),
+                    'pallas K2L': (counts[1] > 0 and counts[0] == 0),
+                    'brute': counts == (0, 0)}[label]
+            if not need:
+                raise AssertionError(f'phase 15 {label}: K1L/K2L launches '
+                                     f'{counts}')
+            if where == 'one card':
+                launches[label] = counts
+            out['fleet'][f'{label} ({where})'] = dict(
+                ms=ms, unsharded_ms=ms_one, gap_m=dt, gap_deg=dr,
+                floor_m=floor[0], floor_deg=floor[1],
+                lanes_above_1e5=int(np.sum(per_lane > 1e-5)),
+                k1l_launches=counts[0], k2l_launches=counts[1])
+
+    # (b) The dry run's 10,000-pose graph (__graft_entry__.py:140-192).
+    n_poses, cap = SOLVE_POSES, 1 << 14
+    g = fg.HostGraph(rel_capacity=cap, prior_capacity=16)
+    poses_np = np.zeros((cap, 7), np.float32)
+    poses_np[:, 0] = 1.0
+    poses_np[:n_poses, 4] = np.arange(n_poses)
+    g.add_prior(0, poses_np[0], np.full(6, 1e-7, np.float32))
+    sig = np.full(6, 0.01, np.float32)
+    step7 = np.array([1, 0, 0, 0, 1, 0, 0], np.float32)
+    for i in range(n_poses - 1):
+        g.add_relative(i, i + 1, step7, sig)
+    for i in range(0, n_poses - 100, 500):
+        g.add_relative(i, i + 100,
+                       np.array([1, 0, 0, 0, 100, 0, 0], np.float32), sig)
+    poses_np[:n_poses, 4:] += np.random.default_rng(1).normal(
+        size=(n_poses, 3)).astype(np.float32) * 0.05
+    mask_np = np.zeros((cap,), bool)
+    mask_np[:n_poses] = True
+    graph = g.to_device(device=dev)
+    P, M = torch.tensor(poses_np, device=dev), torch.tensor(mask_np,
+                                                            device=dev)
+    gcfg = SolverConfig(gn_iterations=2, pcg_iterations=12,
+                        pcg_tolerance=0.0, preconditioner='tridiagonal',
+                        matvec='scatter')
+    single = sv.solve(graph, P, M, gcfg)
+    again = sv.solve(graph, P, M, gcfg)
+    cpu = sv.solve(g.to_device(device='cpu'), P.cpu(), M.cpu(), gcfg)
+
+    def gap(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+    # Two single-device solves that differ only in the order of their
+    # sums (the card's atomic index_add_ from run to run, the CPU's
+    # sequential one) bound what a third order, the shards', may move.
+    floor = max(gap(again.poses, single.poses), gap(cpu.poses, single.poses))
+    limit = max(SOLVE_ATOL, 2.0 * floor)
+    single_ms = sync_ms(lambda: sv.solve(graph, P, M, gcfg), 2)
+    for where, devices in layouts:
+        gmesh = sharding.make_graph_mesh(devices=devices)
+        solve = sharding.sharded_solve(gmesh, gcfg)
+        sharded_in = sharding.shard_graph_inputs(gmesh, graph, P, M)
+        res = solve(*sharded_in)
+        got = res.poses.gather(dev)
+        e0 = float(res.error_initial.gather(dev))
+        e1 = float(res.error_final.gather(dev))
+        d = gap(got, single.poses)
+        d_q = gap(got[:, :4], single.poses[:, :4])
+        d_yz = gap(got[:, 5:], single.poses[:, 5:])
+        ms = sync_ms(lambda: solve(*sharded_in), 2)
+        log(f'phase 15 (b) sharded_solve on a {gmesh.shape} mesh over '
+            f'{where}, {n_poses} poses (capacity {cap}), 2 GN x 12 PCG, '
+            f"'scatter': {ms:.3f} ms, the single-device solve "
+            f'{single_ms:.3f} ms (synchronized; {smi}); error {e0:.6g} -> '
+            f'{e1:.6g}; largest pose gap to the single-device solve {d:.3g}'
+            f' (quaternions {d_q:.3g}, y and z {d_yz:.3g})'
+            f' (limit {limit:.3g}: the larger of {SOLVE_ATOL} and twice '
+            f'{floor:.3g}, the gap between two single-device solves, '
+            f'card run to run {gap(again.poses, single.poses):.3g}, card '
+            f'to CPU {gap(cpu.poses, single.poses):.3g})')
+        if not (np.isfinite(e1) and e1 < e0 and d <= limit):
+            raise AssertionError(f'phase 15 sharded_solve over {where}: gap '
+                                 f'{d}, error {e0} -> {e1}')
+        out['solve'][where] = dict(ms=ms, single_ms=single_ms, gap=d,
+                                   gap_quaternion=d_q, gap_yz=d_yz,
+                                   floor=floor, limit=limit, error_initial=e0,
+                                   error_final=e1)
+    out['seconds'] = time.perf_counter() - t_phase
+    log(f'phase 15 took {out["seconds"]:.1f} s')
+    return launches, out
+
+
 def write_kitti_sequence(root, frames):
     """``frames`` as KITTI sequence 00 under ``root``: velodyne .bin (x,
     y, z, reflectance 0 in f32), times.txt, calib.txt with KITTI_TR, and
@@ -2965,6 +3195,12 @@ def main():
     kernels['K1']['launches_profiling'] = prof14['k1_launches']
     log(f'phase 14 took {time.perf_counter() - t0:.1f} s')
 
+    # 15. Sharding over a mesh (slice 9) ------------------------------------
+    elapsed(15)
+    shard_launches, sharding_out = sharding_phase(nk, smi)
+    lane_records[0]['launches_sharded'] = shard_launches['pallas K1L'][0]
+    lane_records[1]['launches_sharded'] = shard_launches['pallas K2L'][1]
+
     # Records ----------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'
     record = {'kernels': [
@@ -2986,6 +3222,7 @@ def main():
     print(f'E3 sweep at {SHOOT_Q} x {SHOOT_R}: {json.dumps(sweep_line)}',
           flush=True)
     print('data_path: ' + json.dumps(data_path), flush=True)
+    print('sharding: ' + json.dumps(sharding_out), flush=True)
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {

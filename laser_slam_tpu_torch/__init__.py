@@ -10,6 +10,8 @@ an obvious counterpart:
   pipeline/  the online SLAM step, its host runner (multi-robot tracks
              included), device maps, place recognition, replay streams,
              the host API's LaserSlamWorker
+  parallel/  fleet mode (many trajectories as lanes of one call) and
+             sharding over a mesh of devices (lanes, points, factors)
   core/      the host API (LaserTrack, IncrementalEstimator, the
              trajectory and its types), checkpoints, CSV and trajectory
              exports, the benchmarker (host timers)

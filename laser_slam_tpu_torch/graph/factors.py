@@ -52,6 +52,16 @@ class FactorGraphData(NamedTuple):
         return self.prior_meas.shape[-2]
 
 
+class FactorShards(NamedTuple):
+    """A graph whose relative factors are split over devices, the input of
+    the factor-sharded solve (``parallel/sharding.sharded_solve``):
+    ``parts[i]`` is a :class:`FactorGraphData` on its own device holding
+    the i-th slice of the ``rel_*`` fields.  ``parts[0]`` lies on the
+    device of the solve's poses and holds every prior; the other parts
+    hold none, so each prior is counted once."""
+    parts: tuple
+
+
 def empty_graph(rel_capacity: int, prior_capacity: int,
                 device='cuda') -> FactorGraphData:
     def zeros(shape, dtype=torch.float32):

@@ -43,6 +43,22 @@ Woodbury capacitance is one [6L,6L] matrix a lane, the dense method one
 [6T,6T] system a lane, and the chain matvec shifts within a lane, so a
 lane whose factorization fails (NaN, not positive definite) leaves every
 other lane as its own solve would.
+
+Factor shards (:func:`solve` of a ``factors.FactorShards`` graph, the
+factor-sharded solve of ``parallel/sharding.sharded_solve``): the
+relative factors are split into parts on several devices, and the first
+part, on the device of the poses, also holds every prior.  Each part is
+linearized on its own device; every sum over factors onto the pose axis
+(the matvec, the gradient, the preconditioner's blocks, the dense
+normal equations, the error and the off-chain count) is taken part by
+part and reduced onto the poses' device (:func:`_sum_parts`), where the
+free gating, the damping, PCG's dot products and the preconditioner's
+factorization and apply run once.  The chain matvec's blocks are built
+from the reduced sums once per linearization, and its off-chain factors
+are selected in one global order across the parts (the same first
+``offchain_capacity`` that one device selects), so each PCG iteration
+of the 'chain' form reads no part; the 'scatter' form sends the
+iterate to every part and reduces its products.
 """
 
 from __future__ import annotations
@@ -54,8 +70,10 @@ import torch
 
 from laser_slam_tpu_torch.config import SolverConfig
 from laser_slam_tpu_torch.graph.factors import (GAUGE_FIX_THRESHOLD,
-                                                FactorGraphData)
+                                                FactorGraphData,
+                                                FactorShards)
 from laser_slam_tpu_torch.ops import se3
+from laser_slam_tpu_torch.parallel import sharding as shd
 
 
 def _eye6(like: torch.Tensor) -> torch.Tensor:
@@ -143,8 +161,63 @@ class _LinearizedGraph(NamedTuple):
     lanes: int = 1          # equal lanes joined along N and F (solve_lanes)
 
 
+class _LinearizedShards(NamedTuple):
+    """The linearization of a :class:`FactorShards` graph: one
+    :class:`_LinearizedGraph` a part, on the part's device, each with
+    the whole ``free``; ``parts[0]``, on the root device, holds the
+    priors."""
+    parts: tuple
+
+    @property
+    def free(self) -> torch.Tensor:
+        return self.parts[0].free
+
+    @property
+    def lanes(self) -> int:
+        return 1
+
+
+def _sum_parts(lin, fn, *per_part):
+    """``fn(lin, *per_part)``.  For a linearization split over devices,
+    ``fn`` of every part (given its entry of each tuple in
+    ``per_part``; other arguments as they are) reduced onto the root
+    device: the sums over factors that the factor-sharded solve
+    all-reduces.  A tuple of outputs is reduced element by element."""
+    if not isinstance(lin, _LinearizedShards):
+        return fn(lin, *per_part)
+    outs = [fn(p, *(a[i] if isinstance(a, tuple) else a for a in per_part))
+            for i, p in enumerate(lin.parts)]
+    root = lin.free.device
+    if isinstance(outs[0], tuple):
+        return tuple(shd.reduce_sum(list(o), root) for o in zip(*outs))
+    return shd.reduce_sum(outs, root)
+
+
+def _at(x, lin: _LinearizedGraph):
+    """``x`` (replicated state) on the device of the part ``lin``."""
+    return shd.to_device(x, lin.free.device)
+
+
+def _prior_part(graph):
+    """The graph that holds the priors: a factor-sharded graph's first
+    part, or the graph itself."""
+    return graph.parts[0] if isinstance(graph, FactorShards) else graph
+
+
 def _linearize(graph: FactorGraphData, poses, pose_mask,
-               cauchy_k, lanes: int = 1) -> _LinearizedGraph:
+               cauchy_k, lanes: int = 1):
+    free = _free(graph, poses, pose_mask)
+    if isinstance(graph, FactorShards):
+        return _LinearizedShards(tuple(
+            _linearize_factors(g, shd.to_device(poses, g.rel_keys.device),
+                               cauchy_k,
+                               shd.to_device(free, g.rel_keys.device))
+            for g in graph.parts))
+    return _linearize_factors(graph, poses, cauchy_k, free, lanes)
+
+
+def _linearize_factors(graph: FactorGraphData, poses, cauchy_k, free,
+                       lanes: int = 1) -> _LinearizedGraph:
     keys = graph.rel_keys.long()
     T_a = poses[keys[:, 0]]
     T_b = poses[keys[:, 1]]
@@ -166,7 +239,7 @@ def _linearize(graph: FactorGraphData, poses, pose_mask,
     Jp_w = Jp * sp[:, :, None]
     wp = graph.prior_weight
     return _LinearizedGraph(Ja_w, Jb_w, r_w, w, keys, Jp_w, rp_w, wp, pkeys,
-                            _free(graph, poses, pose_mask), lanes)
+                            free, lanes)
 
 
 def _free(graph: FactorGraphData, poses, pose_mask):
@@ -175,6 +248,7 @@ def _free(graph: FactorGraphData, poses, pose_mask):
     weighted); the JAX package's ``_free_mask`` too.  JAX's
     ``.at[keys].max(flag)``: a sum of 0/1 flags is > 0 exactly when the
     max is 1, and index_add_ handles the duplicate padding keys."""
+    graph = _prior_part(graph)
     gauge = torch.any(graph.prior_sqrt_info > GAUGE_FIX_THRESHOLD, dim=-1)
     hits = torch.zeros(poses.shape[0], dtype=poses.dtype,
                        device=poses.device)
@@ -190,6 +264,15 @@ def _free(graph: FactorGraphData, poses, pose_mask):
 def _hessian_matvec(lin: _LinearizedGraph, x, damping):
     """y = (J^T W J + damping*I) x with frozen poses passed through; ``x``
     is [N,6] or a batch [N,6,B]."""
+    y = _sum_parts(lin, lambda p: _factor_matvec(p, _at(x, p)))
+    y = y * _rows(lin.free, x) + damping * x
+    # Frozen/invalid poses: identity row keeps the operator SPD.
+    return y + _rows(1.0 - lin.free, x) * x
+
+
+def _factor_matvec(lin: _LinearizedGraph, x):
+    """J^T W J x (x free-gated) summed onto the pose axis over the
+    factors and priors of ``lin``: the matvec's sum over factors."""
     ka, kb = lin.keys[:, 0], lin.keys[:, 1]
     xa = x[ka] * _rows(lin.free[ka], x)
     xb = x[kb] * _rows(lin.free[kb], x)
@@ -204,10 +287,7 @@ def _hessian_matvec(lin: _LinearizedGraph, x, damping):
            * _rows(lin.w_prior, x))
     y.index_add_(0, lin.prior_keys,
                  torch.einsum('pji,pj...->pi...', lin.Jp, Jpx))
-
-    y = y * _rows(lin.free, x) + damping * x
-    # Frozen/invalid poses: identity row keeps the operator SPD.
-    return y + _rows(1.0 - lin.free, x) * x
+    return y
 
 
 def _chain_mask(lin: _LinearizedGraph):
@@ -223,15 +303,19 @@ def _offchain_mask(lin: _LinearizedGraph):
     return (lin.w_rel > 0) & ~_chain_mask(lin) & touches_free
 
 
-def _first_true_indices(flags, L: int, lanes: int = 1):
+def _first_true_indices(flags, L: int, lanes: int = 1, offset=None):
     """Indices [L] of the first L True entries of ``flags`` (in index
     order) plus a validity mask.  Slots beyond the True count hold the
     out-of-bounds sentinel F (JAX writes them with ``mode='drop'``; here
     they land in an overflow row that is cut off).  With ``lanes`` equal
-    lanes of flags, the first L of each lane: [lanes * L] slots."""
+    lanes of flags, the first L of each lane: [lanes * L] slots.  An
+    ``offset`` (a 0-d tensor: True entries ranked before these) starts
+    the ranks there."""
     F = flags.shape[0]
     lane_flags = flags.reshape(lanes, -1)
     pos = torch.cumsum(lane_flags, dim=1) - 1     # rank among True entries
+    if offset is not None:
+        pos = pos + offset
     slot = pos + L * torch.arange(lanes, device=flags.device)[:, None]
     dest = torch.where(lane_flags & (pos < L), slot,
                        torch.full_like(pos, lanes * L)).reshape(-1)
@@ -244,19 +328,40 @@ def _first_true_indices(flags, L: int, lanes: int = 1):
 
 def _lane_capacity(lin: _LinearizedGraph, capacity: int) -> int:
     """Off-chain slots a lane: ``capacity``, at most the lane's factors."""
+    if isinstance(lin, _LinearizedShards):
+        return min(capacity, sum(p.keys.shape[0] for p in lin.parts))
     return min(capacity, lin.keys.shape[0] // lin.lanes)
 
 
 def _select_offchain(lin: _LinearizedGraph, capacity: int):
     """Indices of up to ``capacity`` active off-chain factors a lane,
-    plus a validity mask (False slots are padding)."""
-    return _first_true_indices(_offchain_mask(lin),
-                               _lane_capacity(lin, capacity), lin.lanes)
+    plus a validity mask (False slots are padding).  Over factor shards
+    a tuple of each a part: a part's factors rank after every earlier
+    part's, so the parts fill the slots that one device fills, each
+    slot in the one part that holds its factor."""
+    if not isinstance(lin, _LinearizedShards):
+        return _first_true_indices(_offchain_mask(lin),
+                                   _lane_capacity(lin, capacity), lin.lanes)
+    L = _lane_capacity(lin, capacity)
+    root = lin.free.device
+    before = torch.zeros((), dtype=torch.int64, device=root)
+    sels, valids = [], []
+    for p in lin.parts:
+        flags = _offchain_mask(p)
+        sel, valid = _first_true_indices(flags, L, offset=_at(before, p))
+        sels.append(sel)
+        valids.append(valid)
+        before = before + shd.to_device(torch.sum(flags), root)
+    return tuple(sels), tuple(valids)
 
 
 def _without(lin: _LinearizedGraph, sel, valid):
     """[F] weight scale that is 0 at the selected factors and 1 elsewhere.
-    Padding slots (sel == F) write an overflow entry that is cut off."""
+    Padding slots (sel == F) write an overflow entry that is cut off.
+    Over factor shards one a part."""
+    if isinstance(lin, _LinearizedShards):
+        return tuple(_without(p, s, v)
+                     for p, s, v in zip(lin.parts, sel, valid))
     F = lin.keys.shape[0]
     w_scale = torch.ones(F + 1, dtype=lin.w_rel.dtype, device=sel.device)
     w_scale[sel] = torch.where(valid, 0.0, 1.0).to(w_scale.dtype)
@@ -266,7 +371,20 @@ def _without(lin: _LinearizedGraph, sel, valid):
 def _offchain_blocks(lin: _LinearizedGraph, sel, valid):
     """Per-selected-factor U blocks: Ua/Ub [L,6(state),6(col)] with weight
     and free-gating folded in, plus their pose keys.  Padding slots gather
-    their lane's last factor and get zero blocks."""
+    their lane's last factor and get zero blocks.  Over factor shards the
+    parts' blocks are summed onto the root: each slot's from the part
+    that selected its factor, zero from the others (a slot that no part
+    fills keeps key 0 and zero blocks)."""
+    if isinstance(lin, _LinearizedShards):
+        root = lin.free.device
+        blocks = [_offchain_blocks(p, s, v)
+                  for p, s, v in zip(lin.parts, sel, valid)]
+        Ua = shd.reduce_sum([b[0] for b in blocks], root)
+        Ub = shd.reduce_sum([b[1] for b in blocks], root)
+        ka, kb = (shd.reduce_sum([torch.where(v, b[k], 0)
+                                  for b, v in zip(blocks, valid)], root)
+                  for k in (2, 3))
+        return Ua, Ub, ka, kb
     F = lin.keys.shape[0]
     lane = torch.arange(sel.shape[0], device=sel.device) // max(
         sel.shape[0] // lin.lanes, 1)
@@ -294,19 +412,20 @@ def _make_matvec(lin: _LinearizedGraph, damping, config, offchain=None):
     are the same operator, so a bound above the true count changes only
     the rounding.  Without ``offchain`` the count is read back (one sync
     per linearization), which a direct call may accept.  Over lanes the
-    count and the capacity are a lane's: the largest lane decides.
+    count and the capacity are a lane's: the largest lane decides.  Over
+    factor shards the count is the whole graph's, summed on the root
+    (one read), and the chain form runs on the root alone.
     """
     if getattr(config, 'matvec', 'chain') != 'chain':
         return lambda x: _hessian_matvec(lin, x, damping)
 
     L = _lane_capacity(lin, config.offchain_capacity)
-    off = _offchain_mask(lin)
     if offchain is None:
-        offchain = int(torch.amax(torch.sum(off.reshape(lin.lanes, -1),
-                                            dim=1)))
+        offchain = int(torch.amax(_sum_parts(lin, lambda p: torch.sum(
+            _offchain_mask(p).reshape(p.lanes, -1), dim=1))))
     if offchain > L:
         return lambda x: _hessian_matvec(lin, x, damping)
-    sel, valid = _first_true_indices(off, L, lin.lanes)
+    sel, valid = _select_offchain(lin, config.offchain_capacity)
     # T excludes the selected off-chain factors entirely; their diagonal
     # AND coupling ride in U U^T (exact, no boost).
     B, A = _build_tridiag(lin, damping, w_scale=_without(lin, sel, valid),
@@ -337,6 +456,12 @@ def _make_matvec(lin: _LinearizedGraph, damping, config, offchain=None):
 
 def _gradient(lin: _LinearizedGraph):
     """g = J^T W r (negated later); zero for frozen poses."""
+    return _sum_parts(lin, _factor_gradient) * lin.free[:, None]
+
+
+def _factor_gradient(lin: _LinearizedGraph):
+    """J^T W r summed onto the pose axis over the factors and priors of
+    ``lin``."""
     wr = lin.r_rel * lin.w_rel[:, None]
     g = torch.zeros((lin.free.shape[0], 6), dtype=wr.dtype,
                     device=wr.device)
@@ -344,7 +469,7 @@ def _gradient(lin: _LinearizedGraph):
     g.index_add_(0, lin.keys[:, 1], torch.einsum('fji,fj->fi', lin.Jb, wr))
     wrp = lin.r_prior * lin.w_prior[:, None]
     g.index_add_(0, lin.prior_keys, torch.einsum('pji,pj->pi', lin.Jp, wrp))
-    return g * lin.free[:, None]
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -393,10 +518,13 @@ def _chol_inverse6(A):
     return torch.stack(rows, dim=-2)
 
 
-def _block_jacobi(lin: _LinearizedGraph, damping):
-    """Inverse 6x6 diagonal blocks of the Hessian as preconditioner."""
+def _diag_blocks(lin: _LinearizedGraph, w_scale=None):
+    """The Hessian's 6x6 diagonal blocks [N,6,6] summed over the factors
+    and priors of ``lin`` (before the free gating and damping);
+    ``w_scale`` [F] rescales each factor's weight."""
     n = lin.free.shape[0]
-    w = lin.w_rel[:, None, None]
+    w = (lin.w_rel if w_scale is None else lin.w_rel * w_scale)[:, None,
+                                                                 None]
     H = torch.zeros((n, 6, 6), dtype=lin.Ja.dtype, device=lin.Ja.device)
     H.index_add_(0, lin.keys[:, 0],
                  torch.einsum('fji,fjk->fik', lin.Ja, lin.Ja * w))
@@ -404,6 +532,12 @@ def _block_jacobi(lin: _LinearizedGraph, damping):
                  torch.einsum('fji,fjk->fik', lin.Jb, lin.Jb * w))
     H.index_add_(0, lin.prior_keys, torch.einsum(
         'pji,pjk->pik', lin.Jp, lin.Jp * lin.w_prior[:, None, None]))
+    return H
+
+
+def _block_jacobi(lin: _LinearizedGraph, damping):
+    """Inverse 6x6 diagonal blocks of the Hessian as preconditioner."""
+    H = _sum_parts(lin, _diag_blocks)
     H = H * lin.free[:, None, None] + _eye6(H) * (
         damping + (1.0 - lin.free)[:, None, None])
     return _chol_inverse6(H)
@@ -416,21 +550,26 @@ def _build_tridiag(lin: _LinearizedGraph, damping, w_scale=None,
 
     ``w_scale`` [F] rescales each factor's weight in the build only;
     ``boost=False`` skips the stabilizing diagonal boost (required when
-    the blocks feed an exact matvec, not a factorization)."""
-    n = lin.free.shape[0]
-    w = (lin.w_rel if w_scale is None else lin.w_rel * w_scale)[:, None,
-                                                                 None]
-    B = torch.zeros((n, 6, 6), dtype=lin.Ja.dtype, device=lin.Ja.device)
-    B.index_add_(0, lin.keys[:, 0],
-                 torch.einsum('fji,fjk->fik', lin.Ja, lin.Ja * w))
-    B.index_add_(0, lin.keys[:, 1],
-                 torch.einsum('fji,fjk->fik', lin.Jb, lin.Jb * w))
-    B.index_add_(0, lin.prior_keys, torch.einsum(
-        'pji,pjk->pik', lin.Jp, lin.Jp * lin.w_prior[:, None, None]))
+    the blocks feed an exact matvec, not a factorization).  Over factor
+    shards ``w_scale`` has one entry a part."""
+    B, A = _sum_parts(lin, _chain_blocks, w_scale)
     eye = _eye6(B)
     B = B * lin.free[:, None, None] + eye * (
         damping + (1.0 - lin.free)[:, None, None])
+    if boost:
+        diag_mag = torch.einsum('nii->n', B) / 6.0
+        B = B + (_CR_BOOST * diag_mag)[:, None, None] * eye
+    return B, A
 
+
+def _chain_blocks(lin: _LinearizedGraph, w_scale=None):
+    """The chain part's diagonal blocks B [N,6,6] (:func:`_diag_blocks`)
+    and sub-diagonal blocks A [N,6,6] summed over the factors and priors
+    of ``lin``."""
+    n = lin.free.shape[0]
+    B = _diag_blocks(lin, w_scale)
+    w = (lin.w_rel if w_scale is None else lin.w_rel * w_scale)[:, None,
+                                                                 None]
     # Chain coupling H[b,a] = Jb^T W Ja for factors with key_b == key_a+1;
     # other factors go to an overflow row n that is cut off.
     chain = _chain_mask(lin)
@@ -440,11 +579,7 @@ def _build_tridiag(lin: _LinearizedGraph, damping, w_scale=None,
                                 torch.full_like(lin.keys[:, 1], n)),
                  torch.where(chain[:, None, None], Hba,
                              torch.zeros_like(Hba)))
-    A = A[:n]
-    if boost:
-        diag_mag = torch.einsum('nii->n', B) / 6.0
-        B = B + (_CR_BOOST * diag_mag)[:, None, None] * eye
-    return B, A
+    return B, A[:n]
 
 
 # Cyclic reduction stops at this many blocks and finishes with one dense
@@ -669,7 +804,9 @@ def _build_woodbury_cache(lin: _LinearizedGraph, damping,
     if lanes == 1:
         chol_inv = chol_inv[0]
     return WoodburyCache(factors=factors, Ua=Ua, Ub=Ub, ka=ka, kb=kb,
-                         chol_inv=chol_inv, n_used=torch.sum(valid))
+                         chol_inv=chol_inv,
+                         n_used=_sum_parts(lin, lambda p, v: torch.sum(v),
+                                           valid))
 
 
 def _apply_from_cache(cache: WoodburyCache):
@@ -728,6 +865,21 @@ def _dense_factor(lin: _LinearizedGraph, damping):
     ([lanes, 6n, 6n]), so a lane that fails leaves the others alone."""
     lanes = lin.lanes
     n = lin.free.shape[0] // lanes
+    H4 = _sum_parts(lin, _dense_blocks)
+    f = lin.free.reshape(lanes, n)
+    H4 = H4 * f[:, :, None, None, None] * f[:, None, :, None, None]
+    H = H4.permute(0, 1, 3, 2, 4).reshape(lanes, 6 * n, 6 * n)
+    H = H + torch.diag_embed(torch.repeat_interleave(damping + (1.0 - f),
+                                                     6, dim=-1))
+    chol = _factor_or_nan(H)
+    return chol[0] if lanes == 1 else chol
+
+
+def _dense_blocks(lin: _LinearizedGraph):
+    """The normal equations' 6x6 blocks [lanes, n, n, 6, 6] summed over
+    the factors and priors of ``lin`` (before the free gating)."""
+    lanes = lin.lanes
+    n = lin.free.shape[0] // lanes
     w = lin.w_rel[:, None, None]
     k0, k1 = lin.keys[:, 0], lin.keys[:, 1]
     Ha = torch.einsum('fji,fjk->fik', lin.Ja, lin.Ja * w)
@@ -742,13 +894,7 @@ def _dense_factor(lin: _LinearizedGraph, damping):
                              ((k1, k0), Hab.transpose(-1, -2)),
                              ((pk, pk), Hp)):
         H4.index_put_((ia // n, ia % n, ib % n), blocks, accumulate=True)
-    f = lin.free.reshape(lanes, n)
-    H4 = H4 * f[:, :, None, None, None] * f[:, None, :, None, None]
-    H = H4.permute(0, 1, 3, 2, 4).reshape(lanes, 6 * n, 6 * n)
-    H = H + torch.diag_embed(torch.repeat_interleave(damping + (1.0 - f),
-                                                     6, dim=-1))
-    chol = _factor_or_nan(H)
-    return chol[0] if lanes == 1 else chol
+    return H4
 
 
 def _dense_apply(chol, b):
@@ -842,7 +988,13 @@ class SolveResult(NamedTuple):
 def graph_error(graph: FactorGraphData, poses, lanes: int = 1
                 ) -> torch.Tensor:
     """Total weighted squared error (0.5 * sum r^T W r), for diagnostics;
-    one a lane ([lanes]) for a graph of joined lanes."""
+    one a lane ([lanes]) for a graph of joined lanes.  Over factor
+    shards each part's error (the priors' in the first) is summed on the
+    poses' device."""
+    if isinstance(graph, FactorShards):
+        return shd.reduce_sum([
+            graph_error(g, shd.to_device(poses, g.rel_keys.device))
+            for g in graph.parts], poses.device)
     keys = graph.rel_keys.long()
     r = se3.log(_rel_error(poses[keys[:, 0]], poses[keys[:, 1]],
                            graph.rel_meas))
@@ -867,6 +1019,7 @@ def _snap_gauge(graph: FactorGraphData, poses):
     """Gauge-fixing priors pin their pose AT the prior measurement.
     Non-gauge slots write the overflow row N, which is cut off (JAX
     drops them: padding slots share key 0 and must not clobber a snap)."""
+    graph = _prior_part(graph)
     N = poses.shape[0]
     gauge = (torch.any(graph.prior_sqrt_info > GAUGE_FIX_THRESHOLD, dim=-1)
              & (graph.prior_weight > 0))

@@ -22,6 +22,15 @@ done, where the vmapped while loop stops.  The reference is shared
 ([R,3]: one K1/K2 call, brute search or range image for the flattened
 B x N queries) or per lane ([B,R,3]: K1L/K2L, ``nn_brute_lanes`` or one
 image a lane).
+
+Point shards.  :func:`icp_point_shards` registers a reading whose point
+axis is split into parts that may lie on several devices (the 'sp' axis
+of ``parallel/sharding.py``): every part is matched on its own device
+by its own matcher (:func:`make_matcher`), and what spans the whole
+reading is reduced explicitly onto the guess's device: the trim's
+quantile (:func:`trim_shards`), the 6x6 normal equations, the inlier
+count and the error sum.  The loop state lives there and goes back to
+the parts as a pose a lane.  One part is :func:`icp_point_to_plane`.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from laser_slam_tpu_torch.config import IcpConfig
 from laser_slam_tpu_torch.ops import se3
 from laser_slam_tpu_torch.ops.cloud import Cloud
 from laser_slam_tpu_torch.ops import neighbors as nb
+from laser_slam_tpu_torch.parallel import sharding as shd
 
 
 class IcpResult(NamedTuple):
@@ -59,13 +69,13 @@ class IcpResult(NamedTuple):
 MIN_INLIERS = 24
 
 
-def _trim_mask(d2: torch.Tensor, valid: torch.Tensor, ratio: float,
-               method: str = 'sort', d2_max: float = 9.0) -> torch.Tensor:
-    """Keep the closest ``ratio`` fraction of valid correspondences
-    (TrimmedDistOutlierFilter): threshold = distance quantile among valid
-    matches.  'sort' is the exact quantile; 'histogram' a 256-bin
-    conservative approximation (rounds the bin up).  The quantile is taken
-    along the last axis, per lane."""
+def _trim_threshold(d2: torch.Tensor, valid: torch.Tensor, ratio: float,
+                    method: str = 'sort', d2_max: float = 9.0
+                    ) -> torch.Tensor:
+    """The trim's threshold along the last axis, one a lane ([..., 1]):
+    the exact ``ratio`` quantile of the valid squared distances for
+    'sort'; for 'histogram' the rounded-up edge of a 256-bin histogram
+    of the distances (a distance, not a squared one)."""
     n_valid = torch.sum(valid, dim=-1)
     if method == 'histogram':
         bins = 256
@@ -84,15 +94,73 @@ def _trim_mask(d2: torch.Tensor, valid: torch.Tensor, ratio: float,
         cum = torch.cumsum(hist[..., :bins], dim=-1)
         target = (n_valid.to(torch.float32) * ratio).to(torch.int64)
         bin_idx = torch.searchsorted(cum, target[..., None])
-        thresh_d = (bin_idx.to(torch.float32) + 1.0) / scale
-        return valid & (d <= thresh_d)
+        return (bin_idx.to(torch.float32) + 1.0) / scale
     big = torch.where(valid, d2, torch.full_like(d2, float('inf')))
     order = torch.sort(big, dim=-1).values
     k = torch.clamp((n_valid.to(torch.float32) * ratio).to(torch.int64),
                     min=1) - 1
-    thresh = torch.gather(order, -1,
-                          torch.clamp(k, 0, d2.shape[-1] - 1)[..., None])
+    return torch.gather(order, -1,
+                        torch.clamp(k, 0, d2.shape[-1] - 1)[..., None])
+
+
+def _trim_keep(d2: torch.Tensor, valid: torch.Tensor, thresh: torch.Tensor,
+               method: str = 'sort', d2_max: float = 9.0) -> torch.Tensor:
+    """The valid correspondences within :func:`_trim_threshold`'s
+    ``thresh``."""
+    if method == 'histogram':
+        return valid & (torch.sqrt(torch.clamp(d2, max=d2_max)) <= thresh)
     return valid & (d2 <= thresh)
+
+
+def _trim_mask(d2: torch.Tensor, valid: torch.Tensor, ratio: float,
+               method: str = 'sort', d2_max: float = 9.0) -> torch.Tensor:
+    """Keep the closest ``ratio`` fraction of valid correspondences
+    (TrimmedDistOutlierFilter): threshold = distance quantile among valid
+    matches.  'sort' is the exact quantile; 'histogram' a 256-bin
+    conservative approximation (rounds the bin up).  The quantile is taken
+    along the last axis, per lane."""
+    thresh = _trim_threshold(d2, valid, ratio, method, d2_max)
+    return _trim_keep(d2, valid, thresh, method, d2_max)
+
+
+def trim_shards(d2s, valids, ratio: float, method: str, d2_max: float,
+                device):
+    """:func:`_trim_mask` of a reading whose point axis is split into the
+    parts ``d2s`` / ``valids`` (in order, on any devices): one threshold
+    a lane from the whole reading, its parts gathered onto ``device``,
+    applied to every part on the part's device.  A quantile taken part
+    by part would keep another set.  One part is :func:`_trim_mask`."""
+    if len(d2s) == 1:
+        return [_trim_mask(d2s[0], valids[0], ratio, method, d2_max)]
+    thresh = _trim_threshold(shd.gather_cat(d2s, -1, device),
+                             shd.gather_cat(valids, -1, device), ratio,
+                             method, d2_max)
+    return [_trim_keep(d2, v, shd.to_device(thresh, d2.device), method,
+                       d2_max) for d2, v in zip(d2s, valids)]
+
+
+def _normal_sums(p_world, q, n, w):
+    """Point-to-plane normal equations summed over the points (the last
+    point axis): A = J^T W J [...,6,6], b = -J^T W r [...,6] and the
+    weighted residual sum sum_i w_i |r_i| [...], plus r [...,N];
+    r_i = n_i . (p_i - q_i) and J_i = [p_i x n_i, n_i].  The sums of the
+    parts of a reading add up to the whole reading's."""
+    r = torch.sum(n * (p_world - q), dim=-1)                   # [...,N]
+    J = torch.cat([torch.linalg.cross(p_world, n, dim=-1), n], dim=-1)
+    Jw = J * w[..., None]
+    A = Jw.mT @ J                                              # [...,6,6]
+    b = -(Jw.mT @ r[..., None])[..., 0]                        # [...,6]
+    return A, b, torch.sum(torch.abs(r) * w, dim=-1), r
+
+
+def _solve_normal(A, b, damping=1e-6):
+    """The increment [omega, v] from summed normal equations, damped by
+    each lane's trace."""
+    eye = torch.eye(6, dtype=A.dtype, device=A.device)
+    trace = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    A = A + damping * eye * (1.0 + trace / 6.0)
+    # solve_ex: no error check, so no device read per iteration.
+    return torch.linalg.solve_ex(A, b)[0]
 
 
 def _gauss_newton_step(p_world, q, n, w, damping=1e-6):
@@ -103,53 +171,24 @@ def _gauss_newton_step(p_world, q, n, w, damping=1e-6):
     J_i = [p_i x n_i, n_i] in R^6.  Over lanes ([B,N,3]) A is [B,6,6], b
     [B,6] and the damping follows each lane's trace.
     """
-    r = torch.sum(n * (p_world - q), dim=-1)                   # [...,N]
-    J = torch.cat([torch.linalg.cross(p_world, n, dim=-1), n], dim=-1)
-    Jw = J * w[..., None]
-    A = Jw.mT @ J                                              # [...,6,6]
-    eye = torch.eye(6, dtype=A.dtype, device=A.device)
-    b = -(Jw.mT @ r[..., None])[..., 0]                        # [...,6]
-    trace = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)[..., None, None]
-    A = A + damping * eye * (1.0 + trace / 6.0)
-    # solve_ex: no error check, so no device read per iteration.
-    delta = torch.linalg.solve_ex(A, b)[0]
-    return delta, r
+    A, b, _, r = _normal_sums(p_world, q, n, w)
+    return _solve_normal(A, b, damping), r
 
 
-def icp_point_to_plane(reading: Cloud, reference: Cloud,
-                       ref_normals: torch.Tensor,
-                       initial_guess: torch.Tensor,
-                       config: IcpConfig,
-                       prebuilt_image=None,
-                       early_break: bool = True) -> IcpResult:
-    """Align ``reading`` to ``reference`` starting from ``initial_guess``.
-
-    ``ref_normals`` are per-reference-point unit normals in the reference
-    frame.  The matcher comes from ``config.matcher``: 'pallas' runs the
-    CUDA kernels of ``ops/nn_kernels.py`` (K2 with ``pallas_prune``, K1
-    without), 'brute' the plain torch search, 'projective' the range
-    image of ``ops/range_image.py`` (``prebuilt_image`` supplies one
-    built beforehand, for many readings against one reference).
-    ``early_break=False`` keeps a CPU run in the loop past convergence,
-    through the frozen iterations the card runs; the result is the same.
-
-    Readings [B,N,3] (mask [B,N]) with guesses [B,7] run B registrations
-    at once against a shared reference [R,3] or one reference a lane
-    [B,R,3] (normals alike); a ``prebuilt_image`` then has one lane or B.
-    """
+def make_matcher(reference: Cloud, ref_normals: torch.Tensor,
+                 config: IcpConfig, prebuilt_image=None):
+    """The correspondence search of ``config.matcher`` against one
+    reference, built once (the pruned kernel's Morton tables, a range
+    image): ``match(p_world, mask) -> (q, n, d2, valid)``, each query's
+    reference point and normal, squared distance and validity.  The
+    reference is shared ([R,3]; queries with a lane axis are searched
+    flattened) or one a lane ([B,R,3]); see :func:`icp_point_to_plane`."""
     if config.matcher not in ('brute', 'pallas', 'projective'):
         raise ValueError(f'unknown ICP matcher {config.matcher!r}; expected '
                          "'brute', 'pallas' or 'projective'")
-    max_corr2 = config.max_correspondence_dist_m ** 2
-    smooth = config.smooth_length
-    dev, dt = reference.points.device, reference.points.dtype
+    dev = reference.points.device
     cap = reference.capacity
-    lanes = reading.points.dim() == 3
     per_lane = reference.points.dim() == 3
-    if per_lane and not lanes:
-        raise ValueError('icp_point_to_plane: a reference per lane needs '
-                         'readings with a lane axis')
-    lead = reading.points.shape[:-2]        # () or (B,)
 
     def ext(a, fill_shape):
         # One extra dead row so a miss index (== capacity) gathers a
@@ -171,7 +210,7 @@ def icp_point_to_plane(reading: Cloud, reference: Cloud,
         """The matcher's ``search`` (defined below) for every lane's
         queries: against their own lane's reference, or all at once
         against a shared one ([B,N,3] -> [B*N,3] and back)."""
-        if lanes and not per_lane:
+        if p_world.dim() == 3 and not per_lane:
             out = search(p_world.reshape(-1, 3))
             return tuple(o.reshape(p_world.shape[:-1]) for o in out)
         return search(p_world)
@@ -250,13 +289,61 @@ def icp_point_to_plane(reading: Cloud, reference: Cloud,
             idx = torch.clamp(idx.long(), 0, cap)
             return (take(ref_ext_pts, idx), take(ref_ext_normals, idx), d2,
                     msk & take(ref_ext_mask, idx))
+    return match_payload
 
+
+def icp_point_to_plane(reading: Cloud, reference: Cloud,
+                       ref_normals: torch.Tensor,
+                       initial_guess: torch.Tensor,
+                       config: IcpConfig,
+                       prebuilt_image=None,
+                       early_break: bool = True) -> IcpResult:
+    """Align ``reading`` to ``reference`` starting from ``initial_guess``.
+
+    ``ref_normals`` are per-reference-point unit normals in the reference
+    frame.  The matcher comes from ``config.matcher``: 'pallas' runs the
+    CUDA kernels of ``ops/nn_kernels.py`` (K2 with ``pallas_prune``, K1
+    without), 'brute' the plain torch search, 'projective' the range
+    image of ``ops/range_image.py`` (``prebuilt_image`` supplies one
+    built beforehand, for many readings against one reference).
+    ``early_break=False`` keeps a CPU run in the loop past convergence,
+    through the frozen iterations the card runs; the result is the same.
+
+    Readings [B,N,3] (mask [B,N]) with guesses [B,7] run B registrations
+    at once against a shared reference [R,3] or one reference a lane
+    [B,R,3] (normals alike); a ``prebuilt_image`` then has one lane or B.
+    """
+    if reference.points.dim() == 3 and reading.points.dim() != 3:
+        raise ValueError('icp_point_to_plane: a reference per lane needs '
+                         'readings with a lane axis')
+    match = make_matcher(reference, ref_normals, config, prebuilt_image)
+    return icp_point_shards([reading], [match], initial_guess, config,
+                            early_break)
+
+
+def icp_point_shards(readings, matchers, initial_guess: torch.Tensor,
+                     config: IcpConfig,
+                     early_break: bool = True) -> IcpResult:
+    """:func:`icp_point_to_plane` of one reading split along its point
+    axis: ``readings`` are its parts in order (Clouds [...,N_i,3], on any
+    devices), ``matchers`` one :func:`make_matcher` a part, on the part's
+    device.  The loop state and the result live on ``initial_guess``'s
+    device, onto which every sum over the whole reading is reduced (the
+    trim's quantile, the normal equations, the inlier count, the error
+    sum); each part receives the pose a lane.  The coarse phase takes
+    the points of the global stride that lie in each part, so the parts
+    together pick what the whole reading picks."""
+    max_corr2 = config.max_correspondence_dist_m ** 2
+    smooth = config.smooth_length
+    dev = initial_guess.device
+    dt = readings[0].points.dtype
+    lead = readings[0].points.shape[:-2]        # () or (B,)
     S = max(int(config.gn_steps_per_match), 1)
 
-    def run_loop(pts, msk, T0, max_iterations: int):
-        """Match/GN loop over a (possibly subset) reading, run for its full
-        count with the state frozen once the checkers have fired (lane by
-        lane over lanes)."""
+    def run_loop(parts, T0, max_iterations: int):
+        """Match/GN loop over a (possibly subset) reading in ``parts``
+        (points, mask, matcher), run for its full count with the state
+        frozen once the checkers have fired (lane by lane over lanes)."""
         T = T0
         it = torch.zeros(lead, dtype=torch.int32, device=dev)
         hist = torch.full(lead + (smooth, 2), float('inf'), dtype=dt,
@@ -266,18 +353,31 @@ def icp_point_to_plane(reading: Cloud, reference: Cloud,
         n_in = torch.zeros(lead, dtype=torch.int32, device=dev)
         for _ in range(max_iterations):
             running = ~done        # JAX's while-cond: it < max_it & ~done
-            p_world = se3.apply(T[..., None, :], pts)
-            q, n, d2, base_valid = match_payload(p_world, msk)
-            valid = base_valid & (d2 <= max_corr2)
-            inlier = _trim_mask(d2, valid, config.trimmed_dist_ratio,
-                                method=config.trim_method, d2_max=max_corr2)
-            w = inlier.to(dt)
-            n_new = torch.sum(inlier, dim=-1).to(torch.int32)
+            matched = []
+            for pts, msk, match in parts:
+                p_world = se3.apply(
+                    shd.to_device(T, pts.device)[..., None, :], pts)
+                q, n, d2, base_valid = match(p_world, msk)
+                matched.append((q, n, d2, base_valid & (d2 <= max_corr2)))
+            inliers = trim_shards([m[2] for m in matched],
+                                  [m[3] for m in matched],
+                                  config.trimmed_dist_ratio,
+                                  config.trim_method, max_corr2, dev)
+            ws = [inlier.to(dt) for inlier in inliers]
+            n_new = shd.reduce_sum([torch.sum(inlier, dim=-1)
+                                    for inlier in inliers],
+                                   dev).to(torch.int32)
             enough = n_new >= MIN_INLIERS
             T_b, it_b, hist_b, done_b, err_b = T, it, hist, done, mean_err
             for _ in range(S):
-                p_w = se3.apply(T_b[..., None, :], pts)
-                delta, r = _gauss_newton_step(p_w, q, n, w)
+                sums = [_normal_sums(
+                    se3.apply(shd.to_device(T_b, pts.device)[..., None, :],
+                              pts), q, n, w)[:3]
+                    for (pts, _, _), (q, n, _, _), w in zip(parts, matched,
+                                                            ws)]
+                A, b, abs_sum = (shd.reduce_sum(list(s), dev)
+                                 for s in zip(*sums))
+                delta = _solve_normal(A, b)
                 step_on = enough & ~done_b & (it_b < max_iterations)
                 delta = torch.where(step_on[..., None], delta,
                                     torch.zeros_like(delta))
@@ -297,8 +397,7 @@ def icp_point_to_plane(reading: Cloud, reference: Cloud,
                              (means[..., 1] < config.min_diff_trans))
                 err_b = torch.where(
                     step_on,
-                    torch.sum(torch.abs(r) * w, dim=-1)
-                    / torch.clamp(n_new, min=1).to(dt),
+                    abs_sum / torch.clamp(n_new, min=1).to(dt),
                     err_b)
                 it_b = it_b + step_on.to(torch.int32)
                 done_b = done_b | converged | ~enough
@@ -316,21 +415,30 @@ def icp_point_to_plane(reading: Cloud, reference: Cloud,
         return T, it, hist, done, mean_err, n_in
 
     C = config.coarse_capacity
+    N = sum(r.capacity for r in readings)
     T_start = initial_guess
     it_coarse = torch.zeros(lead, dtype=torch.int32, device=dev)
-    if C and C < reading.capacity:
-        # Coarse phase on a strided subset (one stride for every lane),
-        # then refine at full resolution.
-        stride = reading.capacity // C
-        pts_c = reading.points[..., ::stride, :][..., :C, :]
-        msk_c = reading.mask[..., ::stride][..., :C]
+    if C and C < N:
+        # Coarse phase on a strided subset (one stride for every lane):
+        # global points 0, stride, ..., (C-1) stride, each taken in the
+        # part that holds it; then refine at full resolution.
+        stride = N // C
+        coarse, offset = [], 0
+        for r, match in zip(readings, matchers):
+            start = (-offset) % stride
+            stop = min(r.capacity, C * stride - offset)
+            if stop > start:
+                coarse.append((r.points[..., start:stop:stride, :],
+                               r.mask[..., start:stop:stride], match))
+            offset += r.capacity
         T_c, it_coarse, _, _, _, n_in_c = run_loop(
-            pts_c, msk_c, initial_guess, config.coarse_max_iterations)
+            coarse, initial_guess, config.coarse_max_iterations)
         T_start = torch.where((n_in_c >= MIN_INLIERS)[..., None], T_c,
                               initial_guess)
 
     T, it, _, _, mean_err, n_in = run_loop(
-        reading.points, reading.mask, T_start, config.max_iterations)
+        [(r.points, r.mask, m) for r, m in zip(readings, matchers)],
+        T_start, config.max_iterations)
 
     ok = n_in >= MIN_INLIERS
     T_final = torch.where(ok[..., None], T, initial_guess)

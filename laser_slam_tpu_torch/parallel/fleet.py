@@ -71,18 +71,30 @@ def fleet_icp_odometry(points, masks, normals, init_pose, odom_rel,
     call a step, each lane against its own reference) and integrates the
     relative transforms.
     """
-    B, T = points.shape[:2]
-    dev = points.device
+    def register(t):
+        return icp_mod.icp_point_to_plane(
+            pc.Cloud(points[:, t], masks[:, t]),
+            pc.Cloud(points[:, t - 1], masks[:, t - 1]), normals[:, t - 1],
+            odom_rel[:, t], config)
+
+    return chain_odometry(register, init_pose, points.shape[1])
+
+
+def chain_odometry(register, init_pose, n_scans: int) -> FleetOdometryResult:
+    """Integrate the registrations ``register(t) -> IcpResult`` of scan t
+    against scan t-1 (every lane at once, t = 1 .. n_scans - 1) from the
+    first poses ``init_pose`` [B,7]; scan 0 gets the identity, valid, 0
+    iterations.  ``parallel/sharding.py`` registers with the point axis
+    split over devices."""
+    B = init_pose.shape[0]
+    dev = init_pose.device
     pose = init_pose
     poses = [init_pose]
     rels = [se3.identity(device=dev).expand(B, 7)]
     valids = [torch.ones((B,), dtype=torch.bool, device=dev)]
     iters = [torch.zeros((B,), dtype=torch.int32, device=dev)]
-    for t in range(1, T):
-        res = icp_mod.icp_point_to_plane(
-            pc.Cloud(points[:, t], masks[:, t]),
-            pc.Cloud(points[:, t - 1], masks[:, t - 1]), normals[:, t - 1],
-            odom_rel[:, t], config)
+    for t in range(1, n_scans):
+        res = register(t)
         pose = se3.normalize(se3.compose(pose, res.T))
         poses.append(pose)
         rels.append(res.T)

@@ -263,6 +263,7 @@ def test_port_imports_no_jax():
         'from laser_slam_tpu_torch.pipeline import place_recognition\n'
         'from laser_slam_tpu_torch.pipeline import device_map\n'
         'from laser_slam_tpu_torch.core import benchmarker\n'
+        'from laser_slam_tpu_torch.parallel import fleet, sharding\n'
         "runpy.run_path({smoke!r}, run_name='chip_smoke')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'yaml' or m == 'scipy' or m.startswith('scipy.')"
