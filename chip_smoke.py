@@ -44,25 +44,30 @@ result line):
    the same scene with 64 reference points copied inside their tile
    (tied rows whose payloads are averaged), on the same scene with 64
    reference points copied into the next 2048-wide tile (E5 must return
-   the first copy's index, E4 the first tile's payload alone), and at an
-   awkward shape (1000 x 3001, every third reference row at the
-   SENTINEL; E4's tiles are one row wide there) by the float64 checks of
+   the first copy's index, E1 never the next tile's copy, E4 the first
+   tile's payload alone), and at an awkward shape (1000 x 3001, every
+   third reference row at the SENTINEL; E4's tiles are one row wide
+   there) by the float64 checks of
    ``laser_slam_tpu_torch/ops/nn_variants.py`` (a d2 planted a tenth too
-   large must fail them), E2 and every E3 sweep shape with d2 bit-equal
-   to K1's plain version; then the shootout itself
-   (``experiments/nn_shootout.run``), timed by CUDA events beside the
-   library calls, where each new kernel must have launched and E4, E5,
-   E2 and every E3 shape launch at least 256 work items.  Each kernel
-   alone beside its call: E1 on reference rows extended once, E4/E5 on
-   tables built once (``nn_variants.mm_setup``), E6 on tables built once
-   (``nn_variants.pruned_setup``); E4's, E5's and E6's device launches a
-   call, set-up included, and their device time by kernel, counted by
-   ``torch.profiler`` right after phase 4 (later short sessions lose
-   kernel records), and the host's time to issue a call; the share of
-   tiles E6 scans (counted by the kernel, 5 calls) beside the share the
-   Pallas walk visits (``nn_variants.pruned_walk``, whose result must
-   pass the payload check against the kernel's).  Every E3 shape's time
-   is printed on a line before the kernels' record.
+   large must fail them; E1's epilogue, which scores the winning key tile
+   again, must find the key's score on every query of the four scenes),
+   E2 and every E3 sweep shape with d2 bit-equal to K1's plain version;
+   E1's set-up (``nn_variants.mm_bf16_setup``) bit-equal to its plain
+   version (``mm_bf16_rows_plain``) and two calls on one table equal;
+   then the shootout itself (``experiments/nn_shootout.run``), timed by
+   CUDA events beside the library calls, where each new kernel must have
+   launched and E1, E4, E5, E2 and every E3 shape launch at least 256
+   work items.  Each kernel alone beside its call: E1 on tables built
+   once (``nn_variants.mm_bf16_setup``), E4/E5 on tables built once
+   (``nn_variants.mm_setup``), E6 on tables built once
+   (``nn_variants.pruned_setup``); E1's, E4's, E5's and E6's device
+   launches a call, set-up included, and their device time by kernel,
+   counted by ``torch.profiler`` right after phase 4 (later short
+   sessions lose kernel records), and the host's time to issue a call;
+   the share of tiles E6 scans (counted by the kernel, 5 calls) beside
+   the share the Pallas walk visits (``nn_variants.pruned_walk``, whose
+   result must pass the payload check against the kernel's).  Every E3
+   shape's time is printed on a line before the kernels' record.
 8. The production path (slice 2: projective range-image ICP, image-PCA
    normals, the dense window solve, packed uint16 ingest) through
    ``OnlineRunner(production_config(...), device='cuda')``; it has no
@@ -276,10 +281,12 @@ E6, ``walk_share``), and the pairs the kernel itself scanned in the
 least of 5 counted calls (``scanned_share`` is their mean), since both
 compute the function; the share counted is ``bound_share``.  The matmul-form
 kernels (E4, E5, E6) count 4 instructions a pair (3 FMAs and a min), the
-function's own work; their epilogues' second scoring of one tile a
-query is left out.  Device launches a call, set-up included, are counted
-by ``torch.profiler`` and must be at most 12 for E6 and 6 for E4 and
-E5.  The second-to-last line is the kernels' JSON
+function's own work, and E1 one (the min; its product, 8 FLOPs a pair,
+counts on the tensor cores; its earlier 3-a-pair bound is logged beside
+it as ``bound_ms_3_a_pair``); their epilogues' second scoring of one
+tile a query is left out.  Device launches a call, set-up included, are
+counted by ``torch.profiler`` and must be at most 12 for E6 and 6 for
+E1, E4 and E5.  The second-to-last line is the kernels' JSON
 record (K2's ``launches`` from phase 5, ``launches_host_api`` from phase
 11, ``launches_kitti`` from phase 13, ``launches_demo`` from phase 14;
 K1's ``launches_profiling`` from phase 14; K1L's and K2L's from phase 12, with
@@ -305,8 +312,8 @@ from laser_slam_tpu_torch.pipeline.online import clone_state
 # The card's peaks, the instructions a pair of each 1-NN form, the bytes
 # of a 1-NN call and the timers: one definition, the port's.
 from laser_slam_tpu_torch.pipeline.profiling import (
-    INSTR_ARGMIN, INSTR_EXACT, INSTR_MIN_SCORE, card_peaks, device_events,
-    event_ms, nn_bytes, sync_ms)
+    INSTR_ARGMIN, INSTR_EXACT, INSTR_MIN, INSTR_MIN_SCORE, card_peaks,
+    device_events, event_ms, nn_bytes, sync_ms)
 
 N_SCANS = 64
 N_POINTS = 16384
@@ -316,9 +323,9 @@ CUTOFF = 3.0
 POSE_ATOL = 1e-4
 PROFILE_SCANS = range(12, 16)
 SHOOT_Q, SHOOT_R = 8192, 65536
-LAUNCH_PROFILED = 5     # calls whose device launches are counted (E4-E6)
+LAUNCH_PROFILED = 5     # calls whose device launches are counted (E1, E4-E6)
 E6_MAX_LAUNCHES = 12    # device launches an E6 call may make, set-up included
-MM_MAX_LAUNCHES = 6     # the same for E4 and E5
+MM_MAX_LAUNCHES = 6     # the same for E1, E4 and E5
 # Phase 8, the production path.  (a) the first 44 of 64 scans over 2
 # laps (3.9 m a step; all 64 before phase 13 came, whose time this and
 # (b)'s 16 fewer timed scans make up); (b) the first 37 scans of
@@ -2816,10 +2823,10 @@ def main():
                          library_ms=k1_lib_ms,
                          library=lib_exact + ' (the cutoff is a where)')
 
-    # E4's, E5's and E6's device launches a call, set-up included, and their
-    # device time by kernel, counted on the shootout's scene (phase 7)
-    # before phase 5: after its long profile, short profiler sessions lose
-    # kernel records.
+    # E1's, E4's, E5's and E6's device launches a call, set-up included, and
+    # their device time by kernel, counted on the shootout's scene (phase
+    # 7) before phase 5: after its long profile, short profiler sessions
+    # lose kernel records.
     t_prof = time.perf_counter()
     full = tuple(torch.tensor(a, device=dev)
                  for a in sh.make_scene(SHOOT_Q, SHOOT_R, seed=3))
@@ -2829,7 +2836,9 @@ def main():
         E4=launches_a_call('E4', lambda: nv.nn_payload(*full),
                            'mm_items_kernel', MM_MAX_LAUNCHES),
         E5=launches_a_call('E5', lambda: nv.nn_indices_mm(*full[:2]),
-                           'mm_items_kernel', MM_MAX_LAUNCHES))
+                           'mm_items_kernel', MM_MAX_LAUNCHES),
+        E1=launches_a_call('E1', lambda: nv.nn_indices_mm(*full[:2], 'bf16'),
+                           'e1_items_kernel', MM_MAX_LAUNCHES))
     profile_s = time.perf_counter() - t_prof
 
     # 5. The slice -----------------------------------------------------
@@ -2977,13 +2986,28 @@ def main():
                                ('1000 x 3001 parked', tuple(odd))):
         for key, prec in (('E5', 'highest'), ('E1', 'bf16')):
             got = nv.nn_indices_mm(q, r, prec)
+            # E1's epilogue self-check: index -1 where the winning key
+            # tile, scored again, held no row with the key's score.
+            misses = int(torch.sum(got[1] < 0))
+            if misses:
+                raise AssertionError(f'{key} {label}: {misses} queries whose '
+                                     'tile did not score again to its key')
             c = nv.check_mm_indices(q, r, *got,
                                     *nv.nn_indices_mm_plain(q, r, prec),
                                     precision=prec)
-            if (key == 'E5' and label == 'ties across tiles'
-                    and not torch.equal(got[1][:64].cpu(),
-                                        torch.arange(64, dtype=torch.int32))):
-                raise AssertionError('E5: a copy in the next tile won')
+            c['rescore_misses'] = misses
+            if label == 'ties across tiles':
+                # Exact copies score the same bits in any tile: the copy in
+                # the next tile never wins.  E5 is rank-safe here, so each
+                # of the 64 queries takes its first copy; bf16's rank errors
+                # send some of E1's (and the plain E1's) to other rows.
+                first = int(torch.sum(got[1][:64].cpu() == torch.arange(64)))
+                copy = int(torch.sum((got[1] >= 2048) & (got[1] < 2112)))
+                c['first_copies'] = first
+                if copy or first < (64 if key == 'E5' else 1):
+                    raise AssertionError(f'{key}: a copy in the next tile '
+                                         f'won ({copy}), {first} of 64 took '
+                                         'the first')
             errs[key] = max(errs[key], c['max_abs_err'])
             tol_share[key] = max(tol_share[key], c['err_over_tol'])
             log(f'  {key} {prec} {label}: ok {c}')
@@ -3054,7 +3078,8 @@ def main():
     sweep = [r for r in rows.values()
              if r['kernel'] == 'E3' and r['ms'] is not None]
     best3 = min(sweep, key=lambda r: r['ms'])
-    for row in sweep + [rows['vpu'], rows['payload'], rows['indices-hi']]:
+    for row in sweep + [rows['vpu'], rows['payload'], rows['indices-hi'],
+                        rows['indices-bf16']]:
         if row['items'] < 256:
             raise AssertionError(f'{row["name"]}: {row["items"]} work items '
                                  'do not fill the card')
@@ -3064,25 +3089,46 @@ def main():
                      E4=rows['payload'], E6=rows['pruned'], E2=rows['vpu'],
                      E3=best3)
     q, r, pay = full
-    # Each kernel alone: E1 on reference rows extended once (its only
-    # set-up), E4/E5 on tables built once (mm_setup: extended rows, empty
-    # keys), E6 on tables built once (pruned_setup); E2/E3 have no set-up
-    # beyond their key fill.
-    r_ext = nv.extend_reference(r)
+    # E1's set-up bit-equal to its plain version (the bf16 rows the plain
+    # E1 multiplies, packed), on the shootout's scene and at 1000 x 3001
+    # parked (SENTINEL rows, zero pad rows up to 3008); two calls of its
+    # passes on one table give equal results.
+    for label, (qq, rr) in ((f'{SHOOT_Q} x {SHOOT_R}', (q, r)),
+                            ('1000 x 3001 parked', odd[:2])):
+        if not torch.equal(nv.mm_bf16_setup(qq, rr).rows,
+                           nv.mm_bf16_rows_plain(rr)):
+            raise AssertionError(f'E1 set-up {label}: its bf16 rows differ '
+                                 'from the plain set-up')
+    sum_order = torch.equal(
+        nv.bf16_row_values(nv.mm_bf16_rows_plain(r))[:SHOOT_R],
+        nv.round_bf16(nv.extend_reference(r)))
+    tab_e1 = nv.mm_bf16_setup(q, r)
+    once = nv._launch_mm_indices_bf16(q, tab_e1)
+    again = nv._launch_mm_indices_bf16(q, tab_e1)
+    if not (torch.equal(once[0], again[0]) and torch.equal(once[1], again[1])):
+        raise AssertionError('E1: two calls on one table differ')
+    log(f'  E1 set-up: rows bit-equal to mm_bf16_rows_plain on both scenes; '
+        f'torch.sum\'s |r|^2 on the card rounds to the same bf16: '
+        f'{sum_order}; two calls on one table equal')
+    # Each kernel alone: E1 on tables built once (mm_bf16_setup: bf16 rows,
+    # empty keys), E4/E5 on tables built once (mm_setup: extended rows,
+    # empty keys), E6 on tables built once (pruned_setup); E2/E3 have no
+    # set-up beyond their key fill.
     tab_mm = nv.mm_setup(q, r)
     tab6 = nv.pruned_setup(q, r)
     kernel_ms = dict(
-        E1=event_ms(lambda: nv._launch_mm_bf16(q, r_ext), 10),
+        E1=event_ms(lambda: nv._launch_mm_indices_bf16(q, tab_e1), 20),
         E5=event_ms(lambda: nv._launch_mm_indices(q, tab_mm), 20),
         E4=event_ms(lambda: nv._launch_payload(q, tab_mm, pay), 20),
         E6=event_ms(lambda: nv._launch_pruned(tab6, pay), 20),
         E2=rows['vpu']['ms'], E3=best3['ms'])
     issue_ms = dict(
+        E1=host_ms(lambda: nv.nn_indices_mm(q, r, 'bf16'), 20),
         E4=host_ms(lambda: nv.nn_payload(q, r, pay), 20),
         E5=host_ms(lambda: nv.nn_indices_mm(q, r), 20),
         E6=host_ms(lambda: nv.nn_payload_pruned(q, r, pay), 20))
-    for key, table in (('E4', 'mm_setup'), ('E5', 'mm_setup'),
-                       ('E6', 'pruned_setup')):
+    for key, table in (('E1', 'mm_bf16_setup'), ('E4', 'mm_setup'),
+                       ('E5', 'mm_setup'), ('E6', 'pruned_setup')):
         log(f'  {key} with its set-up: {shoot_row[key]["ms"]:.4f} ms in '
             f'{profiled[key][0]} device launches a call ({LAUNCH_PROFILED} '
             f'calls profiled after phase 4; device ms a call: '
@@ -3118,7 +3164,7 @@ def main():
     exact_b = nn_bytes(SHOOT_Q, SHOOT_R)
     pay_b = nn_bytes(SHOOT_Q, SHOOT_R, payload=pay.shape[1])
     bounds = dict(
-        E1=bound(pairs, INSTR_ARGMIN, exact_b, tensor_flops=8.0 * pairs),
+        E1=bound(pairs, INSTR_MIN, exact_b, tensor_flops=8.0 * pairs),
         E5=bound(pairs, INSTR_MIN_SCORE, exact_b),
         E4=bound(pairs, INSTR_MIN_SCORE, pay_b),
         E6=bound(e6_share * pairs, INSTR_MIN_SCORE, pay_b),
@@ -3142,17 +3188,25 @@ def main():
             f'plain {plain_ms[key]:.4f} ms, bound {bounds[key][0]:.4f} ms '
             f'({bounds[key][1]}), library {row["library_ms"]} ms, launches '
             f'{launches[key]}')
+    # E1's bound before its redesign: the argmin pass at 3 a pair.
+    e1_old = bound(pairs, INSTR_ARGMIN, exact_b, tensor_flops=8.0 * pairs)
+    log(f'  E1 bound: {bounds["E1"][0]:.4f} ms at {INSTR_MIN} instruction a '
+        f'pair ({bounds["E1"][1]}); {e1_old[0]:.4f} ms at {INSTR_ARGMIN}')
     extra = {key: dict(launches_a_call=profiled[key][0],
                        host_ms=issue_ms[key],
                        device_ms_by_kernel=profiled[key][1])
-             for key in ('E4', 'E5', 'E6')}
+             for key in ('E1', 'E4', 'E5', 'E6')}
+    extra['E1'].update(items=rows['indices-bf16']['items'],
+                       bound_ms_3_a_pair=e1_old[0],
+                       library_max_d2_gap=rows['indices-bf16'][
+                           'library_max_d2_gap'])
     extra['E4']['items'] = rows['payload']['items']
     extra['E5']['items'] = rows['indices-hi']['items']
     extra['E6'].update(walk_share=walk_share,
                        scanned_share=float(np.mean(scanned6)),
                        bound_share=e6_share)
     extra['E3'] = dict(sweep=sweep_line)
-    log(f'phase 7 took {time.perf_counter() - t7:.1f} s (and the E4-E6 '
+    log(f'phase 7 took {time.perf_counter() - t7:.1f} s (and the E1, E4-E6 '
         f'launch profiles after phase 4 {profile_s:.1f} s)')
 
     # 8. The production path (slice 2) ---------------------------------

@@ -9,8 +9,10 @@
 //                        pallas_nn_variants.py kern at HIGHEST precision)
 //                        and E4 pallas_payload_variants.py _nn_kernel;
 //                        mm_prelude_kernel is their set-up.
-// mm_indices_bf16_kernel replaces E1 kern at DEFAULT precision (one bf16
-//                        pass of the MXU).
+// e1_items_kernel and    replace E1 experiments/pallas_nn_variants.py
+// e1_epilogue_kernel     kern at DEFAULT precision (:75-136, one bf16 pass
+//                        of the MXU with f32 accumulate); e1_prelude_kernel
+//                        is its set-up.
 // e6_items_kernel and    replace E6 pallas_payload_variants.py
 // e6_epilogue_kernel     _pruned_kernel; e6_morton_kernel and
 //                        e6_gather_kernel are its set-up (the wrapper's
@@ -23,8 +25,8 @@
 // -2z, |r|^2) is |q-r|^2 - |q|^2, the "score", three FMAs a pair in one
 // order (mm_score); d2 = max(score + |q|^2, 0).  The extended reference
 // rows are built on the card (E4/E5 by mm_prelude_kernel, E6 by its
-// gather kernel; the bf16 variant's by the wrapper) and staged in shared
-// memory a span at a time.
+// gather kernel, E1's bf16 B fragment words by e1_prelude_kernel) and
+// staged in shared memory a span at a time.
 //
 // What bounds them on this card: no device-memory traffic to speak of (a
 // query is read once, a reference row once per block, from L2), so the
@@ -47,9 +49,23 @@
 //     payload rows that tie (the key tile is E4's own rb = _tile(R, 2048),
 //     so the Pallas one-hot / count of the winning tile).  Set-up,
 //     items and epilogue: three launches a call.
-//   * bf16: the product runs on the tensor cores (mma.sync m16n8k16, K
-//     padded 4 -> 16 with zeros, f32 accumulate), so what is left on the
-//     CUDA cores is the argmin pass: a compare and 2 selects per pair.
+//   * E1 (bf16): the product is bf16 with f32 accumulate, which the
+//     tensor cores do (mma.sync m16n8k8: K = 8 holds the 4 real slots
+//     with half m16n8k16's padding; 8 FLOPs a pair, 4.3 us of the card's
+//     989 TFLOP/s at 8192 x 65536), so what bounds it is the CUDA cores'
+//     pass over the scores, and the design leaves one fminf a pair there
+//     (16 us at one instruction a lane a clock; twice that if the min
+//     issues at half rate).  E5's keys carry over: work items of 256
+//     queries x 2048 rows (1024 at 8192 x 65536, up to 8 blocks an SM),
+//     each warp holding 4 m16 A fragments in registers and reusing each
+//     B fragment across them; each query's minimum a 512-row key tile
+//     folded by shuffles into one key, merged by atomicMin; the reference
+//     rounded and packed to bf16 B words once, by the set-up, and staged
+//     by cp.async into two shared buffers, one filling while the other is
+//     scanned; an epilogue that scores the winning tile again with the
+//     same mma instruction and K slots (the same bits), takes the lowest
+//     row that ties, and writes index -1 if none does (a self-check, not
+//     a fallback).  Set-up, items and epilogue: three launches a call.
 //   * pruned payload (E6): E4's scan over the tiles its items do not
 //     skip; ties and payloads are the epilogue's, as E4's.
 //   * tiled exact (E2/E3): K1's 11 instructions per pair (csrc/nn.cu), at
@@ -66,7 +82,6 @@
 
 namespace cg = cooperative_groups;
 
-#define MM_CHUNK 2048          // bf16: reference rows staged per pass (32 KB)
 #define MAX_PAYLOAD 8
 #define KEY_EMPTY 0xffffffffffffffffULL   // no score merged yet
 
@@ -134,18 +149,47 @@ __device__ __forceinline__ int tied_payload(float x, float y, float z,
 // E1 bf16: one bf16 pass on the tensor cores, f32 accumulate
 // ---------------------------------------------------------------------------
 //
-// A warp owns 16 queries (the M of mma.m16n8k16) and walks the reference
-// 8 rows (N) at a time.  K holds (x, y, z, 1) against (-2x, -2y, -2z,
-// |r|^2) in its first four slots and zeros in the other twelve, so only the
-// lanes with threadID_in_group 0 and 1 carry non-zero A and B fragments.
-// Lane (g = lane/4, t = lane%4) receives the scores of query rows g and
-// g+8 against reference columns 2t and 2t+1; it keeps a running best for
-// both rows, and the four lanes of a group merge theirs at the end (least
-// score, then least index).  Reference rows past R are staged with an
-// infinite |r|^2, so their scores never win.
+// Three launches a call:
+//   * e1_prelude_kernel: each reference row's B fragment words, rounded to
+//     bf16 once, (-2x, -2y) and (-2z, |r|^2), 8 bytes a row in rows[R8]
+//     (R rounded up to 8; the pad rows zero), and the queries' keys
+//     emptied.  |r|^2 is norm2's f32 value, (x*x + y*y) + z*z, the one the
+//     plain set-up rounds.
+//   * e1_items_kernel (pass 1): block (i, j) holds query tile i (256
+//     queries; each of its 4 warps holds 4 m16 A fragments of (x, y, z, 1)
+//     in registers) and scans reference span j (2048 rows) a key tile
+//     (512 rows) at a time, the key tiles staged by cp.async into two
+//     shared buffers, one filling while the other is scanned.  Each 8-row
+//     B fragment is read from shared memory once a warp and multiplied
+//     into its 4 A fragments by mma.sync m16n8k8 (K slots 0-3 real, 4-7
+//     zero: lanes with threadID_in_group 2 and 3 hold zero A words and
+//     read the zero pad words of a 16-byte shared row), and each of the
+//     warp's 16 scores a lane gets takes one fminf and nothing else.  At
+//     the end of a key tile a query's minimum is folded across the 4 lanes
+//     of its mma group by shuffles into score_key(min, key tile) and kept
+//     in shared memory; the block's keys meet the other items' by one
+//     atomicMin a query.  Rows past R in the last 8-row step are masked
+//     to +inf (a zero A word times a finite pad word is 0, never NaN).
+//   * e1_epilogue_kernel (pass 2), a warp a query: the least key decoded
+//     to (score, key tile); the tile scored again with the same mma.sync
+//     m16n8k8 and the same K slots (the query in every A row), so its
+//     scores carry the pass's bits (e1_rescore: 16 steps of 8 rows at a
+//     time, up to the first batch that holds the key's score, masks only
+//     on the reference's last, ragged tile); its lowest row with that
+//     score, d2 = max(score + |q|^2, 0) with |q|^2 = norm2, the key
+//     emptied for the next call.  A tile in which no row reproduces the
+//     key's score writes index -1, which the checks refuse.
 
-#define BF16_WARPS 4
-#define BF16_QUERIES (16 * BF16_WARPS)
+#define E1_WARPS 4
+#define E1_THREADS (32 * E1_WARPS)
+#define E1_FRAGS 4                                // m16 A fragments a warp
+#define E1_QT (16 * E1_FRAGS * E1_WARPS)          // 256 queries a tile
+#define E1_KEY_TILE 512                           // rows a key tile (staged)
+#define E1_SPAN (4 * E1_KEY_TILE)                 // 2048 rows an item
+#define E1_BLOCKS_PER_SM 8
+#define E1_PRELUDE_THREADS 256
+#define E1_EPILOGUE_THREADS 256
+#define E1_BATCH 16                               // epilogue steps a batch
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
@@ -153,96 +197,218 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return l | (h << 16);
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0,
-                                               uint32_t a1, uint32_t b0) {
-  // a2 = a3 = b1 = 0: K slots 8..15 are the zero padding.
+// A fragment word of the query row (x, y, z, 1) for the lane with
+// threadID_in_group t: K slots (2t, 2t + 1).
+__device__ __forceinline__ uint32_t e1_a_word(const float* __restrict__ q,
+                                              size_t row, int t) {
+  if (t == 0) return pack_bf16(q[3 * row], q[3 * row + 1]);
+  if (t == 1) return pack_bf16(q[3 * row + 2], 1.f);
+  return 0u;
+}
+
+// D = A B, m16n8k8, bf16 operands, f32 accumulate from zero: d0, d1 are
+// row g, columns 2t, 2t + 1; d2, d3 row g + 8.
+__device__ __forceinline__ void mma_bf16_1688(float (&d)[4], uint32_t a0,
+                                              uint32_t a1, uint32_t b0) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a0), "r"(a1), "r"(0u), "r"(0u), "r"(b0), "r"(0u), "f"(0.f),
-        "f"(0.f), "f"(0.f), "f"(0.f));
+      : "r"(a0), "r"(a1), "r"(b0), "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
 }
 
-__device__ __forceinline__ void take_min(float s, int i, float& best,
-                                         int& best_i) {
-  if (s < best) {
-    best = s;
-    best_i = i;
-  }
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
-__device__ __forceinline__ void merge_group(float& best, int& best_i) {
-  for (int off = 1; off < 4; off <<= 1) {
-    const float s = __shfl_xor_sync(0xffffffffu, best, off);
-    const int i = __shfl_xor_sync(0xffffffffu, best_i, off);
-    if (s < best || (s == best && i < best_i)) {
-      best = s;
-      best_i = i;
+__global__ void __launch_bounds__(E1_PRELUDE_THREADS)
+e1_prelude_kernel(const float* __restrict__ ref, int Q, int R, int R8,
+                  uint2* __restrict__ rows, u64* __restrict__ keys) {
+  const int k = blockIdx.x * E1_PRELUDE_THREADS + threadIdx.x;
+  if (k < R8) {
+    uint2 w = make_uint2(0u, 0u);
+    if (k < R) {
+      const float x = ref[3 * (size_t)k], y = ref[3 * (size_t)k + 1],
+                  z = ref[3 * (size_t)k + 2];
+      w = make_uint2(pack_bf16(-2.f * x, -2.f * y),
+                     pack_bf16(-2.f * z, norm2(x, y, z)));
     }
+    rows[k] = w;
   }
+  if (k < Q) keys[k] = KEY_EMPTY;
 }
 
-__global__ void __launch_bounds__(32 * BF16_WARPS)
-mm_indices_bf16_kernel(const float* __restrict__ q,
-                       const float4* __restrict__ r_ext, int Q, int R,
-                       float* __restrict__ score_out,
-                       int* __restrict__ idx_out) {
-  __shared__ uint2 s_b[MM_CHUNK];   // per reference row: K slots 0-1, 2-3
-  const int lane = threadIdx.x & 31;
+// Copy n packed rows into 16-byte shared rows (words 2-3 stay zero).
+__device__ __forceinline__ void e1_stage(uint4* dst,
+                                         const uint2* __restrict__ src,
+                                         int n) {
+  for (int k = threadIdx.x; k < n; k += E1_THREADS)
+    cp_async8(dst + k, src + k);
+}
+
+__global__ void __launch_bounds__(E1_THREADS, E1_BLOCKS_PER_SM)
+e1_items_kernel(const float* __restrict__ q, const uint2* __restrict__ rows,
+                int Q, int R, int n_qt, u64* keys) {
+  __shared__ uint4 s_b[2][E1_KEY_TILE];   // (B word t = 0, t = 1, 0, 0)
+  __shared__ u64 s_key[E1_QT];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const size_t row0 =
-      (size_t)blockIdx.x * BF16_QUERIES + (threadIdx.x >> 5) * 16 + g;
-  const size_t row1 = row0 + 8;
-  uint32_t a0 = 0u, a1 = 0u;
-  if (t < 2) {
-    // t = 0: K slots (0, 1) = (x, y); t = 1: slots (2, 3) = (z, 1).
-    if (row0 < (size_t)Q)
-      a0 = t == 0 ? pack_bf16(q[3 * row0], q[3 * row0 + 1])
-                  : pack_bf16(q[3 * row0 + 2], 1.f);
-    if (row1 < (size_t)Q)
-      a1 = t == 0 ? pack_bf16(q[3 * row1], q[3 * row1 + 1])
-                  : pack_bf16(q[3 * row1 + 2], 1.f);
+  const int i = blockIdx.x % n_qt;
+  const int j = blockIdx.x / n_qt;
+  const int first = j * E1_SPAN;
+  const int n = min(E1_SPAN, R - first);
+  const int n_tiles = (n + E1_KEY_TILE - 1) / E1_KEY_TILE;
+  for (int k = threadIdx.x; k < 2 * E1_KEY_TILE; k += E1_THREADS)
+    (&s_b[0][0])[k] = make_uint4(0u, 0u, 0u, 0u);   // the pad words, once
+  for (int k = threadIdx.x; k < E1_QT; k += E1_THREADS) s_key[k] = KEY_EMPTY;
+  __syncthreads();                   // zeros before the copies land
+  e1_stage(s_b[0], rows + first, min(E1_KEY_TILE, n));
+  cp_async_commit();
+  if (n_tiles > 1)
+    e1_stage(s_b[1], rows + first + E1_KEY_TILE,
+             min(E1_KEY_TILE, n - E1_KEY_TILE));
+  cp_async_commit();
+
+  const int q0 = i * E1_QT + warp * (16 * E1_FRAGS);
+  uint32_t a[E1_FRAGS][2];
+#pragma unroll
+  for (int f = 0; f < E1_FRAGS; ++f) {
+    const int r0 = q0 + 16 * f + g;
+    a[f][0] = r0 < Q ? e1_a_word(q, r0, t) : 0u;
+    a[f][1] = r0 + 8 < Q ? e1_a_word(q, r0 + 8, t) : 0u;
   }
-  float best0 = INFINITY, best1 = INFINITY;
-  int idx0 = 0, idx1 = 0;
-  for (int c0 = 0; c0 < R; c0 += MM_CHUNK) {
-    const int n = min(MM_CHUNK, R - c0);
-    const int n8 = (n + 7) & ~7;
-    for (int k = threadIdx.x; k < n8; k += blockDim.x) {
-      float4 r = make_float4(0.f, 0.f, 0.f, INFINITY);
-      if (k < n) r = r_ext[(size_t)c0 + k];
-      s_b[k] = make_uint2(pack_bf16(r.x, r.y), pack_bf16(r.z, r.w));
-    }
-    __syncthreads();
-    for (int k8 = 0; k8 < n8; k8 += 8) {
-      uint32_t b0 = 0u;
-      if (t < 2) {
-        const uint2 w = s_b[k8 + g];
-        b0 = t == 0 ? w.x : w.y;
+  const uint32_t* s_w = reinterpret_cast<const uint32_t*>(&s_b[0][0]);
+  for (int c = 0; c < n_tiles; ++c) {
+    cp_async_wait<1>();              // key tile c has landed (this thread)
+    __syncthreads();                 // ... for every thread
+    const uint32_t* w = s_w + (c & 1) * 4 * E1_KEY_TILE + 4 * g + t;
+    const int m = min(E1_KEY_TILE, n - c * E1_KEY_TILE);
+    const int full = m & ~7;
+    float mn[E1_FRAGS][4];
+#pragma unroll
+    for (int f = 0; f < E1_FRAGS; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mn[f][e] = INFINITY;
+#pragma unroll 4
+    for (int k8 = 0; k8 < full; k8 += 8) {
+      const uint32_t b = w[4 * k8];
+#pragma unroll
+      for (int f = 0; f < E1_FRAGS; ++f) {
+        float d[4];
+        mma_bf16_1688(d, a[f][0], a[f][1], b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mn[f][e] = fminf(mn[f][e], d[e]);
       }
-      float d[4];
-      mma_bf16_16816(d, a0, a1, b0);
-      const int col = c0 + k8 + 2 * t;
-      take_min(d[0], col, best0, idx0);
-      take_min(d[1], col + 1, best0, idx0);
-      take_min(d[2], col, best1, idx1);
-      take_min(d[3], col + 1, best1, idx1);
     }
-    __syncthreads();
+    if (full < m) {                  // the reference's last, ragged step
+      const uint32_t b = w[4 * full];
+      const bool c0 = full + 2 * t < m, c1 = full + 2 * t + 1 < m;
+#pragma unroll
+      for (int f = 0; f < E1_FRAGS; ++f) {
+        float d[4];
+        mma_bf16_1688(d, a[f][0], a[f][1], b);
+        mn[f][0] = fminf(mn[f][0], c0 ? d[0] : INFINITY);
+        mn[f][1] = fminf(mn[f][1], c1 ? d[1] : INFINITY);
+        mn[f][2] = fminf(mn[f][2], c0 ? d[2] : INFINITY);
+        mn[f][3] = fminf(mn[f][3], c1 ? d[3] : INFINITY);
+      }
+    }
+    const unsigned tile = (unsigned)(first / E1_KEY_TILE + c);
+#pragma unroll
+    for (int f = 0; f < E1_FRAGS; ++f) {
+      float lo = fminf(mn[f][0], mn[f][1]), hi = fminf(mn[f][2], mn[f][3]);
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = fminf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      }
+      if (t == 0) {                  // this lane alone owns rows g, g + 8
+        const int s = warp * (16 * E1_FRAGS) + 16 * f + g;
+        const u64 klo = score_key(lo, tile), khi = score_key(hi, tile);
+        if (klo < s_key[s]) s_key[s] = klo;
+        if (khi < s_key[s + 8]) s_key[s + 8] = khi;
+      }
+    }
+    __syncthreads();                 // buffer c & 1 is read: refill it
+    if (c + 2 < n_tiles)
+      e1_stage(s_b[c & 1], rows + first + (c + 2) * E1_KEY_TILE,
+               min(E1_KEY_TILE, n - (c + 2) * E1_KEY_TILE));
+    cp_async_commit();
   }
-  merge_group(best0, idx0);
-  merge_group(best1, idx1);
-  if (t == 0) {
-    if (row0 < (size_t)Q) {
-      score_out[row0] = best0;
-      idx_out[row0] = idx0;
+  cp_async_wait<0>();
+  for (int k = threadIdx.x; k < E1_QT; k += E1_THREADS) {
+    const int qi = i * E1_QT + k;
+    if (qi < Q && s_key[k] != KEY_EMPTY) atomicMin(keys + qi, s_key[k]);
+  }
+}
+
+// The lowest of rows [first, first + n) whose score against the A word a
+// equals best, by the items' mma; the whole warp gets it (0xffffffff if
+// none).  Lane (g, t < 2) reads B word t of rows first + k8 + g, E1_BATCH
+// steps of 8 rows at a time with their loads issued together, up to the
+// first batch that holds the score.  RAGGED (the reference's last key
+// tile only) masks the rows past n; the pad rows up to a multiple of 8
+// exist (zero).
+template <bool RAGGED>
+__device__ __forceinline__ unsigned e1_rescore(const uint2* __restrict__ rows,
+                                               uint32_t a, float best,
+                                               int first, int n) {
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3, g = lane >> 2;
+  const uint32_t* src =
+      reinterpret_cast<const uint32_t*>(rows + first + g) + t;
+  unsigned row = 0xffffffffu;
+  for (int k0 = 0; k0 < n && row == 0xffffffffu; k0 += 8 * E1_BATCH) {
+    uint32_t b[E1_BATCH];
+#pragma unroll
+    for (int s = 0; s < E1_BATCH; ++s)
+      b[s] = t < 2 && (!RAGGED || k0 + 8 * s < n) ? src[2 * (k0 + 8 * s)]
+                                                  : 0u;
+#pragma unroll
+    for (int s = 0; s < E1_BATCH; ++s) {
+      const int c = k0 + 8 * s + 2 * t;
+      if (!RAGGED || k0 + 8 * s < n) {   // the same for the whole warp
+        float d[4];
+        mma_bf16_1688(d, a, a, b[s]);
+        if ((!RAGGED || c < n) && d[0] == best)
+          row = min(row, (unsigned)(first + c));
+        if ((!RAGGED || c + 1 < n) && d[1] == best)
+          row = min(row, (unsigned)(first + c + 1));
+      }
     }
-    if (row1 < (size_t)Q) {
-      score_out[row1] = best1;
-      idx_out[row1] = idx1;
-    }
+    row = __reduce_min_sync(0xffffffffu, row);
+  }
+  return row;
+}
+
+__global__ void __launch_bounds__(E1_EPILOGUE_THREADS)
+e1_epilogue_kernel(const float* __restrict__ q,
+                   const uint2* __restrict__ rows, int Q, int R,
+                   u64* __restrict__ keys, float* __restrict__ d2_out,
+                   int* __restrict__ idx_out) {
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * (E1_EPILOGUE_THREADS / 32) + threadIdx.x / 32;
+  if (qi >= Q) return;               // a whole warp
+  const u64 key = keys[qi];
+  const float x = q[3 * (size_t)qi], y = q[3 * (size_t)qi + 1],
+              z = q[3 * (size_t)qi + 2];
+  const uint32_t a = e1_a_word(q, qi, lane & 3);
+  float best = INFINITY;
+  unsigned row = 0xffffffffu;        // the lowest row that scores best
+  if (key != KEY_EMPTY) {
+    best = bits_score((unsigned)(key >> 32));
+    const int first = (int)(key & 0xffffffffULL) * E1_KEY_TILE;
+    const int n = min(E1_KEY_TILE, R - first);
+    row = n == E1_KEY_TILE ? e1_rescore<false>(rows, a, best, first, n)
+                           : e1_rescore<true>(rows, a, best, first, n);
+  }
+  if (lane == 0) {
+    d2_out[qi] = fmaxf(__fadd_rn(best, norm2(x, y, z)), 0.f);
+    idx_out[qi] = row == 0xffffffffu ? -1 : (int)row;
+    keys[qi] = KEY_EMPTY;
   }
 }
 
@@ -1008,15 +1174,40 @@ static int launch_tile_items(const float* q, const float* ref, int Q, int R,
 
 extern "C" {
 
-// E1 bf16 on the extended rows r_ext [R] (float4): score [Q], idx [Q].
-int lsl_mm_bf16(const float* q, const float* r_ext, int Q, int R,
-                float* score_out, int* idx_out, int device, void* stream) {
+// E1 set-up: rows [R8] (uint2, R8 = R rounded up to 8), the packed bf16
+// B fragment words of ref [R,3], and keys [Q] emptied.
+int lsl_e1_setup(const float* ref, int Q, int R, int R8, void* rows,
+                 u64* keys, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (Q + BF16_QUERIES - 1) / BF16_QUERIES;
-  mm_indices_bf16_kernel<<<blocks, 32 * BF16_WARPS, 0,
-                           (cudaStream_t)stream>>>(
-      q, (const float4*)r_ext, Q, R, score_out, idx_out);
+  if (Q < 1 || R < 1 || R8 != ((R + 7) & ~7))
+    return (int)cudaErrorInvalidValue;
+  const int n = max(Q, R8);
+  e1_prelude_kernel<<<(n + E1_PRELUDE_THREADS - 1) / E1_PRELUDE_THREADS,
+                      E1_PRELUDE_THREADS, 0, (cudaStream_t)stream>>>(
+      ref, Q, R, R8, (uint2*)rows, keys);
+  return (int)cudaGetLastError();
+}
+
+// E1's two passes on the tables of lsl_e1_setup: d2_out [Q], idx_out [Q]
+// (the lowest index of the least score; -1 where the second scoring did
+// not reproduce the key's score).  The keys are left empty.
+int lsl_e1_indices(const float* q, const void* rows, int Q, int R,
+                   u64* keys, float* d2_out, int* idx_out, int device,
+                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (Q < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const uint2* r2 = (const uint2*)rows;
+  const int n_qt = (Q + E1_QT - 1) / E1_QT;
+  const int items = n_qt * ((R + E1_SPAN - 1) / E1_SPAN);
+  e1_items_kernel<<<items, E1_THREADS, 0, s>>>(q, r2, Q, R, n_qt, keys);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int per_block = E1_EPILOGUE_THREADS / 32;
+  e1_epilogue_kernel<<<(Q + per_block - 1) / per_block, E1_EPILOGUE_THREADS,
+                       0, s>>>(q, r2, Q, R, keys, d2_out, idx_out);
   return (int)cudaGetLastError();
 }
 

@@ -14,9 +14,10 @@ Rows: ``brute`` (plain ``nn_brute`` plus the payload gather), ``payload``
 (E4, with its work items a launch), ``pruned`` (E6 with its set-up, with the share of reference tiles
 its kernel scans),
 ``indices`` (K1 plus the gather), ``idx-kernel`` (K1), ``indices-hi``
-(E5, E1 at ``highest``, with its work items), ``indices-bf16`` (E1 at one bf16 pass, with its
-max |d2 - exact|), ``vpu`` (E2) and the tile sweep (E3, with its work
-items a launch).
+(E5, E1 at ``highest``, with its work items), ``indices-bf16`` (E1 at
+one bf16 pass, with its work items, its max |d2 - exact| and the
+library call's largest d2 gap to it), ``vpu`` (E2) and the tile sweep
+(E3, with its work items a launch).
 
 Run on a machine with a CUDA card:
 
@@ -88,6 +89,19 @@ def exact_library_call(q, r):
                        ).min(1)
 
 
+BF16_LIBRARY_CALL = ('torch.mm(q_ext8.bfloat16(), r_ext8.bfloat16().T, '
+                     'out_dtype=torch.float32).min(1)')
+
+
+def bf16_library_call(q_ext8, r_ext8):
+    """The one PyTorch call that computes E1's scores (one bf16 pass with
+    f32 output) and their least, on the extended rows padded to 8 columns
+    with zeros and rounded to bf16 ([Q,8], [R,8], as the Pallas
+    ``q_ext``/``r_ext``): E1's yardstick, which no path of the port
+    calls."""
+    return torch.mm(q_ext8, r_ext8.T, out_dtype=torch.float32).min(1)
+
+
 def run(queries: torch.Tensor, ref_points: torch.Tensor,
         payload: torch.Tensor, reps: int = 20, log=print) -> list:
     """Time every variant on CUDA tensors; returns one dict per row with
@@ -105,6 +119,16 @@ def run(queries: torch.Tensor, ref_points: torch.Tensor,
     # launches are enough.
     lib_exact = cuda_ms(lambda: exact_library_call(queries, ref_points), 2)
     lib_mm = cuda_ms(lambda: nv._f32_matmul(q_ext, r_ext.T).min(1), reps)
+    q8 = torch.nn.functional.pad(q_ext, (0, 4)).to(torch.bfloat16)
+    r8 = torch.nn.functional.pad(r_ext, (0, 4)).to(torch.bfloat16)
+    try:
+        lib_bf16 = cuda_ms(lambda: bf16_library_call(q8, r8), reps)
+        bf16_call = BF16_LIBRARY_CALL
+        lib_d2 = torch.clamp(bf16_library_call(q8, r8).values
+                             + nv.query_norm2(queries), min=0.0)
+    except (RuntimeError, TypeError, NotImplementedError) as exc:
+        lib_bf16, lib_d2 = None, None
+        bf16_call = f'refused here: {BF16_LIBRARY_CALL}: {exc}'[:400]
     no_payload_call = ('none: no PyTorch call averages the payloads of '
                        'tied rows')
     rows = []
@@ -145,11 +169,13 @@ def run(queries: torch.Tensor, ref_points: torch.Tensor,
         lambda o: o[0], lib_mm,
         'torch.matmul of the extended rows (TF32 off) and .min(1)',
         kernel='E5', items=nv.mm_items(Q, R))
+    e1_d2 = nv.nn_indices_mm(queries, ref_points, 'bf16')[0]
     row('indices-bf16',
         lambda: nv.nn_indices_mm(queries, ref_points, 'bf16'),
-        lambda o: o[0], None,
-        'none: torch.matmul of bf16 tensors rounds its result to bf16',
-        kernel='E1')
+        lambda o: o[0], lib_bf16, bf16_call, kernel='E1',
+        items=nv.mm_bf16_items(Q, R),
+        library_max_d2_gap=None if lib_d2 is None else float(
+            torch.max(torch.abs(lib_d2 - e1_d2))))
     row('vpu', lambda: nv.nn_vpu(queries, ref_points), lambda o: o[0],
         lib_exact, exact_call, kernel='E2',
         items=nv.tiled_items(Q, R, nv._QB, nv._RB))

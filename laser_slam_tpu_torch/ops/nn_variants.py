@@ -11,7 +11,13 @@ each on the card):
   ``[q,1]·[-2r,|r|^2]`` at precision ``'highest'`` (f32 FMAs, E5 and E1 at
   ``HIGHEST``) or ``'bf16'`` (operands rounded to bf16, tensor-core
   product, f32 accumulate: E1 at ``DEFAULT``, one bf16 pass);
-  ``d2 = max(score + |q|^2, 0)``.
+  ``d2 = max(score + |q|^2, 0)``.  E1 runs on the card as E5's three
+  launches with the product on the tensor cores: :func:`mm_bf16_setup`
+  packs the reference rows to bf16 once, then
+  :func:`_launch_mm_indices_bf16` runs (256-query tile x 2048-row span)
+  work items that keep one minimum a 512-row key tile and an epilogue
+  that scores the winning tile again with the same instruction;
+  :func:`nn_indices_mm_bf16_by_keys` is those two passes in plain torch.
 * E4 :func:`nn_payload` — the same scores; returns the winner's payload
   row.  Exactly tied minima inside one 2048-wide reference tile are
   averaged (the Pallas one-hot / count); across tiles a strict ``<``.
@@ -74,10 +80,13 @@ _RB_PRUNED = 1024
 MAX_PAYLOAD = 8
 # E4/E5 work items (csrc/nn_variants.cu ITEM_QT, ITEM_SPAN): a query tile
 # x a reference span; E5's key tile is the 512 rows one group of an item
-# scans (ITEM_ROWS), E4's its own _tile(R, 2048).
+# scans (ITEM_ROWS), E4's its own _tile(R, 2048).  E1's (E1_QT, E1_SPAN):
+# 256-query tiles x 2048-row spans, with E5's 512-row key tiles.
 _MM_QT = 512
 _MM_SPAN = 2048
 _MM_KEY_TILE = 512
+_E1_QT = 256
+_E1_SPAN = 2048
 # E6's set-up sorts each cloud in one cluster of 16 blocks, at most this
 # many 8-byte keys a block (8 a thread in registers, 64 KB of shared
 # memory); a larger cloud is sorted by torch.sort.
@@ -99,7 +108,8 @@ def _kernels() -> ctypes.CDLL:
         from laser_slam_tpu_torch.ops.cuda_build import load_library
         lib = load_library('nn_variants.cu')
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lsl_mm_bf16.argtypes = [p, p, i, i, p, p, i, p]
+        lib.lsl_e1_setup.argtypes = [p, i, i, i, p, p, i, p]
+        lib.lsl_e1_indices.argtypes = [p, p, i, i, p, p, p, i, p]
         lib.lsl_mm_setup.argtypes = [p, i, i, p, p, i, p]
         lib.lsl_mm_indices.argtypes = [p, p, i, i, p, p, p, i, p]
         lib.lsl_mm_payload.argtypes = [p, p, p, i, i, i, i, p, p, p, i, p]
@@ -109,9 +119,9 @@ def _kernels() -> ctypes.CDLL:
         lib.lsl_e6_pruned.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p, p,
                                       p, p, p, i, p]
         lib.lsl_nn_tiled.argtypes = [p, p, i, i, i, i, p, p, p, i, p]
-        for fn in (lib.lsl_mm_bf16, lib.lsl_mm_setup, lib.lsl_mm_indices,
-                   lib.lsl_mm_payload, lib.lsl_e6_morton, lib.lsl_e6_gather,
-                   lib.lsl_e6_pruned, lib.lsl_nn_tiled):
+        for fn in (lib.lsl_e1_setup, lib.lsl_e1_indices, lib.lsl_mm_setup,
+                   lib.lsl_mm_indices, lib.lsl_mm_payload, lib.lsl_e6_morton,
+                   lib.lsl_e6_gather, lib.lsl_e6_pruned, lib.lsl_nn_tiled):
             fn.restype = i
         _lib = lib
     return _lib
@@ -158,6 +168,17 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def extend_reference_bf16(ref_points: torch.Tensor) -> torch.Tensor:
+    """E1's reference operand: :func:`extend_reference`'s rows rounded to
+    bf16, with |r|^2 summed ``(x*x + y*y) + z*z`` in f32, the one order
+    the set-up kernel sums it in, on any device.  One bf16 step of |r|^2
+    near 7,500 m^2 is 32 m^2, so the kernel and the plain version must
+    round the same f32 value."""
+    x, y, z = ref_points.unbind(1)
+    n2 = (x * x + y * y) + z * z
+    return round_bf16(torch.cat([-2.0 * ref_points, n2[:, None]], dim=1))
+
+
 def query_norm2(queries: torch.Tensor) -> torch.Tensor:
     return torch.sum(queries * queries, dim=1)
 
@@ -192,13 +213,15 @@ def _check_precision(precision: str) -> None:
                          f'{precision!r}')
 
 
-def mm_scores(q_ext: torch.Tensor, r_ext: torch.Tensor,
-              precision: str) -> tuple:
-    """(q_ext, r_ext) as the product sees them: f32, or rounded to bf16."""
+def mm_operands(queries: torch.Tensor, ref_points: torch.Tensor,
+                precision: str) -> tuple:
+    """(q_ext, r_ext) as the product sees them: f32, or rounded to bf16
+    (:func:`extend_reference_bf16`)."""
     _check_precision(precision)
     if precision == 'bf16':
-        return round_bf16(q_ext), round_bf16(r_ext)
-    return q_ext, r_ext
+        return (round_bf16(extend_queries(queries)),
+                extend_reference_bf16(ref_points))
+    return extend_queries(queries), extend_reference(ref_points)
 
 
 def nn_indices_mm_plain(queries: torch.Tensor, ref_points: torch.Tensor,
@@ -207,8 +230,7 @@ def nn_indices_mm_plain(queries: torch.Tensor, ref_points: torch.Tensor,
     (bf16: both operands rounded first, so the TPU's rank errors are
     reproduced), ``min`` with the lowest index on ties.  Returns
     (d2 [Q] f32, idx [Q] i32)."""
-    q_ext, r_ext = mm_scores(extend_queries(queries),
-                             extend_reference(ref_points), precision)
+    q_ext, r_ext = mm_operands(queries, ref_points, precision)
     Q = queries.shape[0]
     score = torch.empty(Q, dtype=torch.float32, device=queries.device)
     idx = torch.empty(Q, dtype=torch.int32, device=queries.device)
@@ -228,14 +250,15 @@ def _least_tile(tile_min: torch.Tensor) -> torch.Tensor:
     return torch.amin(score_keys(tile_min, tiles), dim=1) & 0xFFFFFFFF
 
 
-def nn_indices_mm_by_keys(queries: torch.Tensor, ref_points: torch.Tensor):
-    """Plain torch E5 as the kernel's two passes compute it: per query the
-    least merge key over the 512-row key tiles (the last one ragged),
-    decoded to its tile, and that tile's scores again, the lowest row
-    tied with the least.  The same function as
-    :func:`nn_indices_mm_plain` at ``'highest'``, reached through the
-    keys.  Returns (d2 [Q] f32, idx [Q] i32)."""
-    q_ext, r_ext = extend_queries(queries), extend_reference(ref_points)
+def _mm_by_keys(queries: torch.Tensor, ref_points: torch.Tensor,
+                precision: str):
+    """E5's or E1's two passes in plain torch: per query the least merge
+    key over the 512-row key tiles (the last one ragged), decoded to its
+    tile, and that tile's scores again, the lowest row tied with the
+    least.  The tile's scores are those of the first pass (one product
+    of the same operands): the kernels' epilogues reproduce them by
+    repeating the first pass's arithmetic."""
+    q_ext, r_ext = mm_operands(queries, ref_points, precision)
     Q, R, w = queries.shape[0], ref_points.shape[0], _MM_KEY_TILE
     nT = -(-R // w)
     dev = queries.device
@@ -254,6 +277,25 @@ def nn_indices_mm_by_keys(queries: torch.Tensor, ref_points: torch.Tensor):
     return torch.clamp(score + query_norm2(queries), min=0.0), idx
 
 
+def nn_indices_mm_by_keys(queries: torch.Tensor, ref_points: torch.Tensor):
+    """Plain torch E5 as the kernel's two passes compute it
+    (:func:`_mm_by_keys` in f32): the same function as
+    :func:`nn_indices_mm_plain` at ``'highest'``, reached through the
+    keys.  Returns (d2 [Q] f32, idx [Q] i32)."""
+    return _mm_by_keys(queries, ref_points, 'highest')
+
+
+def nn_indices_mm_bf16_by_keys(queries: torch.Tensor,
+                               ref_points: torch.Tensor):
+    """Plain torch E1 as its kernel's two passes compute it: the operands
+    rounded to bf16 (:func:`mm_operands`), the least score a 512-row key
+    tile, :func:`_least_tile`, and the winning tile's scores again, the
+    lowest row tied with the least.  The same function as
+    :func:`nn_indices_mm_plain` at ``'bf16'``, reached through the keys.
+    Returns (d2 [Q] f32, idx [Q] i32)."""
+    return _mm_by_keys(queries, ref_points, 'bf16')
+
+
 def nn_indices_mm(queries: torch.Tensor, ref_points: torch.Tensor,
                   precision: str = 'highest'):
     """For each query, (d2, index) of its nearest reference point by the
@@ -264,7 +306,10 @@ def nn_indices_mm(queries: torch.Tensor, ref_points: torch.Tensor,
     cloud.SENTINEL.  Returns (d2 [Q] f32, idx [Q] i32).  CPU tensors run
     :func:`nn_indices_mm_plain`; CUDA tensors launch the kernel and count
     it in ``nn_indices_mm.launches`` (highest: :func:`mm_setup` and
-    :func:`_launch_mm_indices`) or ``nn_indices_mm.launches_bf16``.
+    :func:`_launch_mm_indices`) or ``nn_indices_mm.launches_bf16`` (bf16:
+    :func:`mm_bf16_setup` and :func:`_launch_mm_indices_bf16`).  The bf16
+    kernel writes index -1 for a query whose winning tile it could not
+    score again to the same bits; :func:`check_mm_indices` refuses it.
     """
     _check_points('nn_indices_mm', queries=queries, ref_points=ref_points)
     _check_precision(precision)
@@ -274,8 +319,8 @@ def nn_indices_mm(queries: torch.Tensor, ref_points: torch.Tensor,
     if ref_points.shape[0] == 0:
         raise ValueError('nn_indices_mm: empty reference')
     if precision == 'bf16':
-        score, idx = _launch_mm_bf16(queries, extend_reference(ref_points))
-        return torch.clamp(score + query_norm2(queries), min=0.0), idx
+        return _launch_mm_indices_bf16(queries,
+                                       mm_bf16_setup(queries, ref_points))
     return _launch_mm_indices(queries, mm_setup(queries, ref_points))
 
 
@@ -326,20 +371,70 @@ def _launch_mm_indices(queries: torch.Tensor, tab: MatmulTables):
     return d2, idx
 
 
-def _launch_mm_bf16(queries: torch.Tensor, r_ext: torch.Tensor):
-    """The E1 bf16 kernel alone on extended reference rows (the wrapper's
-    only set-up): (score [Q] f32, idx [Q] i32), the launch counted."""
+class Bf16Tables(NamedTuple):
+    """E1's set-up on the card (:func:`mm_bf16_setup`)."""
+    rows: torch.Tensor       # [R8, 2] int32: packed bf16 B words a row
+    keys: torch.Tensor       # [Q] int64 merge keys, empty between calls
+    n_refs: int              # R (rows beyond it are zero padding)
+
+
+def mm_bf16_items(n_queries: int, n_refs: int) -> int:
+    """Work items (blocks) of one E1 items launch: 256-query tiles x
+    2048-row reference spans."""
+    return -(-n_queries // _E1_QT) * -(-n_refs // _E1_SPAN)
+
+
+def mm_bf16_rows_plain(ref_points: torch.Tensor) -> torch.Tensor:
+    """Plain twin of E1's set-up kernel: [R8, 2] int32 words, R rounded up
+    to 8 with zero rows, each row's bf16 pair ``(-2x, -2y)`` then ``(-2z,
+    |r|^2)``, the first of a pair in the low half (the mma B fragment's
+    order) — :func:`extend_reference_bf16` packed."""
+    R = ref_points.shape[0]
+    rows = torch.zeros((-(-R // 8) * 8, 4), dtype=torch.bfloat16,
+                       device=ref_points.device)
+    rows[:R] = extend_reference_bf16(ref_points).to(torch.bfloat16)
+    return rows.view(torch.int32)
+
+
+def bf16_row_values(rows: torch.Tensor) -> torch.Tensor:
+    """[R8, 4] f32 values of packed E1 rows ([R8, 2] int32)."""
+    return rows.contiguous().view(torch.bfloat16).to(torch.float32)
+
+
+def mm_bf16_setup(queries: torch.Tensor, ref_points: torch.Tensor
+                  ) -> Bf16Tables:
+    """E1's set-up, one launch (``e1_prelude_kernel``): the reference rows
+    as packed bf16 B words (:func:`mm_bf16_rows_plain`'s bits) and the
+    queries' merge keys emptied (nothing for an empty query set)."""
     device = queries.device
-    Q, R = queries.shape[0], r_ext.shape[0]
-    score = torch.empty(Q, dtype=torch.float32, device=device)
+    Q, R = queries.shape[0], ref_points.shape[0]
+    R8 = -(-R // 8) * 8
+    tab = Bf16Tables(torch.empty((R8, 2), dtype=torch.int32, device=device),
+                     torch.empty(Q, dtype=torch.int64, device=device), R)
+    if Q:
+        _check_launch('mm_bf16_setup', _kernels().lsl_e1_setup(
+            ref_points.data_ptr(), Q, R, R8, tab.rows.data_ptr(),
+            tab.keys.data_ptr(), device.index, _stream(device)))
+    return tab
+
+
+def _launch_mm_indices_bf16(queries: torch.Tensor, tab: Bf16Tables):
+    """E1's two passes on the tables of :func:`mm_bf16_setup` (the
+    queries they were made for): (d2 [Q] f32, idx [Q] i32), the launch
+    counted.  The epilogue leaves the keys empty, so the tables serve
+    again."""
+    device = queries.device
+    Q = queries.shape[0]
+    d2 = torch.empty(Q, dtype=torch.float32, device=device)
     idx = torch.empty(Q, dtype=torch.int32, device=device)
     if Q:
-        err = _kernels().lsl_mm_bf16(
-            queries.data_ptr(), r_ext.data_ptr(), Q, R, score.data_ptr(),
-            idx.data_ptr(), device.index, _stream(device))
+        err = _kernels().lsl_e1_indices(
+            queries.data_ptr(), tab.rows.data_ptr(), Q, tab.n_refs,
+            tab.keys.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+            device.index, _stream(device))
         _check_launch('nn_indices_mm', err)
         nn_indices_mm.launches_bf16 += 1
-    return score, idx
+    return d2, idx
 
 
 nn_indices_mm.launches = 0
@@ -884,8 +979,7 @@ PAYLOAD_ATOL = 1e-5
 def _ext64(queries, ref_points, precision='highest'):
     """float64 copies of the extended rows the product sees (f32, or
     rounded to bf16)."""
-    q_ext, r_ext = mm_scores(extend_queries(queries),
-                             extend_reference(ref_points), precision)
+    q_ext, r_ext = mm_operands(queries, ref_points, precision)
     return q_ext.double(), r_ext.double()
 
 
@@ -905,9 +999,15 @@ def check_mm_indices(queries, ref_points, d2_a, idx_a, d2_b, idx_b,
     :func:`score_tolerance` of the float64 d2 of its own winner (scored
     from the operands the product sees: f32, or rounded to bf16), and the
     indices are equal except where the two winners' float64 scores lie
-    within the sum of their limits.  Returns the max |d2_a - d2_b|, the
-    largest d2 error as a share of its limit, and the number of differing
-    indices."""
+    within the sum of their limits.  An index outside [0, R) fails (E1's
+    epilogue writes -1 where it could not score its winning tile again to
+    the key's bits).  Returns the max |d2_a - d2_b|, the largest d2 error
+    as a share of its limit, and the number of differing indices."""
+    for name, idx in (('a', idx_a), ('b', idx_b)):
+        n_out = int(torch.sum((idx < 0) | (idx >= ref_points.shape[0])))
+        if n_out:
+            raise AssertionError(f'result {name}: {n_out} indices out of '
+                                 'range (-1: the second scoring missed)')
     q64, r64 = _ext64(queries, ref_points, precision)
     qn = torch.sum(queries.double() ** 2, dim=1)
     worst, scores, tols = 0.0, [], []

@@ -33,7 +33,8 @@ import torch
 # form, whose index, ties and payloads are an epilogue's second scoring
 # of one tile a query, not counted).
 INSTR_EXACT = 11        # 3 sub, 3 mul, 2 add, compare, 2 selects (K1, K2)
-INSTR_ARGMIN = 3        # compare, 2 selects (E1 bf16, product on tensor cores)
+INSTR_ARGMIN = 3        # compare, 2 selects (E1 bf16's earlier argmin pass)
+INSTR_MIN = 1           # min (E1 bf16: the product on the tensor cores)
 INSTR_MIN_SCORE = 4     # 3 FMA, min (E4, E5, E6)
 
 

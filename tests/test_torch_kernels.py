@@ -9,8 +9,10 @@ GPU machine (which has no jax), with the repo's conftest left out:
 There the ``gpu`` tests build csrc/nn.cu and csrc/nn_variants.cu and
 hold K1, K2, their lane forms K1L and K2L (fleet mode) and the
 shootout's kernels (E1-E6) to their plain versions
-(E4/E5 also at awkward shapes, with copies across tiles, and for their
-work items and launches), and ``profiling.nn_kernel_utilization``
+(E1/E4/E5 also at awkward shapes, with copies across tiles, and for their
+work items and launches; E1's set-up bit-equal to its plain version and
+its epilogue's second scoring finding every key), and
+``profiling.nn_kernel_utilization``
 reports K1 against its ``CardPeaks`` bound; here they skip.  Tolerances: K1 — d2 bit-equal and indices equal to its
 plain version (ties go to the lowest index); K2 — within the cutoff d2
 bit-equal and an index at that exact d2, beyond it d2 > cutoff^2; E2/E3
@@ -570,6 +572,59 @@ def test_e4_e5_ties_across_tiles_on_card():
         c = nv.check_payload(q, ref, pay, d2, out, *want_p)
         assert c['duplicates'] >= 64
         assert torch.equal(out[:64], pay[:64])
+
+
+@pytest.mark.gpu
+def test_e1_bf16_setup_items_and_second_scoring_on_card():
+    """E1 at the shootout's 8192 x 65536: its set-up bit-equal to the plain
+    set-up's bf16 rows, at least 256 work items, one launch counted a
+    call, no query whose winning tile fails to score again to its key
+    (index -1), the two passes run again on one table equal, and no copy
+    in the next tile winning."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, _ = _ties_across_tiles()
+    assert nv.mm_bf16_items(8192, 65536) >= 256
+    tab = nv.mm_bf16_setup(q, ref)
+    assert torch.equal(tab.rows, nv.mm_bf16_rows_plain(ref))
+    nv.reset_launches()
+    d2, idx = nv.nn_indices_mm(q, ref, 'bf16')
+    assert (nv.nn_indices_mm.launches_bf16,
+            nv.nn_indices_mm.launches) == (1, 0)
+    assert not bool(torch.any(idx < 0))
+    nv.check_mm_indices(q, ref, d2, idx,
+                        *nv.nn_indices_mm_plain(q, ref, 'bf16'),
+                        precision='bf16')
+    # The copies tie exactly: the one in the next tile never wins (bf16's
+    # rank errors send some of the 64 queries to other rows).
+    assert not bool(torch.any((idx >= 2048) & (idx < 2112)))
+    assert int(torch.sum(idx[:64].cpu() == torch.arange(64))) >= 1
+    for _ in range(2):
+        again = nv._launch_mm_indices_bf16(q, tab)
+        assert torch.equal(again[0], d2) and torch.equal(again[1], idx)
+    assert nv.nn_indices_mm.launches_bf16 == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_q,n_ref', [(1, 7), (1000, 3000), (1000, 3001),
+                                       (777, 65537), (8192, 2048)])
+def test_e1_bf16_awkward_shapes_on_card(n_q, n_ref):
+    """One query against 7 rows (one ragged 8-row step), Q % 256 != 0,
+    ragged key tiles and spans, one span; every third reference row
+    parked at 1e6 (|r|^2 = 3e12, finite in bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, _ = sh.make_scene(n_q, n_ref, seed=6)
+    ref[::3] = 1.0e6
+    q, ref = (torch.tensor(a, device='cuda') for a in (q, ref))
+    assert torch.equal(nv.mm_bf16_setup(q, ref).rows,
+                       nv.mm_bf16_rows_plain(ref))
+    d2, idx = nv.nn_indices_mm(q, ref, 'bf16')
+    assert not bool(torch.any(idx < 0))
+    nv.check_mm_indices(q, ref, d2, idx,
+                        *nv.nn_indices_mm_plain(q, ref, 'bf16'),
+                        precision='bf16')
+    assert not bool(torch.any(idx % 3 == 0))
 
 
 @pytest.mark.gpu

@@ -110,11 +110,12 @@ def _jax_bf16_witness(q, ref):
     with f32 accumulate (``jnp.dot`` of bf16 operands into f32), then
     the lowest index of the minimum and ``max(score + |q|^2, 0)``."""
     qj, rj = jnp.asarray(q), jnp.asarray(ref)
-    q_ext = jnp.concatenate([qj, jnp.ones((Q, 1), jnp.float32),
-                             jnp.zeros((Q, 4), jnp.float32)], axis=1)
+    nq, nr = q.shape[0], ref.shape[0]
+    q_ext = jnp.concatenate([qj, jnp.ones((nq, 1), jnp.float32),
+                             jnp.zeros((nq, 4), jnp.float32)], axis=1)
     r_ext = jnp.concatenate([-2.0 * rj,
                              jnp.sum(rj * rj, axis=1, keepdims=True),
-                             jnp.zeros((R, 4), jnp.float32)], axis=1)
+                             jnp.zeros((nr, 4), jnp.float32)], axis=1)
     s = jnp.dot(q_ext.astype(jnp.bfloat16), r_ext.astype(jnp.bfloat16).T,
                 preferred_element_type=jnp.float32)
     idx = jnp.argmin(s, axis=1)
@@ -339,6 +340,84 @@ def test_e4_two_pass_twin_matches_plain_and_jax(kind):
         assert torch.equal(out[:64], T(pay[:64]))
         np.testing.assert_allclose(np.asarray(jpay)[:64], pay[:64],
                                    atol=nv.PAYLOAD_ATOL)
+
+
+@pytest.mark.parametrize('kind', TWO_PASS_CASES)
+def test_e1_two_pass_twin_matches_plain_and_jax(kind):
+    """E1 through the merge keys (the bf16 operands, the least score a
+    512-row key tile, the least key's tile, that tile's scores again)
+    equals the plain E1 exactly and passes the bf16 index check against
+    the ``jnp.dot`` witness."""
+    q, ref, _ = two_pass_case(kind)
+    d2, idx = nv.nn_indices_mm_bf16_by_keys(T(q), T(ref))
+    pd2, pidx = nv.nn_indices_mm_plain(T(q), T(ref), 'bf16')
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    jd2, jidx = _jax_bf16_witness(q, ref)
+    nv.check_mm_indices(T(q), T(ref), d2, idx, T(jd2), T(jidx),
+                        precision='bf16')
+    if kind == 'parked':
+        assert bool(torch.all(idx % 3 != 0))
+    if kind == 'ties':
+        # Exact copies score the same bits in any tile, so the copy in the
+        # next tile never wins.  bf16's rank errors at 50 m send some of
+        # the 64 queries to other rows (in JAX too), the rest to their
+        # first copy.
+        assert not bool(torch.any((idx >= 2048) & (idx < 2112)))
+        assert int(torch.sum(idx[:64] == torch.arange(64))) >= 1
+        np.testing.assert_array_equal(np.asarray(jidx)[:64], idx[:64])
+
+
+@pytest.mark.parametrize('kind', ['scene', 'parked', 'r3001'])
+def test_e1_setup_rows_are_the_plain_bf16_rows(kind):
+    """The plain twin of E1's set-up kernel packs exactly the bf16 rows the
+    plain E1 multiplies (``round_bf16(extend_reference(ref))``: |r|^2
+    summed in torch's order and in the kernel's, (x*x + y*y) + z*z, round
+    alike), the pad rows up to a multiple of 8 zero."""
+    _, ref, _ = two_pass_case(kind)
+    rows = nv.mm_bf16_rows_plain(T(ref))
+    n = ref.shape[0]
+    assert rows.dtype == torch.int32 and rows.shape == (-(-n // 8) * 8, 2)
+    vals = nv.bf16_row_values(rows)
+    want = nv.round_bf16(nv.extend_reference(T(ref)))
+    assert torch.equal(vals[:n].view(torch.int32), want.view(torch.int32))
+    assert not bool(torch.any(vals[n:]))
+    lo = rows[:n, 0] & 0xFFFF
+    assert torch.equal(lo.to(torch.int16).view(torch.bfloat16).float(),
+                       want[:, 0])
+
+
+def test_e1_work_items_and_the_miss_check():
+    """256-query tiles x 2048-row spans: 1024 items at the shootout's 8192
+    x 65536 (at least 256); an index -1 (the epilogue's self-check) fails
+    the index check."""
+    assert nv.mm_bf16_items(8192, 65536) == 1024
+    assert nv.mm_bf16_items(1000, 3001) == 4 * 2
+    q, ref, _ = (T(a) for a in scene('scene'))
+    d2, idx = nv.nn_indices_mm(q, ref, 'bf16')
+    miss = idx.clone()
+    miss[3] = -1
+    with pytest.raises(AssertionError, match='out of range'):
+        nv.check_mm_indices(q, ref, d2, idx, d2, miss, precision='bf16')
+
+
+def test_e1_probe_variants_change_one_piece_each():
+    """The chip probe of E1's bound edits the kernel source it reads: each
+    variant differs from the source in the piece it names and no other."""
+    from laser_slam_tpu_torch.experiments import e1_probe
+    from laser_slam_tpu_torch.ops import cuda_build
+    with open(os.path.join(cuda_build.CSRC_DIR, 'nn_variants.cu')) as f:
+        src = f.read()
+    texts = e1_probe.variants(src)
+    assert list(texts) == ['as_is', 'no_min', 'no_mma', 'k16']
+    assert texts['as_is'] == src
+    changed = {name: [a for a, b in zip(src.splitlines(),
+                                         text.splitlines()) if a != b]
+               for name, text in texts.items()}
+    assert changed['no_min'] == [e1_probe._MIN.join(['        ', ''])]
+    assert 'mma.sync.aligned.m16n8k16' in texts['k16']
+    assert texts['no_mma'].count('mma_bf16_1688(d, a[f][0]') == 1
+    with pytest.raises(RuntimeError, match='changed'):
+        e1_probe.variants(src.replace('m16n8k8', 'm16n8k4'))
 
 
 def test_merge_key_pick_takes_the_lowest_tile_of_equal_minima():
