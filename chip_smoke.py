@@ -22,10 +22,22 @@ result line):
 4. K2 (``nn_indices_pruned``) against its plain version and K1 within the
    3 m cutoff, on the synthetic room and on a clustered scene: d2
    bit-equal, an index that differs only at an exact f32 tie, and d2 >
-   cutoff^2 beyond it.  Timed with its torch tables, and alone
-   (``nn_kernels._launch_pruned`` on tables built once); the share of
-   pairs it scans, counted by the kernel, beside the share of the
-   Pallas walk that its bound counts.
+   cutoff^2 beyond it.  Its set-up on the card (``nn_kernels.
+   pruned_setup``: ``k2_sort_kernel`` or the codes and a ``torch.sort``,
+   then ``k2_tables_kernel``) against its plain version
+   (``pruned_tables``), qperm, q_sorted, order and lb torch.equal with
+   empty merge keys, and K2 against its plain version again, on 14 scenes
+   (``k2_setup_scenes``: the room, clusters, SENTINEL-parked rows, an
+   all-parked reference, Q = 1000 and the prime 8191, duplicate points,
+   overlapping tiles, 16384 queries and 20000 (the torch.sort route), the
+   room on the torch.sort route, 4099 one-point tiles whose bounds
+   torch.sort sorts, and two lane sets).  Timed with its set-up on the
+   card (at most K2_MAX_LAUNCHES device launches a call, counted by
+   ``torch.profiler``, with the device ms of each kernel and the host's
+   time to issue a call), on the torch.sort route, with the torch tables
+   it ran on before, and alone (``nn_kernels._launch_pruned`` on tables
+   built once); the share of pairs it scans, counted by the kernel,
+   beside the share of the Pallas walk that its bound counts.
 5. The slice: ``OnlineRunner(slice1_config(), device='cuda')`` over 64
    synthetic scans of 16384 points (2 laps of a 15 m circle, seed 7, the
    stream's default noise) with a loop closure every 10 scans of lap 2.
@@ -38,7 +50,8 @@ result line):
    ``pallas_prune=False`` (the flat-kernel matcher); K1 must have launched
    and the pose must agree with the K2 run within 1e-4.  ICP ms a call
    (one a scan) with either matcher, host clock around synchronized
-   calls.
+   calls, and each call's device launches and device ms by kernel
+   (``torch.profiler``; not measured when it loses records).
 7. The shootout's kernels (E1-E6, ``ops/nn_variants.py``): each held to
    its plain version at the shootout's shape (8192 x 65536, seed 3), on
    the same scene with 64 reference points copied inside their tile
@@ -168,7 +181,9 @@ result line):
    world-frame alignment, whose refinement ICP runs K2 (ms), and the
    trajectory within test_parity's bounds.  K2 must launch in the lap and
    in the closure, K1 never.  K2 is also held to its plain version at the
-   refinement's largest submaps (7 x 16384 points a side).  Last, phase
+   refinement's largest submaps (7 x 16384 points a side), and timed
+   there with its set-up on the card (the torch.sort route) in turns with
+   the torch tables.  Last, phase
    9a's flagship runner through ``save_online_checkpoint`` /
    ``load_online_checkpoint`` at scan 32 (ms each): the resumed runner
    must find the uninterrupted one's detections, its poses within 1 cm /
@@ -199,7 +214,11 @@ result line):
    and (c)'s shapes and at 5 ragged lanes of 1000 x 9001 with copies
    across tiles and parked rows (K2L also on 4 clustered lanes of 2048 x
    16384, four tiles a lane, where it must scan fewer than all pairs:
-   ``clustered_scanned_share``), and their times at (b)'s shape.
+   ``clustered_scanned_share``), and their times at (b)'s shape; K2L's
+   set-up on the card torch.equal to ``pruned_tables_lanes`` at (b)'s
+   shape and on the clustered lanes; K2L at 4096- and 1024-point
+   reference tiles on both (ms in turns, share of pairs scanned, the
+   results of one held to the other's).
 13. The data path in and out (slice 7).  (a) The first 48 frames of phase
    9b's KITTI-density stream (64 x 2048 beams, seed 22) written as a
    KITTI sequence (velodyne .bin with reflectance 0, times.txt, calib.txt
@@ -323,7 +342,8 @@ CUTOFF = 3.0
 POSE_ATOL = 1e-4
 PROFILE_SCANS = range(12, 16)
 SHOOT_Q, SHOOT_R = 8192, 65536
-LAUNCH_PROFILED = 5     # calls whose device launches are counted (E1, E4-E6)
+LAUNCH_PROFILED = 5     # calls whose device launches are counted (K2, E1, E4-E6)
+K2_MAX_LAUNCHES = 5     # device launches a K2 call may make (shared-memory sort)
 E6_MAX_LAUNCHES = 12    # device launches an E6 call may make, set-up included
 MM_MAX_LAUNCHES = 6     # the same for E1, E4 and E5
 # Phase 8, the production path.  (a) the first 44 of 64 scans over 2
@@ -528,6 +548,111 @@ def exact_tiled(name, q, ref, got, want):
     return nv.check_exact_indices(q, ref, *got, *want)
 
 
+def k2_setup_scenes(nk, pc, dev, queries, submap, c_q, c_ref):
+    """Phase 4's scenes for K2's set-up: (label, queries, reference, the
+    lane axis or not, the most queries a lane sorted in shared memory)."""
+    g = torch.Generator(device='cpu').manual_seed(16)
+
+    def randn(*shape, scale=5.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    sort_keys = nk._SORT_KEYS
+    parked_q = queries.clone()
+    parked_q[::5] = pc.SENTINEL
+    parked_r = submap.clone()
+    parked_r[::3] = pc.SENTINEL
+    dup = queries[:64].repeat(128, 1)           # codes tie 128 times each
+    cube = (torch.rand(16384, 3, generator=g) * 2.0).to(dev)
+    inner = (0.5 + torch.rand(8192, 3, generator=g)).to(dev)
+    spread = submap[::4][:16384] + 0.01
+    big = torch.cat([spread, submap[1::4][:3616] + 0.01])   # 20000 rows
+    lanes_q = randn(3, 2000, 3)
+    lanes_r = randn(3, 5000, 3)
+    lanes_r[1, ::3] = pc.SENTINEL
+    lanes_r[2] = pc.SENTINEL
+    return [
+        ('room 8192 x 81920', queries, submap, None, sort_keys),
+        ('clusters', c_q, c_ref, None, sort_keys),
+        ('SENTINEL-parked rows, both clouds', parked_q, parked_r, None,
+         sort_keys),
+        ('an all-parked reference, 1000 x 3001', randn(1000, 3),
+         torch.full((3001, 3), pc.SENTINEL, device=dev), None, sort_keys),
+        ('Q 1000 (qb 250) x 3001', randn(1000, 3), randn(3001, 3), None,
+         sort_keys),
+        ('prime Q 8191 (qb 1) x 81920', queries[:8191].contiguous(), submap,
+         None, sort_keys),
+        ('duplicate points (codes tie)', dup, submap, None, sort_keys),
+        ('overlapping tiles (lb 0 ties), 8192 x 16384 at rb 512', inner,
+         cube, 512, sort_keys),
+        ('Q 16384, the largest shared-memory sort', spread, submap, None,
+         sort_keys),
+        ('Q 20000, the torch.sort route', big, submap, None, sort_keys),
+        ('room 8192 x 81920 on the torch.sort route', queries, submap, None,
+         0),
+        ('prime R 4099 (4099 tiles of 1), bounds sorted by torch.sort',
+         randn(1000, 3), randn(4099, 3), None, sort_keys),
+        ('3 lanes of 2000 x 5000, one parked, one all parked', lanes_q,
+         lanes_r, None, sort_keys),
+        ('2 lanes of 20000 x 4099, both torch.sort routes',
+         randn(2, 20000, 3), randn(2, 4099, 3), None, sort_keys),
+    ]
+
+
+def check_k2_setup(nk, scenes):
+    """K2's set-up on the card (``nk.pruned_setup``) against its plain
+    version (``nk.pruned_tables``) on each scene of
+    :func:`k2_setup_scenes`: qperm, q_sorted, order and lb torch.equal,
+    the same tiles, every merge key and the item counter empty, over lanes
+    the flat rows of the unpack; then K2 (K2L) through its wrapper
+    against its plain version within the cutoff (d2 bit-equal, an index
+    that differs only at an exact f32 tie) and beyond it (d2 > cutoff^2).
+    Returns the largest d2 error."""
+    err = 0.0
+    for label, q, ref, rb, sort_keys in scenes:
+        lanes = q.dim() == 3
+        pref = (nk.build_pruned_ref_lanes if lanes else nk.build_pruned_ref)(
+            ref, rb)
+        old = nk._SORT_KEYS
+        nk._SORT_KEYS = sort_keys
+        try:
+            tables, keys, rows = nk.pruned_setup(q, pref, CUTOFF)
+            d2_k, idx_k = (nk.nn_indices_pruned_lanes if lanes
+                           else nk.nn_indices_pruned)(q, pref, CUTOFF)
+        finally:
+            nk._SORT_KEYS = old
+        want = nk.pruned_tables(q, pref, CUTOFF)
+        for name, a, b in zip(('qperm', 'q_sorted', 'order', 'lb'),
+                              tables[:4], want[:4]):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f'K2 set-up, {label}: {name} differs '
+                                     'from pruned_tables')
+        if tables[4:] != want[4:]:
+            raise AssertionError(f'K2 set-up, {label}: tiles {tables[4:]} '
+                                 f'where pruned_tables has {want[4:]}')
+        if not bool(torch.all(keys == nk._INIT_KEY)):
+            raise AssertionError(f'K2 set-up, {label}: merge keys not empty')
+        B, Q = (q.shape[0], q.shape[1]) if lanes else (1, q.shape[0])
+        if lanes and not torch.equal(rows, (want[0] + Q * torch.arange(
+                B, device=q.device)[:, None]).reshape(-1)):
+            raise AssertionError(f'K2 set-up, {label}: flat rows differ')
+        d2_p, idx_p = (nk.nn_indices_pruned_lanes_plain if lanes
+                       else nk.nn_indices_pruned_plain)(q, pref, CUTOFF)
+        R = pref.points.shape[-2]
+        shift = (R * torch.arange(B, device=q.device)[:, None] if lanes
+                 else 0)
+        inside = d2_p <= CUTOFF ** 2
+        if bool(torch.any(d2_k[~inside] <= CUTOFF ** 2)):
+            raise AssertionError(f'K2, {label}: a query beyond the cutoff '
+                                 'reported within it')
+        err = max(err, check_nn(
+            f'{label}: tables torch.equal to pruned_tables '
+            f'(qb {tables[4]}, rb {tables[5]}); K2', q.reshape(-1, 3)[
+                inside.reshape(-1)], pref.points.reshape(-1, 3),
+            d2_k[inside], (idx_k + shift)[inside], d2_p[inside],
+            (idx_p + shift)[inside], ties=True))
+    return err
+
+
 def measured_closure(frames, traj, i, j, se3, torch):
     """World-frame alignment of scans i and j from their TRUE relative
     pose and the runner's live estimates (tests/test_parity.py)."""
@@ -558,12 +683,13 @@ def device_launches(prof):
     return sum(e.count for e in device_rows(prof))
 
 
-def launches_a_call(name, call, items_kernel, most):
+def launches_a_call(name, call, items_kernel, most, items_per_call=1):
     """Device launches a call of ``call`` and their device ms a call by
     kernel, counted by ``torch.profiler`` over LAUNCH_PROFILED calls.  A
-    session whose ``items_kernel`` shows fewer records than calls lost
-    some and is taken again; a count still short after 3 sessions, or
-    above ``most``, fails the run."""
+    session whose ``items_kernel`` shows fewer records than the calls
+    launch (``items_per_call`` each) lost some and is taken again; a
+    count still short after 3 sessions, or above ``most``, fails the
+    run."""
     call()
     torch.cuda.synchronize()
     for attempt in range(3):
@@ -574,10 +700,11 @@ def launches_a_call(name, call, items_kernel, most):
             torch.cuda.synchronize()
         rows = device_rows(prof)
         items = sum(e.count for e in rows if e.key.startswith(items_kernel))
-        if items == LAUNCH_PROFILED:
+        if items == LAUNCH_PROFILED * items_per_call:
             break
         log(f'  {name} profile {attempt + 1}: {items} records of its items '
-            f'kernel in {LAUNCH_PROFILED} calls, taken again')
+            f'kernel in {LAUNCH_PROFILED} calls of {items_per_call}, taken '
+            'again')
     else:
         raise AssertionError(f'{name}: the profiler lost kernel records in 3 '
                              'sessions, launches a call not measured')
@@ -1590,10 +1717,24 @@ def host_api_phase(nk, frames, smi, online_lap=None, flag_frames=None):
             (2 * radius + 1) * cfg.estimator.laser_track.input_filters
             .scan_capacity):
         raise AssertionError('host API: K2 at the refinement\'s capacity')
+    # Its time there (the torch.sort route of the set-up, by size) in
+    # turns with the torch tables it ran on before.
+    k2_refine = {'setup on the card': [], 'torch tables': []}
+    for key in ('setup on the card', 'torch tables', 'torch tables',
+                'setup on the card'):
+        k2_refine[key].append(event_ms(
+            (lambda: nk.nn_indices_pruned(q, pref, CUTOFF))
+            if key == 'setup on the card' else
+            (lambda: nk._launch_pruned(nk.pruned_tables(q, pref, CUTOFF),
+                                       pref, CUTOFF)), 5))
+    k2_refine = {k: float(np.mean(v)) for k, v in k2_refine.items()}
+    log(f'  {smi}: K2 at {q.shape[0]} x {n_sub}, ms a call (two turns '
+        'each): ' + ', '.join(f'{k} {v:.4f}' for k, v in k2_refine.items()))
     out.update(scans_per_s=rate, ms_per_scan=1e3 * float(np.mean(warm)),
                k2_launches=k2_lap + k2_closure,
                k2_launches_per_scan=k2_lap / (HOST_SCANS - 1),
                closure_ms=closure_ms, closure_k2_launches=k2_closure,
+               k2_refine_ms=k2_refine,
                save_ms=save_ms, load_ms=load_ms, err_max_m=float(err_c.max()),
                err_final_m=float(err_c[-1]), vs_online_m=on_dt,
                resume_m=res_dt, resume_deg=res_dr)
@@ -1965,6 +2106,44 @@ def fleet_phase(nk, smi, bound):
     if not cl_share < 1.0:
         raise AssertionError(f'K2L skipped nothing on clustered lanes '
                              f'(scanned share {cl_share})')
+    # K2L's set-up on the card against pruned_tables_lanes, lane by lane.
+    err2 = max(err2, check_k2_setup(nk, [
+        (f'K2L set-up, fleet ICP {B} lanes x {N} x {N}', q_b, r_b, None,
+         nk._SORT_KEYS),
+        ('K2L set-up, 4 clustered lanes', cl_q, cl_r, None,
+         nk._SORT_KEYS)]))
+    # K2L's reference tile: a lane of at most 4096 points is a single tile
+    # at 4096 points, so nothing prunes.  The tile changes neither d2 nor
+    # idx (the sorted reference does not depend on it): both times, and
+    # the results of one held to the other's.
+    rb_ms, rb_share = {}, {}
+    for label, q, r in (('fleet', q_b, r_b), ('clustered', cl_q, cl_r)):
+        prefs = {rb: nk.build_pruned_ref_lanes(r, rb) for rb in (nk._RB,
+                                                                 1024)}
+        got = {rb: nk.nn_indices_pruned_lanes(q, p, CUTOFF)
+               for rb, p in prefs.items()}
+        times = {rb: [] for rb in prefs}
+        for rb in (nk._RB, 1024, 1024, nk._RB):
+            times[rb].append(event_ms(lambda: nk.nn_indices_pruned_lanes(
+                q, prefs[rb], CUTOFF), 20))
+        for rb, p in prefs.items():
+            rb_ms[f'{label}_rb{rb}'] = float(np.mean(times[rb]))
+            tables = nk.pruned_setup(q, p, CUTOFF)[0]
+            scanned = torch.zeros(tables[2].shape[:-1], dtype=torch.int32,
+                                  device=dev)
+            nk._launch_pruned(tables, p, CUTOFF, scanned=scanned)
+            rb_share[f'{label}_rb{rb}'] = int(scanned.sum()) * tables[4] / (
+                q.shape[0] * q.shape[1] * r.shape[1])
+        inside = got[nk._RB][0] <= CUTOFF ** 2
+        shift = r.shape[1] * torch.arange(q.shape[0], device=dev)[:, None]
+        check_nn(f'K2L {label} at rb 1024 vs {nk._RB}', q[inside],
+                 torch.cat(list(prefs[1024].points)), got[1024][0][inside],
+                 (got[1024][1] + shift)[inside], got[nk._RB][0][inside],
+                 (got[nk._RB][1] + shift)[inside], ties=True)
+    log(f'  K2L by reference tile ({smi}; ms a call with its set-up, the '
+        f'mean of two turns in {nk._RB}, 1024, 1024, {nk._RB}; share of '
+        'pairs scanned): ' + ', '.join(
+            f'{k} {v:.4f} ms, {rb_share[k]:.4f}' for k, v in rb_ms.items()))
 
     # Times at the fleet ICP's shape.
     pairs = B * N * N
@@ -2014,7 +2193,8 @@ def fleet_phase(nk, smi, bound):
              launches=k2l_launches, max_abs_err=err2, ms=k2l_ms,
              kernel_ms=k2l_kernel, scanned_share=float(np.mean(shares)),
              bound_share=min(shares), clustered_scanned_share=cl_share,
-             plain_ms=k2l_plain,
+             ms_by_reference_tile=rb_ms,
+             scanned_share_by_reference_tile=rb_share, plain_ms=k2l_plain,
              bound_ms=k2l_bound[0], bound_by=k2l_bound[1],
              library_ms=lib_ms, library=lib_call + ' (the cutoff is a '
              'where)')]
@@ -2760,6 +2940,11 @@ def main():
         orig = pref.perm[idx_k.long()]
         check_nn(f'{label} vs K1', q, ref, d2_k, orig, d2_1, idx_1,
                  rows=rows, ties=True)
+    # The set-up on the card against pruned_tables, scene by scene.
+    t_setup = time.perf_counter()
+    err2 = max(err2, check_k2_setup(nk, k2_setup_scenes(
+        nk, pc, dev, queries, submap, c_q, c_ref)))
+    log(f'  K2 set-up checks took {time.perf_counter() - t_setup:.1f} s')
     pref = nk.build_pruned_ref(submap)
     k2_ms = event_ms(lambda: nk.nn_indices_pruned(queries, pref, CUTOFF), 20)
     k2_plain_ms = event_ms(
@@ -2769,6 +2954,10 @@ def main():
                            20)
     k2_host = host_ms(lambda: nk.nn_indices_pruned(queries, pref, CUTOFF),
                       20)
+    # The plain set-up (pruned_tables, about 110 torch launches) before the
+    # same kernel, as the wrapper ran until the set-up went onto the card.
+    k2_torch_tables_ms = event_ms(lambda: nk._launch_pruned(
+        nk.pruned_tables(queries, pref, CUTOFF), pref, CUTOFF), 20)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as one:
         nk.nn_indices_pruned(queries, pref, CUTOFF)
@@ -2785,11 +2974,16 @@ def main():
             atol=1e-3):
         raise AssertionError(f'device_rows {direct} differ from '
                              f'key_averages {averaged}')
+    k2_launches_one = device_launches(one)
     log(f'  time at {READING} x {SUBMAP_SCANS * N_POINTS} (room): with its '
-        f'tables {k2_ms:.4f} ms ({device_launches(one)} device launches a '
-        f'call, which the host issues in {k2_host:.4f} ms), kernel alone '
-        f'(tables built once) {k2_kernel_ms:.4f} ms, plain '
+        f'set-up on the card {k2_ms:.4f} ms ({k2_launches_one} device '
+        f'launches a call, which the host issues in {k2_host:.4f} ms), '
+        f'kernel alone (tables built once) {k2_kernel_ms:.4f} ms, with the '
+        f'torch tables (pruned_tables) {k2_torch_tables_ms:.4f} ms, plain '
         f'{k2_plain_ms:.4f} ms')
+    if k2_launches_one > K2_MAX_LAUNCHES:
+        raise AssertionError(f'K2: {k2_launches_one} device launches a call, '
+                             f'above {K2_MAX_LAUNCHES}')
     # K2's work depends on the data: the Pallas walk (replayed in torch)
     # must reach the kernel's distances, and the kernel scans the tiles
     # that the bests merged so far do not prune, which varies with block
@@ -2816,6 +3010,8 @@ def main():
         f'{", ".join(f"{x:.4f}" for x in shares)} of all pairs; the bound '
         f'counts {k2_share:.4f}')
     kernels['K2'] = dict(max_abs_err=err2, ms=k2_ms, kernel_ms=k2_kernel_ms,
+                         host_ms=k2_host,
+                         torch_tables_ms=k2_torch_tables_ms,
                          scanned_share=float(np.mean(shares)),
                          walk_share=walk_share, bound_share=k2_share,
                          plain_ms=k2_plain_ms,
@@ -2830,6 +3026,42 @@ def main():
     t_prof = time.perf_counter()
     full = tuple(torch.tensor(a, device=dev)
                  for a in sh.make_scene(SHOOT_Q, SHOOT_R, seed=3))
+    k2_items = 'void nn_items_kernel<true'
+
+    def sort_route():
+        old = nk._SORT_KEYS
+        nk._SORT_KEYS = 0
+        try:
+            return nk.nn_indices_pruned(queries, pref, CUTOFF)
+        finally:
+            nk._SORT_KEYS = old
+
+    k2_profiled = dict(
+        shared=launches_a_call(
+            'K2', lambda: nk.nn_indices_pruned(queries, pref, CUTOFF),
+            k2_items, K2_MAX_LAUNCHES),
+        sort=launches_a_call('K2 on the torch.sort route', sort_route,
+                             k2_items, 1000),
+        torch_tables=launches_a_call(
+            'K2 with the torch tables', lambda: nk._launch_pruned(
+                nk.pruned_tables(queries, pref, CUTOFF), pref, CUTOFF),
+            k2_items, 1000))
+    k2_sort_ms = event_ms(sort_route, 20)
+    for key, label in (('shared', 'with its set-up (shared-memory sort)'),
+                       ('sort', 'on the torch.sort route'),
+                       ('torch_tables', 'with the torch tables')):
+        n, split = k2_profiled[key]
+        log(f'  K2 {label}: {n} device launches a call; device ms a call: '
+            + (json.dumps(split) if n <= K2_MAX_LAUNCHES else
+               f'{sum(split.values()):.4f} in all'))
+    log(f'  K2 on the torch.sort route at {READING} x {n_sub}: '
+        f'{k2_sort_ms:.4f} ms a call')
+    kernels['K2'].update(
+        launches_a_call=k2_profiled['shared'][0],
+        device_ms_by_kernel=k2_profiled['shared'][1],
+        sort_route_ms=k2_sort_ms,
+        sort_route_launches_a_call=k2_profiled['sort'][0],
+        torch_tables_launches_a_call=k2_profiled['torch_tables'][0])
     profiled = dict(
         E6=launches_a_call('E6', lambda: nv.nn_payload_pruned(*full),
                            'e6_items_kernel', E6_MAX_LAUNCHES),
@@ -2902,7 +3134,9 @@ def main():
                     PROFILE_SCANS, focus=(
                         ('K2 items', ('nn_items_kernel<true',)),
                         ('K2 items with its unpack',
-                         ('nn_items_kernel<true', 'nn_unpack_kernel'))))
+                         ('nn_items_kernel<true', 'nn_unpack_kernel')),
+                        ('K2 set-up', ('k2_sort_kernel', 'k2_codes_kernel',
+                                       'k2_tables_kernel'))))
     if k2_launches <= 0:
         raise AssertionError('slice: K2 never launched')
     if not (ate.max() < 0.35 and ate[-1] < 0.15):
@@ -2937,14 +3171,38 @@ def main():
     k1_launches = nk.nn_indices.launches
     res_pruned = icp_mod.icp(reading, reference, normals, guess, icp_cfg)
     dT = float(torch.max(torch.abs(res_flat.T - res_pruned.T)))
+    icp_ms = {}
     for label, c in (('K2 matcher', icp_cfg), ('K1 matcher', flat_cfg)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
             icp_mod.icp(reading, reference, normals, guess, c)
         torch.cuda.synchronize()
-        log(f'  ICP at the slice\'s shapes, {label}: '
-            f'{1000 * (time.perf_counter() - t0) / 3:.3f} ms a call')
+        icp_ms[label] = 1000 * (time.perf_counter() - t0) / 3
+        log(f'  ICP at the slice\'s shapes, {label}: {icp_ms[label]:.3f} ms '
+            'a call')
+    # Where an ICP call's time goes with either matcher: device launches
+    # and device ms a call by kernel (one search an iteration, as many as
+    # K1 launched in one call).
+    # Records lost in 3 profiler sessions (they follow phase 5's long
+    # profile) leave it not measured.
+    for label, c, items in (
+            ('K2 matcher', icp_cfg, 'void nn_items_kernel<true'),
+            ('K1 matcher', flat_cfg, 'void nn_items_kernel<false')):
+        try:
+            n, split = launches_a_call(
+                f'ICP, {label}', lambda: icp_mod.icp(reading, reference,
+                                                     normals, guess, c),
+                items, 100000, items_per_call=k1_launches)
+        except AssertionError as e:
+            log(f'  ICP {label}: profile not measured ({e})')
+            continue
+        device = sum(split.values())
+        top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+        log(f'  ICP {label} ({smi}): {n:.0f} device launches a call, '
+            f'{device:.3f} ms of device time in {icp_ms[label]:.3f} ms '
+            f'(busy {100 * device / icp_ms[label]:.1f}%); by kernel: '
+            + '; '.join(f'{k[:60]} {v:.3f} ms' for k, v in top))
     log(f'  K1 launches {k1_launches}, valid {bool(res_flat.valid)}, '
         f'max |T_K1 - T_K2| {dT:.3e} (tolerance {POSE_ATOL})')
     if k1_launches <= 0:

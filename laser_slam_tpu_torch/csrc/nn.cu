@@ -83,6 +83,36 @@
 //     contraction) in the order (dx*dx + dy*dy) + dz*dz, so they equal
 //     the plain torch version (neighbors.sqdist) bit for bit.
 //
+// K2's set-up (k2_sort_kernel or k2_codes_kernel, then k2_tables_kernel)
+// builds on the card, bit for bit, the tables that the JAX package
+// computes in XLA around the Pallas call (pallas_nn.py:313-340) and the
+// port's plain version computes in torch (nn_kernels.pruned_tables,
+// about 110 small launches a call, which cost K2 more than its scan):
+//   * The reference's Morton box (its finite min/max and the inverse
+//     extent) is computed once, by nn_kernels.build_pruned_ref, and read
+//     here.
+//   * Query sort.  A query's key is (30-bit Morton code << 32 | row); the
+//     row breaks ties, so the ascending keys give the stable argsort.
+//     The code rounds as the torch expression: (p - lo) * inv clamped to
+//     [0, 1], times 1023, truncated, each step a separately rounded f32
+//     operation.  Up to K2_SORT_KEYS queries a lane, one block a lane
+//     sorts the keys (bitonic: in registers, by warp shuffles, and through
+//     shared memory for the strides across warps); above that
+//     k2_codes_kernel writes the codes for one stable torch.sort, chosen
+//     by size before any launch.
+//   * Tables.  One block a (lane, query tile) gathers its sorted rows,
+//     empties their merge keys, reduces the tile's box, computes its nR
+//     bounds as pruned_tables sums them, sorts (lb bits << 32 | j) keys
+//     (lb >= +0, so the bits order like the float, and j breaks ties as
+//     the stable argsort), counts the bounds within the cutoff and writes
+//     the aliased order and the bounds, +inf past the cutoff.  Rows of
+//     more than K2_TABLE_KEYS bounds (reference tiles of a few points)
+//     take one torch.sort of the keys between two launches instead.
+//   So a K2 call is four launches on the card: sort, tables, items,
+//   unpack.  The set-up is bound by the sort's steps in one block on one
+//   SM (0.06 ms at 8192 queries on an H100), not by bytes: it moves
+//   about 0.3 MB.
+//
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns the first CUDA error of its launches.
 
@@ -218,7 +248,354 @@ static cudaError_t launch_items(int grid, const float* q, const float* ref,
   return cudaGetLastError();
 }
 
+// --------------------------------------------------------------------------
+// K2's set-up
+// --------------------------------------------------------------------------
+
+#define K2_SORT_THREADS 1024
+#define K2_SORT_KEYS 16384           // a lane's queries one block sorts
+#define K2_TABLE_THREADS NN_QT       // a query tile's rows, one a thread
+#define K2_TABLE_KEYS 4096           // bounds a row one block sorts
+#define K2_CODE_THREADS 256
+
+// min and max that return NaN when either side is NaN, as torch.amin,
+// torch.maximum and torch.clamp do.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+}
+
+// The 30-bit Morton code of point p over the box (lo, inv), rounded as
+// nn_kernels._morton3d: u = clamp((p - lo) * inv, 0, 1), then
+// (u * 1023).to(int32), which truncates (NaN converts to 0 in both).
+__device__ __forceinline__ unsigned k2_code(const float* __restrict__ p,
+                                            const float* __restrict__ box) {
+  unsigned g[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float u = __fmul_rn(__fsub_rn(p[d], box[d]), box[6 + d]);
+    const float c = u != u ? u : fminf(fmaxf(u, 0.f), 1.f);
+    g[d] = (unsigned)(int)__fmul_rn(c, 1023.f);
+  }
+  return spread_bits10(g[0]) | (spread_bits10(g[1]) << 1) |
+         (spread_bits10(g[2]) << 2);
+}
+
+__device__ __forceinline__ void keep(u64& k, u64 o, bool keep_min) {
+  k = keep_min ? (o < k ? o : k) : (o > k ? o : k);
+}
+
+// Ascending bitonic sort of P keys (a power of two, P = NT * E or P <=
+// NT with E = 1) held E to a thread in registers: thread t holds
+// positions t*E .. t*E + E-1 (those at P and beyond stay out).  As E6's
+// cluster_sort (csrc/nn_variants.cu) within one block: a pair within a
+// thread meets in registers, within a warp by shuffles, across warps in
+// s_keys (P keys), so only the strides of 32E and more pass through
+// shared memory.
+template <int NT, int E>
+__device__ __forceinline__ void block_sort_held(u64* s_keys, u64 (&k)[E],
+                                                int P) {
+  const int t = threadIdx.x;
+  const int pos0 = t * E;
+  const bool holds = pos0 < P;
+  const int lim = min(32 * E, P);    // strides from here on: shared memory
+  for (int size = 2; size <= P; size <<= 1) {
+    int stride = size >> 1;
+    if (stride >= lim) {                       // across warps
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (holds) s_keys[pos0 + e] = k[e];
+      for (; stride >= lim; stride >>= 1) {
+        __syncthreads();
+        for (int x = t; x < P / 2; x += NT) {
+          const int i = ((x & ~(stride - 1)) << 1) | (x & (stride - 1));
+          const int j = i + stride;
+          const u64 a = s_keys[i], b = s_keys[j];
+          if ((a > b) == ((i & size) == 0)) {
+            s_keys[i] = b;
+            s_keys[j] = a;
+          }
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (holds) k[e] = s_keys[pos0 + e];
+      __syncthreads();               // read before the next store
+    }
+    for (; stride >= E; stride >>= 1) {        // across lanes
+      const bool keep_min = ((pos0 & stride) == 0) == ((pos0 & size) == 0);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        keep(k[e], __shfl_xor_sync(0xffffffffu, k[e], stride / E),
+             keep_min);
+    }
+    for (; stride > 0; stride >>= 1) {         // within a thread
+#pragma unroll
+      for (int s = 1; s < E; s <<= 1) {
+        if (s == stride) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const int f = e ^ s;
+            if (f > e) {
+              const u64 a = k[e], b = k[f];
+              if ((a > b) == (((pos0 + e) & size) == 0)) {
+                k[e] = b;
+                k[f] = a;
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int NT, int E>
+__device__ __forceinline__ void sort_held(u64* s, int P) {
+  const int pos0 = (int)threadIdx.x * E;
+  const bool holds = pos0 < P;
+  u64 k[E];
+  __syncthreads();                   // the caller's keys are written
+#pragma unroll
+  for (int e = 0; e < E; ++e) k[e] = holds ? s[pos0 + e] : ~0ULL;
+  block_sort_held<NT, E>(s, k, P);
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    if (holds) s[pos0 + e] = k[e];
+  __syncthreads();                   // the sorted keys are readable
+}
+
+// Ascending sort of P (a power of two, P <= 16 NT) keys s[0, P) in
+// shared memory by the block's NT threads, P / NT (at least 1) of them a
+// thread in registers (block_sort_held).
+template <int NT>
+__device__ __forceinline__ void block_sort(u64* s, int P) {
+  switch (P / NT) {                  // keys a thread; uniform in the block
+    case 16: sort_held<NT, 16>(s, P); break;
+    case 8: sort_held<NT, 8>(s, P); break;
+    case 4: sort_held<NT, 4>(s, P); break;
+    case 2: sort_held<NT, 2>(s, P); break;
+    default: sort_held<NT, 1>(s, P); break;
+  }
+}
+
+// Query sort in shared memory: block b codes lane b's Q <= K2_SORT_KEYS
+// queries as (code << 32 | row) keys over its box (box + 9b: lo, hi,
+// inv), sorts P >= Q keys (padding ~0 sorts last) and writes
+// qperm[b*Q + s], the row of sorted rank s.
+__global__ void __launch_bounds__(K2_SORT_THREADS)
+k2_sort_kernel(const float* __restrict__ q, const float* __restrict__ box,
+               int Q, int P, long long* __restrict__ qperm) {
+  extern __shared__ u64 s_keys[];
+  const int b = blockIdx.x;
+  const float* __restrict__ qb = q + 3 * (size_t)b * Q;
+  const float* __restrict__ bx = box + 9 * (size_t)b;
+  for (int k = threadIdx.x; k < P; k += K2_SORT_THREADS)
+    s_keys[k] = k < Q ? ((u64)k2_code(qb + 3 * (size_t)k, bx) << 32) |
+                            (unsigned)k
+                      : ~0ULL;
+  block_sort<K2_SORT_THREADS>(s_keys, P);
+  for (int k = threadIdx.x; k < Q; k += K2_SORT_THREADS)
+    qperm[(size_t)b * Q + k] = (long long)(s_keys[k] & 0xffffffffULL);
+}
+
+// Block box of v (min of v[0..2], max of v[3..5]) with NaN carried, into
+// s_box[6] for every thread.
+template <int NT>
+__device__ __forceinline__ void block_box_nan(float (&v)[6],
+                                              float (*s_warp)[NT / 32],
+                                              float* s_box) {
+#pragma unroll
+  for (int d = 0; d < 6; ++d) {
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[d], off);
+      v[d] = d < 3 ? nan_min(v[d], o) : nan_max(v[d], o);
+    }
+    if ((threadIdx.x & 31) == 0) s_warp[d][threadIdx.x >> 5] = v[d];
+  }
+  __syncthreads();
+  if (threadIdx.x < 6) {
+    const int d = threadIdx.x;
+    float m = s_warp[d][0];
+    for (int w = 1; w < NT / 32; ++w)
+      m = d < 3 ? nan_min(m, s_warp[d][w]) : nan_max(m, s_warp[d][w]);
+    s_box[d] = m;
+  }
+  __syncthreads();
+}
+
+// The codes alone, codes[b*Q + k], for one stable torch.sort of lanes of
+// more than K2_SORT_KEYS queries.
+__global__ void __launch_bounds__(K2_CODE_THREADS)
+k2_codes_kernel(const float* __restrict__ q, const float* __restrict__ box,
+                int lanes, int Q, int* __restrict__ codes) {
+  const size_t k = (size_t)blockIdx.x * K2_CODE_THREADS + threadIdx.x;
+  if (k >= (size_t)lanes * Q) return;
+  codes[k] = (int)k2_code(q + 3 * k, box + 9 * (k / Q));
+}
+
+// Tables: block `tile` = b*nQ + i holds query tile i of lane b (qb rows
+// from flat sorted row first = b*Q + i*qb).  Stage 0 does it all with the
+// row's bounds sorted in shared memory (P >= nR keys); stage 1 stops
+// after writing the unsorted bound keys to lb_keys[tile*nR + j]; stage 2,
+// after a torch.sort of each row of lb_keys, only writes order and lb
+// from them.  rows (lanes only, else null) receives b*Q + row for the
+// unpack of the flat output; the block of tile 0 also sets the item
+// counter keys[lanes*Q].
+__global__ void __launch_bounds__(K2_TABLE_THREADS)
+k2_tables_kernel(const float* __restrict__ q,
+                 const long long* __restrict__ qperm,
+                 const float* __restrict__ tile_lo,
+                 const float* __restrict__ tile_hi, int lanes, int Q,
+                 int qb, int nR, int P, float cutoff2, int stage,
+                 float* __restrict__ q_sorted, int* __restrict__ order,
+                 float* __restrict__ lb, u64* __restrict__ keys,
+                 long long* __restrict__ rows, u64* __restrict__ lb_keys) {
+  extern __shared__ u64 s_keys[];    // P bound keys (stage 0)
+  __shared__ float s_warp[6][K2_TABLE_THREADS / 32];
+  __shared__ float s_box[6];
+  __shared__ int s_cnt;
+  const int t = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int nQ = Q / qb;
+  const int b = tile / nQ;
+  const size_t first = (size_t)b * Q + (size_t)(tile % nQ) * qb;
+  if (stage != 2) {
+    float v[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY,
+                  -INFINITY};
+    for (int s = t; s < qb; s += K2_TABLE_THREADS) {
+      const size_t row = (size_t)b * Q + (size_t)qperm[first + s];
+      const float x = q[3 * row], y = q[3 * row + 1], z = q[3 * row + 2];
+      float* o = q_sorted + 3 * (first + s);
+      o[0] = x;
+      o[1] = y;
+      o[2] = z;
+      keys[first + s] = NN_INIT_KEY;
+      if (rows != nullptr) rows[first + s] = (long long)row;
+      v[0] = nan_min(v[0], x);
+      v[1] = nan_min(v[1], y);
+      v[2] = nan_min(v[2], z);
+      v[3] = nan_max(v[3], x);
+      v[4] = nan_max(v[4], y);
+      v[5] = nan_max(v[5], z);
+    }
+    if (tile == 0 && t == 0) keys[(size_t)lanes * Q] = NN_INIT_KEY;
+    block_box_nan<K2_TABLE_THREADS>(v, s_warp, s_box);
+    const float* __restrict__ tl = tile_lo + 3 * (size_t)b * nR;
+    const float* __restrict__ th = tile_hi + 3 * (size_t)b * nR;
+    const int n = stage == 0 ? P : nR;
+    for (int j = t; j < n; j += K2_TABLE_THREADS) {
+      u64 key = ~0ULL;
+      if (j < nR) {
+        // gap = clamp(max(tile_lo - q_hi, q_lo - tile_hi), 0), and
+        // lb = (gx*gx + gy*gy) + gz*gz, as pruned_tables.
+        float g[3];
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          g[d] = nan_max(nan_max(__fsub_rn(tl[3 * j + d], s_box[3 + d]),
+                                 __fsub_rn(s_box[d], th[3 * j + d])),
+                         0.f);
+        const float l = __fadd_rn(
+            __fadd_rn(__fmul_rn(g[0], g[0]), __fmul_rn(g[1], g[1])),
+            __fmul_rn(g[2], g[2]));
+        // Every NaN one key, so NaN bounds keep their order by j, last.
+        const unsigned bits = l != l ? 0x7fffffffu : __float_as_uint(l);
+        key = ((u64)bits << 32) | (unsigned)j;
+      }
+      if (stage == 0)
+        s_keys[j] = key;
+      else
+        lb_keys[(size_t)tile * nR + j] = key;
+    }
+    if (stage == 1) return;
+    block_sort<K2_TABLE_THREADS>(s_keys, P);
+  }
+  const u64* sorted = stage == 0 ? s_keys : lb_keys + (size_t)tile * nR;
+  if (t == 0) s_cnt = 0;
+  __syncthreads();
+  int kept = 0;                      // sorted ascending: a prefix is kept
+  for (int j = t; j < nR; j += K2_TABLE_THREADS)
+    kept += key_d2(sorted[j]) <= cutoff2;
+  if (kept) atomicAdd(&s_cnt, kept);
+  __syncthreads();
+  const int cnt = s_cnt;
+  const int last = max(cnt - 1, 0);
+  for (int j = t; j < nR; j += K2_TABLE_THREADS) {
+    order[(size_t)tile * nR + j] =
+        (int)(unsigned)(sorted[min(j, last)] & 0xffffffffULL);
+    lb[(size_t)tile * nR + j] = j < cnt ? key_d2(sorted[j]) : INFINITY;
+  }
+}
+
+static int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
 extern "C" {
+
+// K2's query sort in shared memory: q [lanes, Q, 3] with Q <=
+// K2_SORT_KEYS, box [lanes, 3, 3] (lo, hi, inv); qperm [lanes, Q] int64.
+int lsl_k2_sort(const float* q, const float* box, int lanes, int Q,
+                long long* qperm, int device, void* stream) {
+  if (lanes < 1 || Q < 1 || Q > K2_SORT_KEYS)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int P = pow2_at_least(Q);
+  const int smem = P * (int)sizeof(u64);
+  err = cudaFuncSetAttribute(k2_sort_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  k2_sort_kernel<<<lanes, K2_SORT_THREADS, smem, (cudaStream_t)stream>>>(
+      q, box, Q, P, qperm);
+  return (int)cudaGetLastError();
+}
+
+// K2's query codes for torch.sort: codes [lanes, Q] int32.
+int lsl_k2_codes(const float* q, const float* box, int lanes, int Q,
+                 int* codes, int device, void* stream) {
+  if (lanes < 1 || Q < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)lanes * Q;
+  const int blocks = (int)((n + K2_CODE_THREADS - 1) / K2_CODE_THREADS);
+  k2_codes_kernel<<<blocks, K2_CODE_THREADS, 0, (cudaStream_t)stream>>>(
+      q, box, lanes, Q, codes);
+  return (int)cudaGetLastError();
+}
+
+// K2's tables from the sorted rows qperm [lanes, Q] (int64, within the
+// lane): q_sorted [lanes, Q, 3], order and lb [lanes, Q/qb, nR], keys
+// [lanes*Q + 1] set to NN_INIT_KEY, rows [lanes*Q] (or null).  Stage 0:
+// nR <= K2_TABLE_KEYS, all in one launch; stages 1 and 2 around a
+// torch.sort of lb_keys [lanes*Q/qb, nR].
+int lsl_k2_tables(const float* q, const long long* qperm,
+                  const float* tile_lo, const float* tile_hi, int lanes,
+                  int Q, int qb, int nR, float cutoff2, int stage,
+                  float* q_sorted, int* order, float* lb, u64* keys,
+                  long long* rows, u64* lb_keys, int device, void* stream) {
+  if (lanes < 1 || qb < 1 || qb > K2_TABLE_THREADS || Q % qb != 0 ||
+      nR < 1 || stage < 0 || stage > 2 ||
+      (stage == 0 && nR > K2_TABLE_KEYS) ||
+      (stage != 0 && lb_keys == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int P = stage == 0 ? pow2_at_least(nR) : 0;
+  const int smem = P * (int)sizeof(u64);
+  const int blocks = lanes * (Q / qb);
+  k2_tables_kernel<<<blocks, K2_TABLE_THREADS, smem, (cudaStream_t)stream>>>(
+      q, qperm, tile_lo, tile_hi, lanes, Q, qb, nR, P, cutoff2, stage,
+      q_sorted, order, lb, keys, rows, lb_keys);
+  return (int)cudaGetLastError();
+}
 
 // K1 over lanes: q [lanes, Q, 3], ref [lanes, R, 3]; keys: lanes*Q + 1
 // entries filled with NN_INIT_KEY; d2_out, idx_out [lanes, Q].

@@ -1,10 +1,11 @@
 // Pieces shared by the exact-NN kernels of csrc/nn.cu (K1, K2) and
 // csrc/nn_variants.cu (E2/E3's item kernel, E6): coordinate-wise squared
 // distances rounded as the plain torch version, the 64-bit merge keys,
-// cp.async staging into 16-byte shared rows, the scan of a staged span,
-// the publish of a thread's bests, a block maximum and the unpack of the
-// merged keys.  ops/cuda_build.py hashes this header into the library
-// name of every source, so an edit rebuilds both libraries.
+// the spread of a Morton coordinate, cp.async staging into 16-byte
+// shared rows, the scan of a staged span, the publish of a thread's
+// bests, a block maximum and the unpack of the merged keys.
+// ops/cuda_build.py hashes this header into the library name of every
+// source, so an edit rebuilds both libraries.
 
 #pragma once
 
@@ -29,6 +30,17 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
   const float dz = __fsub_rn(qz, rz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
+}
+
+// The low 10 bits of x spread to every third bit: one coordinate of a
+// 30-bit Morton code (K2's set-up, E6's).
+__device__ __forceinline__ unsigned spread_bits10(unsigned x) {
+  x &= 0x3FFu;
+  x = (x | (x << 16)) & 0x30000FFu;
+  x = (x | (x << 8)) & 0x300F00Fu;
+  x = (x | (x << 4)) & 0x30C30C3u;
+  x = (x | (x << 2)) & 0x9249249u;
+  return x;
 }
 
 __device__ __forceinline__ u64 pack_key(float d2, int idx) {

@@ -633,15 +633,6 @@ __device__ __forceinline__ int visit_start(int i, int ni, int nj) {
   return (int)(((long long)i * nj) / ni);
 }
 
-__device__ __forceinline__ unsigned spread_bits10(unsigned x) {
-  x &= 0x3FFu;
-  x = (x | (x << 16)) & 0x30000FFu;
-  x = (x | (x << 8)) & 0x300F00Fu;
-  x = (x | (x << 4)) & 0x30C30C3u;
-  x = (x | (x << 2)) & 0x9249249u;
-  return x;
-}
-
 __device__ __forceinline__ bool unparked(float x, float y, float z) {
   return fabsf(x) < E6_PARKED && fabsf(y) < E6_PARKED && fabsf(z) < E6_PARKED;
 }

@@ -29,12 +29,17 @@ lie on the CPU.  For CUDA tensors it launches its kernel, adds one to its
 coordinate-wise f32 ``(q-r)^2`` in both, never the ``|q|^2 - 2 q.r +
 |r|^2`` expansion, which loses rank order at 50 m scene scale.
 
-The pruning tables (Morton codes, tile AABBs, the [nQ, nR] lower bounds,
-their stable argsort and the aliasing of the pruned suffix) are plain
-torch, as they are plain XLA in the JAX package, with the JAX tile sizes
-and stable sorts so that the sorted-reference index and the visit order
-match it.  They take a leading lane axis as they are: each lane's Morton
-box comes from its own finite points, as under JAX's ``vmap``.
+K2's pruning tables (Morton codes, tile AABBs, the [nQ, nR] lower
+bounds, their stable argsort and the aliasing of the pruned suffix) are
+plain XLA in the JAX package.  Their plain torch version,
+:func:`pruned_tables`, keeps the JAX tile sizes and stable sorts, so
+that the sorted-reference index and the visit order match it, and takes
+a leading lane axis as it is: each lane's Morton box comes from its own
+finite points, as under JAX's ``vmap``.  On the card :func:`pruned_setup`
+builds the same tables, bit for bit, in two hand-written launches
+(``csrc/nn.cu`` ``k2_sort_kernel`` and ``k2_tables_kernel``), from the
+Morton box that :func:`build_pruned_ref` keeps; :func:`pruned_tables_by_
+keys` is that algorithm in plain torch, which the tests hold to both.
 """
 
 from __future__ import annotations
@@ -51,11 +56,24 @@ from laser_slam_tpu_torch.ops.neighbors import (nn_brute, nn_brute_lanes,
 # them: the reference tile is the unit of pruning and of the sorted index.
 _QB = 256
 _RB = 4096
+# K2L's reference tile for lanes of at most _RB points.  At _RB such a
+# lane is one tile, which nothing prunes; 1024-point tiles let K2L skip
+# some (the 256-lane fleet of 4096-point scans on an H100, chip_smoke.py
+# phase 12: 1.76 ms a call against 1.87, 91% of the pairs scanned).  The
+# tile changes neither d2 nor idx: the sorted reference does not depend
+# on it.
+_RB_SMALL_LANES = 1024
 # K1's work item on the card (csrc/nn.cu NN_QT x NN_K1_RT).
 _K1_QT = 256
 _K1_RT = 4096
 # The merge key of (d2 = +inf, idx = 0): (0x7f800000 << 32) | 0.
 _INIT_KEY = 0x7F800000 << 32
+# K2's set-up on the card (csrc/nn.cu): the most queries a lane that one
+# block sorts in shared memory (K2_SORT_KEYS; more take one torch.sort of
+# their codes), and the most bounds a row that one block sorts
+# (K2_TABLE_KEYS; more take one torch.sort of the bound keys).
+_SORT_KEYS = 16384
+_TABLE_KEYS = 4096
 
 
 def _tile(n: int, preferred: int) -> int:
@@ -85,6 +103,13 @@ def _kernels() -> ctypes.CDLL:
         lib.lsl_nn_indices_pruned_lanes.argtypes = [
             p, p, p, p, p, i, i, i, i, i, f, p, p, p, p, i, p]
         lib.lsl_nn_indices_pruned_lanes.restype = i
+        lib.lsl_k2_sort.argtypes = [p, p, i, i, p, i, p]
+        lib.lsl_k2_sort.restype = i
+        lib.lsl_k2_codes.argtypes = [p, p, i, i, p, i, p]
+        lib.lsl_k2_codes.restype = i
+        lib.lsl_k2_tables.argtypes = [p, p, p, p, i, i, i, i, f, i, p, p, p,
+                                      p, p, p, i, p]
+        lib.lsl_k2_tables.restype = i
         _lib = lib
     return _lib
 
@@ -219,10 +244,14 @@ class PrunedRef(NamedTuple):
     perm: torch.Tensor      # [R] i32: sorted row -> original row
     tile_lo: torch.Tensor   # [nR,3] per-tile AABB lower corners
     tile_hi: torch.Tensor   # [nR,3] per-tile AABB upper corners
+    # [3,3] the Morton box of the queries' codes: the finite lower and
+    # upper corners (``_finite_bounds``) and 1 / max(hi - lo, 1e-6).  K2
+    # on the card needs it; a reference made without it runs on the CPU.
+    box: torch.Tensor | None = None
 
     def lane(self, b: int) -> 'PrunedRef':
         """Lane b of a lane-axis reference."""
-        return PrunedRef(*(a[b] for a in self))
+        return PrunedRef(*(None if a is None else a[b] for a in self))
 
 
 def _morton3d(points: torch.Tensor, lo: torch.Tensor,
@@ -257,6 +286,14 @@ def _finite_bounds(points: torch.Tensor):
     return lo, hi
 
 
+def _morton_box(points: torch.Tensor) -> torch.Tensor:
+    """[...,3,3]: the finite box of the points (lo, hi) and its inverse
+    extent, the Morton frame of K2's codes (pallas_nn.py:316-317)."""
+    lo, hi = _finite_bounds(points)
+    inv = 1.0 / torch.clamp(hi - lo, min=1e-6)
+    return torch.stack([lo, hi, inv], dim=-2)
+
+
 def _tile_aabbs(points_sorted: torch.Tensor, tile: int):
     n = points_sorted.shape[-2] // tile
     p = points_sorted.reshape(points_sorted.shape[:-2] + (n, tile, 3))
@@ -276,14 +313,40 @@ def build_pruned_ref(ref_points: torch.Tensor, rb: int | None = None
     and record per-tile AABBs."""
     R = ref_points.shape[-2]
     rb = _tile(R, rb or _RB)
-    lo, hi = _finite_bounds(ref_points)
-    inv = 1.0 / torch.clamp(hi - lo, min=1e-6)
-    code = _morton3d(ref_points, lo[..., None, :], inv[..., None, :])
+    box = _morton_box(ref_points)
+    code = _morton3d(ref_points, box[..., 0:1, :], box[..., 2:3, :])
     perm = torch.argsort(code, dim=-1, stable=True)
     pts = _rows_of(ref_points, perm)
     tlo, thi = _tile_aabbs(pts, rb)
     return PrunedRef(points=pts, perm=perm.to(torch.int32),
-                     tile_lo=tlo, tile_hi=thi)
+                     tile_lo=tlo, tile_hi=thi, box=box)
+
+
+def _tile_bounds(q_sorted: torch.Tensor, pref: PrunedRef, qb: int):
+    """Per-query-tile AABBs -> tile-pair lower bounds [..., nQ, nR],
+    summed in the kernel's order so each bound stays below every pair
+    distance."""
+    q_lo, q_hi = _tile_aabbs(q_sorted, qb)
+    gap = torch.clamp(torch.maximum(
+        pref.tile_lo[..., None, :, :] - q_hi[..., :, None, :],
+        q_lo[..., :, None, :] - pref.tile_hi[..., None, :, :]), min=0.0)
+    return (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) \
+        + gap[..., 2] * gap[..., 2]
+
+
+def _aliased(lb_sorted: torch.Tensor, order: torch.Tensor, cutoff2: float):
+    """The visit order with the suffix past the cutoff aliased to the last
+    useful tile, and the bounds with that suffix +inf."""
+    nR = order.shape[-1]
+    keep = lb_sorted <= cutoff2
+    cnt = torch.sum(keep, dim=-1)
+    jidx = torch.minimum(
+        torch.arange(nR, device=order.device),
+        torch.clamp(cnt - 1, min=0)[..., None])
+    order_aliased = torch.gather(order, -1, jidx).to(torch.int32)
+    lb_eff = torch.where(keep, lb_sorted, torch.full_like(lb_sorted,
+                                                          float('inf')))
+    return order_aliased, lb_eff
 
 
 def pruned_tables(queries: torch.Tensor, pref: PrunedRef, cutoff: float):
@@ -298,7 +361,6 @@ def pruned_tables(queries: torch.Tensor, pref: PrunedRef, cutoff: float):
     R = pref.points.shape[-2]
     qb = _tile(Q, _QB)
     rb = R // pref.tile_lo.shape[-2]
-    nR = R // rb
     cutoff2 = float(cutoff) ** 2
 
     lo, hi = _finite_bounds(pref.points)
@@ -306,27 +368,40 @@ def pruned_tables(queries: torch.Tensor, pref: PrunedRef, cutoff: float):
     qperm = torch.argsort(_morton3d(queries, lo[..., None, :],
                                     inv[..., None, :]), dim=-1, stable=True)
     q_sorted = _rows_of(queries, qperm)
-
-    # Per-query-tile AABBs -> tile-pair lower bounds [nQ, nR], summed in
-    # the kernel's order so each bound stays below every pair distance.
-    q_lo, q_hi = _tile_aabbs(q_sorted, qb)
-    gap = torch.clamp(torch.maximum(
-        pref.tile_lo[..., None, :, :] - q_hi[..., :, None, :],
-        q_lo[..., :, None, :] - pref.tile_hi[..., None, :, :]), min=0.0)
-    lb2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) \
-        + gap[..., 2] * gap[..., 2]
+    lb2 = _tile_bounds(q_sorted, pref, qb)
 
     order = torch.argsort(lb2, dim=-1, stable=True)
     lb_sorted = torch.gather(lb2, -1, order)
-    keep = lb_sorted <= cutoff2
-    cnt = torch.sum(keep, dim=-1)
-    jidx = torch.minimum(
-        torch.arange(nR, device=queries.device),
-        torch.clamp(cnt - 1, min=0)[..., None])
-    order_aliased = torch.gather(order, -1, jidx).to(torch.int32)
-    lb_eff = torch.where(keep, lb_sorted, torch.full_like(lb_sorted,
-                                                          float('inf')))
-    return qperm, q_sorted, order_aliased, lb_eff, qb, rb
+    return (qperm, q_sorted, *_aliased(lb_sorted, order, cutoff2), qb, rb)
+
+
+def pruned_tables_by_keys(queries: torch.Tensor, pref: PrunedRef,
+                          cutoff: float):
+    """:func:`pruned_tables` by the algorithm of the card's set-up
+    (:func:`pruned_setup`), in plain torch: the Morton box kept in
+    ``pref.box``, one sort of packed ``code << 32 | row`` keys (the row
+    breaks ties, so it is the stable argsort), and one sort a row of
+    ``lb bits << 32 | j`` keys (lb >= +0, so its bits order like the
+    float; every NaN one key, last).  Equal to :func:`pruned_tables` bit
+    for bit; the tests hold it so, and no path calls it."""
+    Q = queries.shape[-2]
+    R = pref.points.shape[-2]
+    nR = pref.tile_lo.shape[-2]
+    qb, rb = _tile(Q, _QB), R // nR
+    dev = queries.device
+    code = _morton3d(queries, pref.box[..., 0:1, :], pref.box[..., 2:3, :])
+    keys = torch.sort((code.to(torch.int64) << 32)
+                      | torch.arange(Q, device=dev)).values
+    qperm = keys & 0xFFFFFFFF
+    q_sorted = _rows_of(queries, qperm)
+    lb2 = _tile_bounds(q_sorted, pref, qb)
+    bits = torch.where(torch.isnan(lb2), 0x7FFFFFFF,
+                       lb2.view(torch.int32)).to(torch.int64)
+    lkeys = torch.sort((bits << 32) | torch.arange(nR, device=dev)).values
+    lb_sorted = (lkeys >> 32).to(torch.int32).view(torch.float32)
+    order = lkeys & 0xFFFFFFFF
+    return (qperm, q_sorted,
+            *_aliased(lb_sorted, order, float(cutoff) ** 2), qb, rb)
 
 
 def nn_indices_pruned_plain(queries: torch.Tensor, pref: PrunedRef,
@@ -350,8 +425,8 @@ def nn_indices_pruned(queries: torch.Tensor, pref: PrunedRef,
     idx a point at that d2); for the others d2 > cutoff^2 (the plain
     version reports inf, the kernel inf or the distance to a point of a
     tile it scanned), which ICP discards.  CPU tensors run
-    :func:`nn_indices_pruned_plain`; CUDA tensors build the tables
-    (:func:`pruned_tables`) and launch K2 (:func:`_launch_pruned`).
+    :func:`nn_indices_pruned_plain`; CUDA tensors build the tables on the
+    card (:func:`pruned_setup`) and launch K2 (:func:`_launch_pruned`).
     """
     _check_points('nn_indices_pruned', queries=queries,
                   ref_points=pref.points)
@@ -361,16 +436,86 @@ def nn_indices_pruned(queries: torch.Tensor, pref: PrunedRef,
     if queries.shape[0] == 0:
         return (torch.empty(0, dtype=torch.float32, device=device),
                 torch.empty(0, dtype=torch.int32, device=device))
-    return _launch_pruned(pruned_tables(queries, pref, cutoff), pref,
-                          cutoff)
+    tables, keys, rows = pruned_setup(queries, pref, cutoff)
+    return _launch_pruned(tables, pref, cutoff, keys=keys, rows=rows)
+
+
+def pruned_setup(queries: torch.Tensor, pref: PrunedRef, cutoff: float):
+    """K2's set-up on the card: the tables of :func:`pruned_tables`, bit
+    for bit, by the algorithm of :func:`pruned_tables_by_keys`.
+
+    Queries [Q,3] (or [B,Q,3] against a lane-axis ``pref``), CUDA only.
+    The query sort is ``k2_sort_kernel`` (one block a lane, in shared
+    memory) for at most 16384 queries a lane, else ``k2_codes_kernel``
+    and one stable ``torch.sort`` of the codes: the size picks the route.
+    Then ``k2_tables_kernel`` writes the sorted rows, the order and the
+    bounds, and empties the merge keys; rows of more than 4096 bounds
+    (reference tiles of a few points) are sorted by one ``torch.sort``
+    between two of its launches.  Returns (tables as
+    :func:`pruned_tables`, keys [B*Q + 1] of :data:`_INIT_KEY`, rows: the
+    flat output row of each sorted query over lanes, else None)."""
+    lanes = queries.dim() == 3
+    name = 'nn_indices_pruned_lanes' if lanes else 'nn_indices_pruned'
+    if pref.box is None:
+        raise ValueError(f'{name}: the reference has no Morton box; build '
+                         'it with build_pruned_ref')
+    device = _check_cuda(name, queries, pref.points, pref.tile_lo,
+                         pref.tile_hi, pref.box)
+    B = queries.shape[0] if lanes else 1
+    Q = queries.shape[-2]
+    R = pref.points.shape[-2]
+    nR = pref.tile_lo.shape[-2]
+    qb, rb = _tile(Q, _QB), R // nR
+    nQ = Q // qb
+    lib = _kernels()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lead = queries.shape[:-2]
+    if Q <= _SORT_KEYS:
+        qperm = torch.empty(lead + (Q,), dtype=torch.int64, device=device)
+        _check_launch(name, lib.lsl_k2_sort(
+            queries.data_ptr(), pref.box.data_ptr(), B, Q, qperm.data_ptr(),
+            device.index, stream))
+    else:
+        codes = torch.empty(lead + (Q,), dtype=torch.int32, device=device)
+        _check_launch(name, lib.lsl_k2_codes(
+            queries.data_ptr(), pref.box.data_ptr(), B, Q, codes.data_ptr(),
+            device.index, stream))
+        qperm = torch.sort(codes, dim=-1, stable=True).indices
+    q_sorted = torch.empty_like(queries)
+    order = torch.empty(lead + (nQ, nR), dtype=torch.int32, device=device)
+    lb = torch.empty(lead + (nQ, nR), dtype=torch.float32, device=device)
+    keys = torch.empty(B * Q + 1, dtype=torch.int64, device=device)
+    rows = (torch.empty(B * Q, dtype=torch.int64, device=device) if lanes
+            else None)
+
+    def tables(stage, lb_keys=None):
+        _check_launch(name, lib.lsl_k2_tables(
+            queries.data_ptr(), qperm.data_ptr(), pref.tile_lo.data_ptr(),
+            pref.tile_hi.data_ptr(), B, Q, qb, nR, float(cutoff) ** 2, stage,
+            q_sorted.data_ptr(), order.data_ptr(), lb.data_ptr(),
+            keys.data_ptr(), None if rows is None else rows.data_ptr(),
+            None if lb_keys is None else lb_keys.data_ptr(), device.index,
+            stream))
+
+    if nR <= _TABLE_KEYS:
+        tables(0)
+    else:
+        lb_keys = torch.empty((B * nQ, nR), dtype=torch.int64, device=device)
+        tables(1, lb_keys)
+        tables(2, torch.sort(lb_keys, dim=-1).values)
+    return (qperm, q_sorted, order, lb, qb, rb), keys, rows
 
 
 def _launch_pruned(tables, pref: PrunedRef, cutoff: float,
-                   scanned: torch.Tensor | None = None):
-    """Launch K2 on the tables of :func:`pruned_tables` and unsort its
-    results on the card: (d2 [Q], idx [Q]) in the original query order.
-    Tables with a lane axis (and a lane-axis ``pref``) launch K2L and
-    return [B,Q] results.
+                   scanned: torch.Tensor | None = None,
+                   keys: torch.Tensor | None = None,
+                   rows: torch.Tensor | None = None):
+    """Launch K2 on the tables of :func:`pruned_tables` or
+    :func:`pruned_setup` and unsort its results on the card: (d2 [Q], idx
+    [Q]) in the original query order.  Tables with a lane axis (and a
+    lane-axis ``pref``) launch K2L and return [B,Q] results.  ``keys``
+    and ``rows`` come from :func:`pruned_setup`; without them the merge
+    keys are filled here and the flat rows of lanes computed in torch.
 
     ``scanned``, an int32 tensor of zeros shaped like ``order[..., 0]``,
     receives the number of reference points the kernel scanned for each
@@ -388,10 +533,13 @@ def _launch_pruned(tables, pref: PrunedRef, cutoff: float,
     if scanned is not None and (scanned.dtype != torch.int32
                                 or scanned.shape != order.shape[:-1]):
         raise ValueError(f'{name}: scanned must be int32 {order.shape[:-1]}')
-    keys = _merge_keys(B * Q, device)
+    if keys is None:
+        keys = _merge_keys(B * Q, device)
     d2 = torch.empty(q_sorted.shape[:-1], dtype=torch.float32, device=device)
     idx = torch.empty(q_sorted.shape[:-1], dtype=torch.int32, device=device)
-    if lanes:
+    if rows is not None:
+        qperm = rows
+    elif lanes:
         # Rows of the flat [B*Q] output.
         qperm = (qperm + Q * torch.arange(B, device=device)[:, None]
                  ).contiguous()
@@ -420,8 +568,13 @@ def build_pruned_ref_lanes(ref_points: torch.Tensor,
                            rb: int | None = None) -> PrunedRef:
     """:func:`build_pruned_ref` of each lane of [B,R,3]: every field of the
     :class:`PrunedRef` gets a leading [B] axis, and each lane is sorted
-    over its own Morton box."""
+    over its own Morton box.  Lanes of at most 4096 points, a multiple of
+    1024, take 1024-point reference tiles unless ``rb`` says otherwise
+    (:data:`_RB_SMALL_LANES`)."""
     _check_points('build_pruned_ref_lanes', 3, ref_points=ref_points)
+    R = ref_points.shape[-2]
+    if rb is None and R <= _RB and R % _RB_SMALL_LANES == 0:
+        rb = _RB_SMALL_LANES
     return build_pruned_ref(ref_points, rb)
 
 
@@ -451,7 +604,8 @@ def nn_indices_pruned_lanes(queries: torch.Tensor, pref: PrunedRef,
     Returns (d2 [B,Q], idx [B,Q]) in each lane's original query order; idx
     indexes the lane's SORTED reference (``pref.points[b]``).  CPU tensors
     run :func:`nn_indices_pruned_lanes_plain`; CUDA tensors build the
-    tables of every lane (:func:`pruned_tables_lanes`) and launch K2L.
+    tables of every lane on the card (:func:`pruned_setup`, the same
+    launches for all lanes) and launch K2L.
     """
     _check_points('nn_indices_pruned_lanes', 3, queries=queries,
                   ref_points=pref.points)
@@ -466,8 +620,8 @@ def nn_indices_pruned_lanes(queries: torch.Tensor, pref: PrunedRef,
                             device=device),
                 torch.empty(queries.shape[:2], dtype=torch.int32,
                             device=device))
-    return _launch_pruned(pruned_tables_lanes(queries, pref, cutoff), pref,
-                          cutoff)
+    tables, keys, rows = pruned_setup(queries, pref, cutoff)
+    return _launch_pruned(tables, pref, cutoff, keys=keys, rows=rows)
 
 
 nn_indices_pruned_lanes.launches = 0

@@ -7,7 +7,8 @@ GPU machine (which has no jax), with the repo's conftest left out:
         tests/test_torch_kernels.py
 
 There the ``gpu`` tests build csrc/nn.cu and csrc/nn_variants.cu and
-hold K1, K2, their lane forms K1L and K2L (fleet mode) and the
+hold K1, K2 (its set-up on the card equal to ``pruned_tables``), their
+lane forms K1L and K2L (fleet mode) and the
 shootout's kernels (E1-E6) to their plain versions
 (E1/E4/E5 also at awkward shapes, with copies across tiles, and for their
 work items and launches; E1's set-up bit-equal to its plain version and
@@ -117,6 +118,125 @@ def test_wrappers_refuse_other_devices_and_dtypes():
                         q[:1], q[:1])
     with pytest.raises(ValueError, match='CUDA'):
         nk.nn_indices_pruned(q, pref)
+
+
+def test_k2_setup_refuses_cpu_tensors_and_a_reference_without_its_box():
+    """The card's set-up takes CUDA tensors only (the CPU path is the
+    plain K2, which needs no tables) and a reference that carries its
+    Morton box; the box is kept by build_pruned_ref."""
+    q, ref = scene(2, 512, 100)
+    pref = nk.build_pruned_ref(torch.tensor(ref))
+    assert pref.box.shape == (3, 3)
+    with pytest.raises(ValueError, match='CUDA'):
+        nk.pruned_setup(torch.tensor(q), pref, 3.0)
+    with pytest.raises(ValueError, match='Morton box'):
+        nk.pruned_setup(torch.tensor(q), pref._replace(box=None), 3.0)
+    lanes = nk.build_pruned_ref_lanes(torch.tensor(np.stack([ref, ref])))
+    assert lanes.box.shape == (2, 3, 3)
+    assert torch.equal(lanes.lane(1).box, pref.box)
+
+
+def test_small_lane_references_take_1024_point_tiles():
+    """K2L's reference tile: lanes of at most 4096 points that 1024
+    divides take 1024-point tiles, others the JAX package's tile
+    (``_tile(R, 4096)``), an explicit ``rb`` its own; the sorted
+    reference is the same at every tile."""
+    g = np.random.default_rng(5)
+    for n_ref, tiles in ((4096, 4), (2048, 2), (3001, 1), (8192, 2)):
+        ref = torch.tensor(g.normal(size=(2, n_ref, 3)).astype(np.float32))
+        pref = nk.build_pruned_ref_lanes(ref)
+        assert pref.tile_lo.shape == (2, tiles, 3)
+        wide = nk.build_pruned_ref_lanes(ref, rb=4096)
+        assert torch.equal(pref.points, wide.points)
+        assert torch.equal(pref.perm, wide.perm)
+    assert nk.build_pruned_ref_lanes(ref, rb=512).tile_lo.shape == (2, 16, 3)
+
+
+def _setup_scene(name, device):
+    """Queries, reference (with a lane axis for 'lanes*'), rb, and the
+    most queries a lane sorted in shared memory, for K2's set-up on the
+    card."""
+    g = np.random.default_rng(sorted(SETUP_SCENES).index(name) + 40)
+
+    def pts(*shape, scale=5.0):
+        return (g.normal(size=shape) * scale).astype(np.float32)
+
+    rb, sort_keys = None, nk._SORT_KEYS
+    if name == 'room':
+        q, ref, _ = sh.make_scene(8192, 81920, seed=16)
+    elif name == 'parked':
+        q, ref = pts(3000, 3), pts(20000, 3)
+        q[::5] = 1.0e6
+        ref[::3] = 1.0e6
+    elif name == 'all-parked':
+        q, ref = pts(1000, 3), np.full((3001, 3), 1.0e6, np.float32)
+    elif name == 'q1000':
+        q, ref = pts(1000, 3), pts(3001, 3)
+    elif name == 'prime-q':
+        q, ref = pts(8191, 3), pts(20000, 3)
+    elif name == 'duplicates':
+        q, ref = np.tile(pts(64, 3), (128, 1)), pts(20000, 3)
+    elif name == 'overlapping':
+        q = g.uniform(0.0, 2.0, size=(256, 3)).astype(np.float32)
+        ref = g.uniform(0.0, 2.0, size=(16384, 3)).astype(np.float32)
+        rb = 128
+    elif name == 'q16384':
+        q, ref = pts(16384, 3), pts(20000, 3)
+    elif name == 'q20000':
+        q, ref = pts(20000, 3), pts(20000, 3)
+    elif name == 'sort-route':
+        q, ref, _ = sh.make_scene(8192, 81920, seed=17)
+        sort_keys = 0
+    elif name == 'prime-r':
+        q, ref = pts(1000, 3), pts(4099, 3)
+    elif name == 'lanes':
+        q, ref = pts(3, 2000, 3), pts(3, 5000, 3)
+        ref[1, ::3] = 1.0e6
+        ref[2] = 1.0e6
+    elif name == 'lanes-sort-routes':
+        q, ref = pts(2, 20000, 3), pts(2, 4099, 3)
+    else:
+        raise KeyError(name)
+    return (torch.tensor(q, device=device), torch.tensor(ref, device=device),
+            rb, sort_keys)
+
+
+SETUP_SCENES = ('room', 'parked', 'all-parked', 'q1000', 'prime-q',
+                'duplicates', 'overlapping', 'q16384', 'q20000',
+                'sort-route', 'prime-r', 'lanes', 'lanes-sort-routes')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', SETUP_SCENES)
+def test_k2_setup_equals_pruned_tables_on_card(name, monkeypatch):
+    """K2's set-up on the card (``pruned_setup``: the shared-memory sort or
+    the torch.sort route, bounds sorted in shared memory or by torch.sort
+    for 4099 tiles a row) gives pruned_tables' qperm, q_sorted, order and
+    lb torch.equal, empty merge keys and, over lanes, the flat rows; K2
+    through its wrapper then keeps its contract."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    q, ref, rb, sort_keys = _setup_scene(name, 'cuda')
+    monkeypatch.setattr(nk, '_SORT_KEYS', sort_keys)
+    lanes = q.dim() == 3
+    pref = (nk.build_pruned_ref_lanes if lanes else nk.build_pruned_ref)(
+        ref, rb)
+    tables, keys, rows = nk.pruned_setup(q, pref, 3.0)
+    want = nk.pruned_tables(q, pref, 3.0)
+    assert tables[4:] == want[4:]
+    for a, b in zip(tables[:4], want[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert bool(torch.all(keys == nk._INIT_KEY))
+    if lanes:
+        B, Q = q.shape[:2]
+        assert torch.equal(rows, (want[0] + Q * torch.arange(
+            B, device='cuda')[:, None]).reshape(-1))
+        d2, idx = nk.nn_indices_pruned_lanes(q, pref, 3.0)
+        for b in range(B):
+            _k2_holds(q[b], pref.lane(b), 3.0, d2[b], idx[b])
+    else:
+        assert rows is None
+        _k2_holds(q, pref, 3.0, *nk.nn_indices_pruned(q, pref, 3.0))
 
 
 @pytest.mark.gpu

@@ -372,3 +372,152 @@ def test_k2_schedule_model_matches_pallas_in_any_item_order(rng, scene, rb,
     assert scanned[True, 0] <= scanned[True, n_items]
     if scene == 'ball':
         assert scanned[True, 0] < scanned[True, n_items]
+
+
+# --------------------------------------------------------------------------
+# K2's set-up as the card builds it (nn_kernels.pruned_setup), through its
+# plain twin pruned_tables_by_keys: packed (code << 32 | row) keys for the
+# query sort, (lb bits << 32 | j) keys for each row of bounds.
+# --------------------------------------------------------------------------
+
+def _setup_scene(name):
+    """(queries, reference, rb, cutoff) of each set-up scene, from a seed
+    of its own."""
+    rng = np.random.default_rng(sorted(SETUP_SCENES).index(name) + 160)
+    if name == 'random':
+        q, ref = random_scene(rng, 4096, 512)
+        return q, ref, 512, 1.0
+    if name == 'clustered':
+        return (*clustered_scene(rng), 256, 3.0)
+    if name == 'parked':
+        q, ref = parked_scene(rng)
+        return q, ref, 32, 3.0
+    if name == 'all-parked':
+        q = random_scene(rng, 1, 300)[0]
+        return q, np.full((256, 3), jpc.SENTINEL, np.float32), 32, 3.0
+    if name == 'duplicates':
+        # 16 distinct points 32 times each: their Morton codes tie, and the
+        # row decides.
+        q = np.tile(random_scene(rng, 1, 16)[0], (32, 1))
+        return q, random_scene(rng, 2048, 1)[1], 256, 3.0
+    if name == 'overlapping':
+        # One query tile spread over the whole cube overlaps each of the
+        # 16 reference tiles in it: every bound is 0 and ties, and j
+        # decides.
+        ref = rng.uniform(0.0, 2.0, size=(2048, 3)).astype(np.float32)
+        q = rng.uniform(0.0, 2.0, size=(256, 3)).astype(np.float32)
+        return q, ref, 128, 1.0
+    if name == 'q1000':                   # qb 250
+        q, ref = random_scene(rng, 3001, 1000)
+        return q, ref, None, 3.0
+    if name == 'prime-q':                 # 509 queries: qb 1
+        q, ref = random_scene(rng, 2048, 509)
+        return q, ref, 256, 3.0
+    raise KeyError(name)
+
+
+SETUP_SCENES = ('random', 'clustered', 'parked', 'all-parked', 'duplicates',
+                'overlapping', 'q1000', 'prime-q')
+
+
+@pytest.fixture(scope='module')
+def setup_runs():
+    """Each set-up scene's inputs, references and JAX tables, made once
+    for the module (the JAX tables compile their ops per shape)."""
+    runs = {}
+    for name in SETUP_SCENES:
+        q, ref, rb, cutoff = _setup_scene(name)
+        jpref = pallas_nn.build_pruned_ref(jnp.asarray(ref), rb=rb)
+        runs[name] = (q, ref, rb, cutoff, jax_tables(q, jpref, cutoff))
+    return runs
+
+
+@pytest.mark.parametrize('name', SETUP_SCENES)
+def test_pruned_tables_by_keys_equal_pruned_tables_and_jax(setup_runs, name):
+    """The card's set-up algorithm in plain torch gives pruned_tables'
+    tables bit for bit, and JAX's (pallas_nn.py:313-340): the packed
+    query keys sort as the stable argsort of the codes, the packed bound
+    keys as the stable argsort of each row, NaN-free bounds >= +0 order
+    by their bits."""
+    q, ref, rb, cutoff, (jq, jorder, jlb, jqb, jrb) = setup_runs[name]
+    tpref = nk.build_pruned_ref(torch.tensor(ref), rb=rb)
+    want = nk.pruned_tables(torch.tensor(q), tpref, cutoff)
+    got = nk.pruned_tables_by_keys(torch.tensor(q), tpref, cutoff)
+    assert got[4:] == want[4:] == (jqb, jrb)
+    for a, b in zip(got[:4], want[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    np.testing.assert_array_equal(got[0].numpy(), jq)
+    np.testing.assert_array_equal(got[2].numpy(), jorder)
+    np.testing.assert_array_equal(got[3].numpy(), jlb)
+    if name == 'duplicates':              # ties: rows in their own order
+        codes = nk._morton3d(torch.tensor(q), tpref.box[0:1],
+                             tpref.box[2:3])[got[0]]
+        rows = got[0]
+        tie = codes[1:] == codes[:-1]
+        assert bool(tie.any()) and bool(torch.all(rows[1:][tie]
+                                                  > rows[:-1][tie]))
+    if name == 'overlapping':             # lb 0 ties: tiles in their order
+        assert bool(torch.all(got[3] == 0.0))
+        assert torch.equal(got[2], torch.arange(got[2].shape[1],
+                                                dtype=torch.int32)
+                           .expand_as(got[2]))
+
+
+def test_pruned_tables_by_keys_over_lanes_equal_each_lane(rng):
+    """Three lanes (one with parked rows, one all parked) in one call of
+    the twin: each lane's tables equal pruned_tables of that lane alone
+    and JAX's."""
+    q = (rng.normal(size=(3, 500, 3)) * 5).astype(np.float32)
+    ref = (rng.normal(size=(3, 2048, 3)) * 5).astype(np.float32)
+    ref[1, ::3] = jpc.SENTINEL
+    ref[2] = jpc.SENTINEL
+    pref = nk.build_pruned_ref_lanes(torch.tensor(ref), rb=256)
+    got = nk.pruned_tables_by_keys(torch.tensor(q), pref, 2.0)
+    for a, b in zip(got[:4], nk.pruned_tables_lanes(torch.tensor(q), pref,
+                                                    2.0)[:4]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for b in range(3):
+        one = nk.pruned_tables(torch.tensor(q[b]), pref.lane(b), 2.0)
+        for x, y in zip(got[:4], one[:4]):
+            assert torch.equal(x[b], y)
+        jq, jorder, jlb, _, _ = jax_tables(
+            q[b], pallas_nn.build_pruned_ref(jnp.asarray(ref[b]), rb=256),
+            2.0)
+        np.testing.assert_array_equal(got[0][b].numpy(), jq)
+        np.testing.assert_array_equal(got[2][b].numpy(), jorder)
+        np.testing.assert_array_equal(got[3][b].numpy(), jlb)
+
+
+@pytest.mark.parametrize('lanes', [None, 3])
+def test_build_pruned_ref_keeps_its_morton_box(rng, lanes):
+    """The box build_pruned_ref keeps equals _finite_bounds of its sorted
+    points, and JAX's, bit for bit (the unit box where a lane is all
+    parked); a lane slice and a reference rebuilt from its fields carry
+    it."""
+    shape = (2048, 3) if lanes is None else (lanes, 2048, 3)
+    ref = (rng.normal(size=shape) * 5).astype(np.float32)
+    if lanes:
+        ref[1, ::3] = jpc.SENTINEL
+        ref[2] = jpc.SENTINEL
+    pref = (nk.build_pruned_ref(torch.tensor(ref), rb=256) if lanes is None
+            else nk.build_pruned_ref_lanes(torch.tensor(ref), rb=256))
+    lo, hi = nk._finite_bounds(pref.points)
+    inv = 1.0 / torch.clamp(hi - lo, min=1e-6)
+    for got, want in ((pref.box[..., 0, :], lo), (pref.box[..., 1, :], hi),
+                      (pref.box[..., 2, :], inv)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for b in range(lanes or 1):
+        one = pref if lanes is None else pref.lane(b)
+        jlo, jhi = pallas_nn._finite_bounds(jnp.asarray(one.points.numpy()))
+        np.testing.assert_array_equal(one.box[0].numpy(), np.asarray(jlo))
+        np.testing.assert_array_equal(one.box[1].numpy(), np.asarray(jhi))
+        if lanes:
+            alone = nk.build_pruned_ref(torch.tensor(ref[b]), rb=256)
+            assert torch.equal(one.box, alone.box)
+    if lanes:
+        np.testing.assert_array_equal(pref.box[2, 0].numpy(), np.zeros(3))
+        np.testing.assert_array_equal(pref.box[2, 1].numpy(), np.ones(3))
+    again = nk.PrunedRef(*pref)
+    assert torch.equal(again.box, pref.box)
+    assert torch.equal(again._replace(points=pref.points.clone()).box,
+                       pref.box)
