@@ -278,14 +278,52 @@ result line):
    larger.  (c) With more than one card visible, (a) and (b) again with
    the shards on distinct cards.  Synchronized ms a call beside the
    card's name and power limit; the numbers go on a ``sharding`` line.
+16. The delta closure solve and the cached covariances (slice 10: the
+   ``closure_solve='delta'`` branch, ``solver.solve_closure_cached``,
+   ``solver.marginal_covariance_cached`` and the runner's covariance
+   routes).  No hand-written kernel (the JAX package computes it outside
+   Pallas).  (a) bench.py's 10,000-pose graph (bench.py:476-531: a chain
+   of 1 m steps, a 100 m closure every 500 keys, 5 cm of jitter, seed
+   16) solved warm (2 GN x 16 PCG, Woodbury), its Woodbury cache built
+   there, then the realistic closure (4000, 4100) (100 m lever, 3 cm;
+   bench.py:532-540) by ``solve_closure_cached`` and by ``extend_cache``
+   + ``solve_cached`` from the same poses and base cache, at bench.py's
+   incremental config (1 GN, 12 PCG, tolerance 1e-4): synchronized ms a
+   call (mean of 5 after a warm-up, each on its own clone of the
+   cache), device launches and device ms of one call
+   (``torch.profiler``), the error before and after; both errors must
+   fall and the two solves' positions lie within 5 mm
+   (tests/test_solver_cache.py:389).  Then the stress closure (1234,
+   8765) (7.5 km lever, 5 cm; bench.py:541-548) by the delta solve on
+   its result: finite, and accepted with a lower fresh gradient norm or
+   returned unchanged.  (b) bench.py's 8 covariance keys
+   (bench.py:678-679) on the closure's graph at the warm poses: the
+   cached route (the base cache extended by the closure there), the
+   one-shot probes and the exact float64 path, ms a call and a key
+   (probes at 12 PCG and at 128 PCG / tolerance 1e-9, exact once); each
+   route's gap to the exact values, and the cached route held to the
+   one-shot within rtol 1e-3 / atol 1e-5 (tests/test_solver_cache.py:
+   262) on the keys inside the f32 probes' accuracy envelope (one-shot
+   within rtol 2e-3 of exact): on this single-anchor chain the weak
+   modes saturate both routes elsewhere.  (c) Phase 9a's 16k stream per
+   scan with ``closure_solve='delta'`` beside ``'full'``: detections,
+   rejections, the error under phase 9a's limits (the delta run's mean
+   at most 1 cm above the full run's), the ``online.lc_solve_dispatch``
+   totals, and one closure by each solve on clones of the delta runner
+   (synchronized ms, device launches and ms); then the runner's
+   covariance route for a key below its cache's build count (cached)
+   and for its last key (the one-shot probes), and, with a cache built
+   at the runner's state, the two routes on 8 keys within rtol 1e-3 /
+   atol 1e-5 of each other.  The numbers go on a ``delta`` line.
 
 The kernel counters are reset right before phase 5 (K2), phase 6 (K1),
 the shootout run of phase 7, the production, flagship and multi-robot
 runs of phases 8-10, the host-API lap and closure of phase 11, the
 fleet and map runs of phase 12 (K1L, K2L), the KITTI example's K2
 leg of phase 13, the synthetic demo's K2 run and the K1 roofline of
-phase 14, each sharded fleet step of phase 15 (K1L, K2L), the
-main-path runs, and read right after; launches
+phase 14, each sharded fleet step of phase 15 (K1L, K2L), phase 16
+(where K1 and K2 must not launch), the main-path runs, and read right
+after; launches
 made to compare a kernel with its plain version are not counted.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the
@@ -430,6 +468,18 @@ SERVE_TRUTH_M = 0.10
 # single-device solves that sum in other orders, whichever is larger.
 SHARD_DP, SHARD_SP = 4, 2
 SOLVE_POSES, SOLVE_ATOL = 10_000, 2e-5
+# Phase 16, the delta closure solve and the cached covariances: bench.py's
+# 10,000-pose graph (bench.py:476-531, a closure every 500 keys, 5 cm of
+# jitter, seed 16 here) with its realistic closure (100 m lever, 3 cm) and
+# its stress factor (7.5 km lever, 5 cm) (bench.py:532-548); the delta
+# solve within 5 mm of the full cached solve (tests/test_solver_cache.py:
+# 389); its 8 covariance keys (bench.py:678-679), the cached route within
+# rtol 1e-3 / atol 1e-5 of the one-shot probes (tests/test_solver_cache.
+# py:262) at the JAX test's budget (128 PCG, tolerance 1e-9).
+DELTA_LC_EVERY, DELTA_REPS, DELTA_GAP_M = 500, 5, 5e-3
+DELTA_RC, DELTA_STRESS = (4000, 4100), (1234, 8765)
+DELTA_COV_PCG, DELTA_COV_TOL = 128, 1e-9
+DELTA_COV_RTOL, DELTA_COV_ATOL = 1e-3, 1e-5
 # Phase 13, the data path: the first 48 frames of phase 9b's stream as a
 # KITTI sequence through the KITTI example at the full width of an HDL-64
 # scan (8 warm-up scans), 16 of them with K2; the bag example's defaults.
@@ -966,14 +1016,14 @@ def detection_alignment(state, key_a, key_b, yaw):
     return se3.compose(pair[0], se3.compose(rz, se3.inverse(pair[1])))
 
 
-def flagship_run(cfg, frames, pr, chunk=None):
-    """A fresh flagship runner on the card over ``frames`` (xyz), per
+def flagship_run(cfg, frames, pr, chunk=None, dev='cuda'):
+    """A fresh flagship runner on ``dev`` over ``frames`` (xyz), per
     scan or in chunks, flushed at the end.  Returns (runner, [n,7]
     trajectory in frame order, wall seconds)."""
     from laser_slam_tpu_torch.config import FLAGSHIP_RUNNER
     from laser_slam_tpu_torch.pipeline import online
     kw = dict(FLAGSHIP_RUNNER)
-    runner = online.OnlineRunner(cfg, place_recognition=pr, device='cuda',
+    runner = online.OnlineRunner(cfg, place_recognition=pr, device=dev,
                                  **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2400,6 +2450,384 @@ def sharding_phase(nk, smi):
     return launches, out
 
 
+def delta_graph(n_poses, lc_every, dev):
+    """bench.py:476-531's graph on ``dev``: a chain of ``n_poses`` 1 m
+    steps along x anchored at key 0, a 100 m closure (i, i + 100) every
+    ``lc_every`` keys, initial poses jittered by 5 cm (seed 16).  Returns
+    (HostGraph, poses [cap,7], mask [cap]) on ``dev``."""
+    from laser_slam_tpu_torch.graph import factors as fg
+    cap = 1 << max(10, (2 * n_poses - 1).bit_length() - 1)
+    g = fg.HostGraph(rel_capacity=cap, prior_capacity=16)
+    poses = np.zeros((cap, 7), np.float32)
+    poses[:, 0] = 1.0
+    poses[:n_poses, 4] = np.arange(n_poses, dtype=np.float32)
+    g.add_prior(0, poses[0], np.full(6, 1e-7, np.float32))
+    sig = np.full(6, 0.01, np.float32)
+    for i in range(n_poses - 1):
+        g.add_relative(i, i + 1, np.array([1, 0, 0, 0, 1, 0, 0], np.float32),
+                       sig)
+    for i in range(0, n_poses - 100, lc_every):
+        g.add_relative(i, i + 100,
+                       np.array([1, 0, 0, 0, 100, 0, 0], np.float32), sig)
+    poses[:n_poses, 4:] += np.random.default_rng(16).normal(
+        size=(n_poses, 3)).astype(np.float32) * 0.05
+    mask = np.zeros((cap,), bool)
+    mask[:n_poses] = True
+    return g, torch.tensor(poses, device=dev), torch.tensor(mask, device=dev)
+
+
+def add_lever(g, key_a, key_b, lateral_m):
+    """A closure (key_a, key_b) along x with ``lateral_m`` of correction
+    in y (bench.py:536-548).  Returns its factor index."""
+    return g.add_relative(key_a, key_b, np.array(
+        [1, 0, 0, 0, key_b - key_a, lateral_m, 0], np.float32),
+        np.full(6, 0.01, np.float32))
+
+
+def sync_calls_ms(calls):
+    """``sync_ms`` over distinct calls: the mean wall ms of each
+    synchronized call but the first, a warm-up (a closure solve writes
+    its cache in place, so each call takes its own clone)."""
+    calls[0]()
+    torch.cuda.synchronize()
+    spent = []
+    for call in calls[1:]:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+    return 1e3 * float(np.mean(spent))
+
+
+def device_profile(call):
+    """(device launches, device ms) of one call, by ``torch.profiler``."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows) / 1e3)
+
+
+def delta_phase(nk, smi, flag_frames=None, dev='cuda', n_poses=SOLVE_POSES,
+                lc_every=DELTA_LC_EVERY, rc=DELTA_RC, stress=DELTA_STRESS):
+    """Phase 16: the delta closure solve (``closure_solve='delta'``,
+    ``solver.solve_closure_cached``) and the covariances from the Woodbury
+    cache (``solver.marginal_covariance_cached``, the runner's cached
+    route).  (a) the solver at ``n_poses``, (b) covariances there, (c) the
+    flagship with ``closure_solve='delta'`` beside ``'full'`` on
+    ``flag_frames`` (left out when None).  Smaller sizes and ``dev='cpu'``
+    serve a dry run (with ``torch.cuda.synchronize`` made a no-op).
+    Returns the phase's numbers."""
+    from laser_slam_tpu_torch.config import SolverConfig
+    from laser_slam_tpu_torch.graph import solver as sv
+    t_phase = time.perf_counter()
+    out = dict(card=smi)
+    nk.nn_indices.launches = 0
+    nk.nn_indices_pruned.launches = 0
+
+    # (a) The solver.  The warm state: bench.py's 2 GN x 16 PCG Woodbury
+    # solve from the jittered poses; the base cache is built there.
+    g, P, M = delta_graph(n_poses, lc_every, dev)
+    base_graph = g.to_device(device=dev)
+    scfg = SolverConfig(gn_iterations=2, pcg_iterations=16,
+                        pcg_tolerance=1e-4, preconditioner='woodbury')
+    # bench.py:553-555's incremental config; no error passes in the
+    # timed calls (flagship_config's compute_errors=False).
+    inc = SolverConfig(gn_iterations=1, gn_tolerance=1e-4, pcg_iterations=12,
+                       pcg_tolerance=1e-4, preconditioner='woodbury',
+                       compute_errors=False)
+    warm = sv.solve(base_graph, P, M, scfg,
+                    offchain=g.offchain_count()).poses
+    base = sv.build_cache(base_graph, warm, M, inc)
+    rc_idx = add_lever(g, *rc, 0.03)
+    rc_graph = g.to_device(device=dev)
+    rc_off = g.offchain_count()
+    fidx = torch.tensor(rc_idx, device=dev)
+
+    def delta_call(cache):
+        return sv.solve_closure_cached(rc_graph, warm, M, cache, fidx, inc)
+
+    def full_call(cache):
+        cache = sv.extend_cache(rc_graph, warm, M, cache, fidx, inc)
+        return cache, sv.solve_cached(rc_graph, warm, M, cache, inc,
+                                      offchain=rc_off)
+
+    e_in = float(sv.graph_error(rc_graph, warm))
+    solves = {}
+    for label, call in (('delta', delta_call), ('full', full_call)):
+        cache, res = call(sv.clone_cache(base))
+        ms = sync_calls_ms([lambda c=sv.clone_cache(base): call(c)
+                            for _ in range(DELTA_REPS + 1)])
+        launches, dev_ms = device_profile(
+            lambda c=sv.clone_cache(base): call(c))
+        solves[label] = dict(
+            cache=cache, poses=res.poses, ms=ms, launches=launches,
+            device_ms=dev_ms, error=float(sv.graph_error(rc_graph,
+                                                         res.poses)),
+            steps=int(res.pcg_iterations))
+    gap = float(torch.linalg.norm(
+        (solves['delta']['poses'] - solves['full']['poses'])[:n_poses, 4:],
+        dim=1).max())
+    for label, steps in (('delta', 'refinements'),
+                         ('full', 'PCG iterations')):
+        r = solves[label]
+        log(f'phase 16 (a) {label}: {r["ms"]:.3f} ms a call (synchronized, '
+            f'mean of {DELTA_REPS}; {smi}), {r["launches"]} device launches, '
+            f'{r["device_ms"]} device ms (profiler); error {e_in:.6g} -> '
+            f'{r["error"]:.6g} ({steps} {r["steps"]})')
+    log(f'  {n_poses} poses, closure {rc} (100 m lever, 3 cm): the delta '
+        f'solve {gap:.3e} m from the full cached solve (limit '
+        f'{DELTA_GAP_M} m)')
+    for label in ('delta', 'full'):
+        if not solves[label]['error'] < e_in:
+            raise AssertionError(f'phase 16 (a) {label}: the error did not '
+                                 'fall')
+    if not gap <= DELTA_GAP_M:
+        raise AssertionError(f'phase 16 (a): delta {gap} m from full')
+    out['solver'] = dict(
+        poses=n_poses, error_in=e_in, gap_m=gap,
+        **{f'{k}_{f}': solves[k][f] for k in ('delta', 'full')
+           for f in ('ms', 'launches', 'device_ms', 'error')})
+
+    # The stress factor on top, from the delta solve's poses and cache:
+    # a finite result, accepted with a lower fresh gradient norm or
+    # equal to its input (the guard's no-op), never diverged.
+    st_idx = add_lever(g, *stress, 0.05)
+    st_graph = g.to_device(device=dev)
+    p_in = solves['delta']['poses']
+
+    def grad_norm(p):
+        return float(torch.linalg.norm(sv._gradient(sv._linearize(
+            st_graph, p, M, inc.cauchy_k))))
+
+    _, st = sv.solve_closure_cached(st_graph, p_in, M,
+                                    sv.clone_cache(solves['delta']['cache']),
+                                    torch.tensor(st_idx, device=dev), inc)
+    g0, g1 = grad_norm(p_in), grad_norm(st.poses)
+    unchanged = bool(torch.equal(st.poses, p_in))
+    moved = float(torch.linalg.norm((st.poses - p_in)[:n_poses, 4:],
+                                    dim=1).max())
+    log(f'  stress closure {stress} (a {stress[1] - stress[0]} m lever, '
+        f'5 cm): gradient norm {g0:.6g} -> {g1:.6g}, '
+        f'{"input returned" if unchanged else "step accepted"}, poses moved '
+        f'{moved:.3e} m at most')
+    if not (bool(torch.all(torch.isfinite(st.poses)))
+            and (unchanged or g1 <= g0)):
+        raise AssertionError('phase 16 (a): the stress closure diverged')
+    out['stress'] = dict(grad_norm_in=g0, grad_norm_out=g1,
+                         unchanged=unchanged, moved_m=moved)
+
+    # (b) Covariances on the closure graph at the warm poses: the cached
+    # route on the base cache extended by the closure at those poses
+    # (the graph as absorbed is the queried one), the one-shot probes
+    # and the exact float64 path, each on bench.py's 8 keys.
+    keys = torch.tensor([0, n_poses // 8, n_poses // 4, n_poses // 2,
+                         stress[0], stress[1], n_poses - 100, n_poses - 1],
+                        device=dev)
+    K = keys.shape[0]
+    ext = solves['full']['cache']
+    tight = dataclasses.replace(inc, pcg_iterations=DELTA_COV_PCG,
+                                pcg_tolerance=DELTA_COV_TOL)
+    routes = dict(
+        cached=lambda c: sv.marginal_covariance_cached(
+            rc_graph, warm, M, keys, ext, c),
+        oneshot=lambda c: sv.marginal_covariance(
+            rc_graph, warm, M, keys, c, offchain=rc_off))
+    covs = {}
+    for label, fn in routes.items():
+        covs[label] = fn(tight).double().cpu().numpy()
+        ms = sync_ms(lambda: fn(inc), DELTA_REPS)
+        ms_tight = sync_ms(lambda: fn(tight), 2)
+        out[f'cov_{label}_ms'] = ms
+        out[f'cov_{label}_tight_ms'] = ms_tight
+        log(f'phase 16 (b) {label}: {ms:.3f} ms a call, {ms / K:.3f} ms a '
+            f'key at 12 PCG (bench.py\'s config); {ms_tight:.3f} ms, '
+            f'{ms_tight / K:.3f} a key at {DELTA_COV_PCG} ({smi})')
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    exact = sv.marginal_covariance_exact(rc_graph, warm, M, keys.cpu(), inc,
+                                         n_used=n_poses)
+    e_ms = 1e3 * (time.perf_counter() - t0)
+    out['cov_exact_ms'] = e_ms
+    log(f'phase 16 (b) exact: {e_ms:.3f} ms a call, {e_ms / K:.3f} ms a key '
+        f'(one call; [6n,6n] float64 at n = {n_poses})')
+    agree = cov_agreement(covs['cached'], covs['oneshot'], exact)
+    log(f'  cached vs one-shot at {DELTA_COV_PCG} PCG, per key: {agree}')
+    out['cov_agreement'] = agree
+    # JAX's rtol holds where the f32 probes are accurate: on this
+    # single-anchor chain the weak modes saturate both routes (the JAX
+    # package's accuracy envelope, laser_slam_tpu/graph/solver.py:1385),
+    # and (c) holds the routes on the flagship's graph.
+    check_cov_agreement('phase 16 (b)', agree, covs, inside_only=True)
+
+    if flag_frames is not None:
+        out['flagship'] = delta_flagship(flag_frames, smi, dev)
+    launched = nk.nn_indices.launches + nk.nn_indices_pruned.launches
+    if launched:
+        raise AssertionError(f'phase 16: K1/K2 launched {launched} times')
+    out['seconds'] = time.perf_counter() - t_phase
+    log(f'phase 16 took {out["seconds"]:.1f} s')
+    return out
+
+
+def cov_agreement(cached, oneshot, exact):
+    """Per key: the cached route's largest excess over the one-shot
+    probes beyond DELTA_COV_RTOL / DELTA_COV_ATOL (<= 0 where they agree,
+    tests/test_solver_cache.py:262), each route's largest gap to the
+    exact float64 covariance over the key's largest exact entry, and
+    whether the key lies inside the f32 probes' accuracy envelope: the
+    one-shot probes within rtol 2e-3 / atol 1e-5 of the exact values
+    (tests/test_solver_cache.py:484)."""
+    def scaled(v):
+        return (np.abs(v - exact).max(axis=(1, 2))
+                / np.maximum(np.abs(exact).max(axis=(1, 2)), 1e-30))
+    excess = (np.abs(cached - oneshot) - DELTA_COV_ATOL
+              - DELTA_COV_RTOL * np.abs(oneshot)).max(axis=(1, 2))
+    inside = np.all(np.abs(oneshot - exact)
+                    <= 1e-5 + 2e-3 * np.abs(exact), axis=(1, 2))
+    return dict(excess=excess.tolist(), cached_to_exact=scaled(cached)
+                .tolist(), oneshot_to_exact=scaled(oneshot).tolist(),
+                inside=inside.tolist())
+
+
+def check_cov_agreement(label, agree, covs, inside_only):
+    """Fail unless every covariance is finite and the cached route agrees
+    with the one-shot probes on every key (``inside_only``: on the keys
+    inside the probes' accuracy envelope)."""
+    if not all(np.all(np.isfinite(v)) for v in covs.values()):
+        raise AssertionError(f'{label}: non-finite covariance')
+    bad = [i for i, (x, inside) in enumerate(zip(agree['excess'],
+                                                 agree['inside']))
+           if x > 0 and (inside or not inside_only)]
+    if bad:
+        raise AssertionError(f'{label}: the cached covariances of keys at '
+                             f'{bad} are not the one-shot ones')
+
+
+def delta_flagship(frames, smi, dev='cuda'):
+    """Phase 16 (c): phase 9a's 16k stream per scan with
+    ``closure_solve='delta'`` beside ``'full'``, the benchmarker on:
+    detections, rejections, the error to ground truth under phase 9a's
+    limits (the delta run's mean at most 1 cm above the full run's), the
+    ``online.lc_solve_dispatch`` totals, and one closure on clones of the
+    delta runner's state, synchronized, by each solve; then the runner's
+    covariance routes for a key below and above its cache's build."""
+    from laser_slam_tpu_torch.config import (flagship_config,
+                                             flagship_place_recognition)
+    from laser_slam_tpu_torch.core import benchmarker as bench
+    from laser_slam_tpu_torch.graph import solver as sv
+    from laser_slam_tpu_torch.pipeline import online
+    lap = len(frames) // 2
+    gt = np.stack([f.gt_pose7 for f in frames])
+    pr = flagship_place_recognition()
+    full_cfg = flagship_config(16384, 16384, 512, 256)
+    runs, out = {}, {}
+    for label in ('full', 'delta'):
+        cfg = dataclasses.replace(full_cfg, solver=dataclasses.replace(
+            full_cfg.solver, closure_solve=label))
+        bench.enable()
+        bench.reset_topic()
+        runner, est, wall = flagship_run(cfg, frames, pr, dev=dev)
+        stats = bench.statistics()
+        bench.disable()
+        err = np.linalg.norm(est[:, 4:] - gt[:, 4:], axis=1)
+        mean, _, count = stats.get('online.lc_solve_dispatch', (0.0, 0.0, 0))
+        runs[label] = (runner, cfg, err)
+        out[label] = dict(
+            detections=[d[:2] for d in runner.detections],
+            rejected=[d[:2] for d in runner.rejected_detections],
+            err_mean_m=float(err.mean()), err_max_m=float(err.max()),
+            err_final_m=float(err[-1]), wall_s=wall,
+            lc_solve_dispatch_ms_total=mean * count,
+            lc_solve_dispatch_count=count)
+        log(f'phase 16 (c) {label}: {wall:.2f} s, detections '
+            f'{out[label]["detections"]}, rejected {out[label]["rejected"]}; '
+            f'error mean {err.mean():.6f} m, max {err.max():.6f}, final '
+            f'{err[-1]:.6f}; online.lc_solve_dispatch {mean * count:.3f} ms '
+            f'over {count} closures')
+    runner, cfg, err = runs['delta']
+    if not runner.detections:
+        raise AssertionError('phase 16 (c): no accepted detection')
+    for key_a, key_b, _, yaw in runner.detections:
+        if abs((key_b - key_a) - lap) > 3 or abs(yaw) >= 0.5:
+            raise AssertionError(f'phase 16 (c): detection {key_a}, {key_b}'
+                                 f', yaw {yaw}')
+    full_err = runs['full'][2]
+    if not (err.max() < 0.35 and err[-1] < 0.15
+            and err.mean() <= full_err.mean() + 0.01):
+        raise AssertionError(f'phase 16 (c): delta error mean {err.mean()}, '
+                             f'max {err.max()}, final {err[-1]} (full mean '
+                             f'{full_err.mean()})')
+
+    # One closure by each solve on clones of the delta runner's state
+    # and cache: the last detection again, its refined measurement once.
+    key_a, key_b, _, yaw = runner.detections[-1]
+    w_T = detection_alignment(runner.state, key_a, key_b, yaw).to(dev)
+    meas, _ = online._refine_lc_meas(runner.state, runner.archive, key_a,
+                                     key_b, w_T, cfg)
+    for label in runs:
+        c = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, closure_solve=label))
+
+        def closure(c=c):
+            return online._append_lc_and_solve_cached(
+                clone_state(runner.state), sv.clone_cache(
+                    runner._solver_cache), key_a, key_b, meas, c, -1, False,
+                offchain=runner._n_offchain_host + 1)
+        ms = sync_ms(closure, 3)
+        launches, dev_ms = device_profile(closure)
+        out[label].update(closure_ms=ms, closure_launches=launches,
+                          closure_device_ms=dev_ms)
+        log(f'  one closure ({key_a}, {key_b}) by {label}: {ms:.3f} ms '
+            f'(synchronized, mean of 3; {smi}), {launches} device launches, '
+            f'{dev_ms} device ms')
+
+    # The runner's covariance routes around its cache's build.
+    built = runner._cache_pose_count
+    below, above = built // 2, len(runner.key_info) - 1
+    routes = {}
+    for key in (below, above):
+        cov = runner.marginal_covariances([key])
+        routes[key] = runner.covariance_route
+        if not np.all(np.isfinite(cov)):
+            raise AssertionError('phase 16 (c): non-finite covariance')
+    log(f'  covariances: the cache was built at {built} keys; key {below} '
+        f'took {routes[below]!r}, key {above} took {routes[above]!r}')
+    if routes != {below: 'cached', above: 'probes'}:
+        raise AssertionError(f'phase 16 (c): covariance routes {routes}')
+    out['covariance_routes'] = {str(k): v for k, v in routes.items()}
+    out['cache_pose_count'] = built
+
+    # The routes' agreement on this graph, with a cache built at the
+    # runner's current state (tests/test_online.py:738-745), at the JAX
+    # test's budget: 8 keys across the trajectory.
+    n = len(runner.key_info)
+    graph, poses = online._graph_view(runner.state), runner.state.traj_poses
+    mask = online._pose_mask(runner.state)
+    tight = dataclasses.replace(cfg.solver, pcg_iterations=DELTA_COV_PCG,
+                                pcg_tolerance=DELTA_COV_TOL)
+    keys = torch.tensor(np.linspace(1, n - 1, 8).round().astype(np.int64),
+                        device=dev)
+    fresh = sv.build_cache(graph, poses, mask, tight)
+    covs = dict(
+        cached=sv.marginal_covariance_cached(graph, poses, mask, keys, fresh,
+                                             tight),
+        oneshot=sv.marginal_covariance(graph, poses, mask, keys, tight,
+                                       offchain=runner._n_offchain_host))
+    covs = {k: v.double().cpu().numpy() for k, v in covs.items()}
+    exact = sv.marginal_covariance_exact(graph, poses, mask, keys.cpu(), tight,
+                                         n_used=n)
+    agree = cov_agreement(covs['cached'], covs['oneshot'], exact)
+    log(f'  keys {keys.tolist()}, a cache built at the runner\'s state, '
+        f'cached vs one-shot at {DELTA_COV_PCG} PCG: {agree}')
+    check_cov_agreement('phase 16 (c)', agree, covs, inside_only=False)
+    out['cov_agreement'] = agree
+    return out
+
+
 def write_kitti_sequence(root, frames):
     """``frames`` as KITTI sequence 00 under ``root``: velodyne .bin (x,
     y, z, reflectance 0 in f32), times.txt, calib.txt with KITTI_TR, and
@@ -3513,6 +3941,10 @@ def main():
     lane_records[0]['launches_sharded'] = shard_launches['pallas K1L'][0]
     lane_records[1]['launches_sharded'] = shard_launches['pallas K2L'][1]
 
+    # 16. The delta closure solve and the cached covariances (slice 10) --
+    elapsed(16)
+    delta = delta_phase(nk, smi, flag_frames)
+
     # Records ----------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'
     record = {'kernels': [
@@ -3535,6 +3967,7 @@ def main():
           flush=True)
     print('data_path: ' + json.dumps(data_path), flush=True)
     print('sharding: ' + json.dumps(sharding_out), flush=True)
+    print('delta: ' + json.dumps(delta), flush=True)
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {

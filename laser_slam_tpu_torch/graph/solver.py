@@ -27,8 +27,12 @@ factor with ``cholesky_ex`` (no error check, no device read; a failed
 factor becomes NaN, as JAX's).  Marginal covariances: the f32 probes run
 all K x 6 directions as one batched PCG; the exact path factors the
 Hessian densely in float64 with torch where JAX calls scipy's sparse LU.
-Not ported: the delta closure solve ``solve_closure_cached`` and
-``marginal_covariance_cached`` (ROADMAP, "Do not port").
+The delta closure solve (:func:`solve_closure_cached`) and the cached
+covariances (:func:`marginal_covariance_cached`) take both operators
+from a :class:`WoodburyCache`: its Woodbury apply, and the Hessian at
+its build point (:func:`_stale_matvec`).  The delta solve's outer
+``gn_tolerance`` skip is a ``where`` on frozen poses, as in
+:func:`solve`, so neither reads the device.
 
 Lanes (:func:`solve_lanes`, JAX's ``vmap(solve)`` in the fleet): B
 graphs of one shape are joined into one graph whose pose keys are offset
@@ -63,6 +67,7 @@ iterate to every part and reduces its products.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -430,15 +435,26 @@ def _make_matvec(lin: _LinearizedGraph, damping, config, offchain=None):
     # AND coupling ride in U U^T (exact, no boost).
     B, A = _build_tridiag(lin, damping, w_scale=_without(lin, sel, valid),
                           boost=False)
-    Ua, Ub, ka, kb = _offchain_blocks(lin, sel, valid)
+    return _chain_lowrank_matvec(B, A, *_offchain_blocks(lin, sel, valid),
+                                 lanes=lin.lanes)
+
+
+def _chain_lowrank_matvec(B, A, Ua, Ub, ka, kb, lanes: int = 1, cn2=None):
+    """``mv(x) = T x + U diag(cn2) U^T x``: T the block-tridiagonal chain
+    of diagonal blocks B and sub-diagonal blocks A (A[i] couples pose i
+    to pose i-1), applied as batched [N,6,6] contractions and two shifts
+    within each of ``lanes`` joined lanes; U the compact off-chain blocks
+    Ua/Ub [L,6,6] at keys ka/kb, scattered back with ``index_add_``;
+    ``cn2`` [L,6] (None: ones) rescales U's columns.  ``x`` is [N,6] or a
+    batch [N,6,B]."""
     zero = torch.zeros((1, 6, 6), dtype=B.dtype, device=B.device)
     # A_up[i] = A[i+1]^T couples pose i to pose i+1.
     A_up = torch.cat([A[1:].transpose(-1, -2), zero])
 
     def mv_chain(x):
         # Shift within each lane: no row reads its neighbour lane.
-        xl = x.reshape((lin.lanes, -1) + x.shape[1:])
-        zrow = torch.zeros((lin.lanes, 1) + x.shape[1:], dtype=x.dtype,
+        xl = x.reshape((lanes, -1) + x.shape[1:])
+        zrow = torch.zeros((lanes, 1) + x.shape[1:], dtype=x.dtype,
                            device=x.device)
         x_prev = torch.cat([zrow, xl[:, :-1]], dim=1).reshape(x.shape)
         x_next = torch.cat([xl[:, 1:], zrow], dim=1).reshape(x.shape)
@@ -447,6 +463,8 @@ def _make_matvec(lin: _LinearizedGraph, damping, config, offchain=None):
              + torch.einsum('nij,nj...->ni...', A_up, x_next))
         t = (torch.einsum('lsc,ls...->lc...', Ua, x[ka]) +
              torch.einsum('lsc,ls...->lc...', Ub, x[kb]))
+        if cn2 is not None:
+            t = t * cn2.reshape(cn2.shape + (1,) * (x.dim() - 2))
         y.index_add_(0, ka, torch.einsum('lsc,lc...->ls...', Ua, t))
         y.index_add_(0, kb, torch.einsum('lsc,lc...->ls...', Ub, t))
         return y
@@ -553,13 +571,16 @@ def _build_tridiag(lin: _LinearizedGraph, damping, w_scale=None,
     the blocks feed an exact matvec, not a factorization).  Over factor
     shards ``w_scale`` has one entry a part."""
     B, A = _sum_parts(lin, _chain_blocks, w_scale)
-    eye = _eye6(B)
-    B = B * lin.free[:, None, None] + eye * (
+    B = B * lin.free[:, None, None] + _eye6(B) * (
         damping + (1.0 - lin.free)[:, None, None])
-    if boost:
-        diag_mag = torch.einsum('nii->n', B) / 6.0
-        B = B + (_CR_BOOST * diag_mag)[:, None, None] * eye
-    return B, A
+    return (_boost(B) if boost else B), A
+
+
+def _boost(B):
+    """The diagonal blocks with the relative diagonal boost that keeps
+    every cyclic-reduction pivot SPD in f32."""
+    diag_mag = torch.einsum('nii->n', B) / 6.0
+    return B + (_CR_BOOST * diag_mag)[:, None, None] * _eye6(B)
 
 
 def _chain_blocks(lin: _LinearizedGraph, w_scale=None):
@@ -730,9 +751,12 @@ class WoodburyCache(NamedTuple):
     not a rebuild.  Fixed shapes; unused slots are identity rows of
     ``chol_inv`` with zero U blocks.
 
-    The JAX cache also keeps the unboosted chain blocks and column norms
-    (``T_B``, ``T_A``, ``cn2``); only the delta solve reads them, which
-    the port leaves out (ROADMAP, "Do not port")."""
+    The Hessian at the build point rides along for the delta closure
+    solve and the cached covariances (:func:`_stale_matvec`): the
+    UNBOOSTED chain blocks ``T_B``, ``T_A`` (T0 without the selected
+    off-chain factors, damping and the identity rows of frozen poses
+    included) and the squared column norms ``cn2`` that unscale the
+    U blocks, so that H = T + Utilde diag(cn2) Utilde^T exactly."""
     factors: tuple            # (levels, root_inv) cyclic-reduction of T0
     Ua: torch.Tensor          # [L,6,6] column-scaled off-chain blocks (key_a)
     Ub: torch.Tensor          # [L,6,6] (key_b)
@@ -741,6 +765,9 @@ class WoodburyCache(NamedTuple):
     chol_inv: torch.Tensor    # [K,K] INVERSE lower Cholesky of the capacitance
     #                           ([lanes,K,K] for joined lanes, K a lane's)
     n_used: torch.Tensor      # 0-d int64: occupied slots (append cursor)
+    T_B: torch.Tensor         # [N,6,6] unboosted chain diagonal blocks
+    T_A: torch.Tensor         # [N,6,6] chain sub-diagonal blocks
+    cn2: torch.Tensor         # [L,6] squared column norms (0 for padding)
 
 
 def _column_scale(cn):
@@ -752,6 +779,12 @@ def _column_scale(cn):
     s = torch.where(big, 1.0 / torch.clamp(cn, min=1e-20),
                     torch.zeros_like(cn))
     return s, torch.where(big, s * s, torch.ones_like(cn))
+
+
+def _column_norms2(cn):
+    """The squared norms that unscale columns of norms ``cn`` (0 for the
+    zero columns, whose scale is 0)."""
+    return torch.where(cn > 1e-20, cn * cn, torch.zeros_like(cn))
 
 
 def _factor_or_nan(C):
@@ -769,8 +802,12 @@ def _build_woodbury_cache(lin: _LinearizedGraph, damping,
     # U U^T); unselected overflow keeps its diagonal in T0, degrading
     # gracefully to 'tridiagonal'.
     lanes = lin.lanes
-    factors = _tridiag_factor(*_build_tridiag(
-        lin, damping, w_scale=_without(lin, sel, valid)), lanes=lanes)
+    # The unboosted chain blocks are the Hessian's chain part at the
+    # build point (kept for _stale_matvec); the factorization takes them
+    # boosted.
+    T_B, T_A = _build_tridiag(lin, damping, w_scale=_without(lin, sel, valid),
+                              boost=False)
+    factors = _tridiag_factor(_boost(T_B), T_A, lanes=lanes)
     Ua, Ub, ka, kb = _offchain_blocks(lin, sel, valid)
     L = Ua.shape[0] // lanes          # slots a lane; lane b's are b*L + l
     n = lin.free.shape[0]
@@ -806,7 +843,8 @@ def _build_woodbury_cache(lin: _LinearizedGraph, damping,
     return WoodburyCache(factors=factors, Ua=Ua, Ub=Ub, ka=ka, kb=kb,
                          chol_inv=chol_inv,
                          n_used=_sum_parts(lin, lambda p, v: torch.sum(v),
-                                           valid))
+                                           valid),
+                         T_B=T_B, T_A=T_A, cn2=_column_norms2(cn))
 
 
 def _apply_from_cache(cache: WoodburyCache):
@@ -941,7 +979,7 @@ def _pcg(lin: _LinearizedGraph, b, damping, iterations, tol, apply_M,
     the state; one a lane)."""
     if matvec is None:
         matvec = lambda v: _hessian_matvec(lin, v, damping)  # noqa: E731
-    lanes = lin.lanes
+    lanes = 1 if lin is None else lin.lanes
 
     def dot(u, v):
         return _dot(u, v, lanes)
@@ -1282,11 +1320,94 @@ def extend_cache(graph: FactorGraphData, poses, pose_mask,
     # Full: write the slot's own values back.
     row = torch.where(full, cache.chol_inv[rows6], row)
     for buf, new in ((cache.Ua, Ua_n), (cache.Ub, Ub_n),
-                     (cache.ka, ka_n), (cache.kb, kb_n)):
+                     (cache.ka, ka_n), (cache.kb, kb_n),
+                     (cache.cn2, _column_norms2(cn))):
         buf.index_copy_(0, slot, torch.where(full, buf[slot], new[None]))
     cache.chol_inv.index_copy_(0, rows6, row)
     return cache._replace(n_used=torch.where(full, cache.n_used,
                                              cache.n_used + 1))
+
+
+def _stale_matvec(cache: WoodburyCache):
+    """y = H_build x from the cache alone: the exact Hessian AT THE
+    CACHE'S BUILD POINT, its unboosted chain blocks plus the unscaled
+    low-rank part (H = T + Utilde diag(cn2) Utilde^T), with every factor
+    the cache absorbed since.  No graph access and no linearization:
+    three batched [N,6,6] contractions and the compact off-chain term.
+    Poses appended after the build ride the identity rows of T."""
+    return _chain_lowrank_matvec(cache.T_B, cache.T_A, cache.Ua, cache.Ub,
+                                 cache.ka, cache.kb,
+                                 lanes=cache.factors[1].shape[0],
+                                 cn2=cache.cn2)
+
+
+def solve_closure_cached(graph: FactorGraphData, poses, pose_mask,
+                         cache: WoodburyCache, factor_idx,
+                         config: SolverConfig):
+    """The relinearize-skip solve of ONE new loop closure (JAX's
+    ``solve_closure_cached``, the analogue of iSAM2's update with
+    relinearizeThreshold 0.001, incremental_estimator.cpp:17-20): the
+    residuals are fresh, the quadratic model is the cached one.
+
+    1. :func:`extend_cache` absorbs the factor at ``factor_idx``;
+    2. each outer step (up to ``config.gn_iterations``, at least one,
+       with the ``gn_tolerance`` skip) linearizes the residuals and
+       takes the fresh gradient g, then solves H delta = -g by the
+       extended Woodbury apply and ``config.delta_refine`` Richardson
+       refinements against the cache's build-point Hessian
+       (:func:`_stale_matvec`), each kept only while the stale residual
+       shrinks and stays finite, and retracts delta on the free poses;
+    3. the result is accepted only when the fresh gradient norm after
+       it is finite and not larger than before; otherwise the input
+       poses come back.
+
+    An outer step costs one linearization, 1 + ``delta_refine`` Woodbury
+    applies and 2 ``delta_refine`` + 1 stale matvecs: no chain build and
+    no PCG dot products.  Sound only while the cache's chain covers the
+    poses (poses appended since its build ride identity rows, and the
+    model oversteps them) and the closures' whitened lever arms stay in
+    f32 range; outside that the guard and the acceptance make it a
+    no-op, never a diverged trajectory (the JAX package's contract).
+    ``pcg_iterations`` counts ``delta_refine`` a step that ran.  The
+    cache is extended in place.  Returns (cache, SolveResult) with
+    ``error_initial`` -1."""
+    cache = extend_cache(graph, poses, pose_mask, cache, factor_idx, config)
+    apply_M = _apply_from_cache(cache)
+    mv = _stale_matvec(cache)
+    refine = max(int(config.delta_refine), 0)
+
+    def step(p):
+        lin = _linearize(graph, p, pose_mask, config.cauchy_k)
+        b = -_gradient(lin)
+        delta = apply_M(b)
+        r = b - mv(delta)
+        rn = torch.linalg.norm(r)
+        for _ in range(refine):
+            cand = delta + apply_M(r)
+            r_c = b - mv(cand)
+            rn_c = torch.linalg.norm(r_c)
+            better = torch.isfinite(rn_c) & (rn_c < rn)
+            delta = torch.where(better, cand, delta)
+            r = torch.where(better, r_c, r)
+            rn = torch.where(better, rn_c, rn)
+        return lin, delta, torch.full((), refine, dtype=torch.int32,
+                                      device=p.device)
+
+    unset = torch.full((), -1.0, dtype=poses.dtype, device=poses.device)
+    res = _gauss_newton(graph, poses, pose_mask, dataclasses.replace(
+        config, gn_iterations=max(config.gn_iterations, 1),
+        compute_errors=False), step, unset)
+
+    def grad_norm(p):
+        return torch.linalg.norm(_gradient(_linearize(graph, p, pose_mask,
+                                                      config.cauchy_k)))
+
+    g0, g1 = grad_norm(poses), grad_norm(res.poses)
+    accept = torch.isfinite(g1) & (g1 <= g0)
+    out = torch.where(accept, res.poses, poses)
+    return cache, SolveResult(poses=out, error_initial=unset,
+                              error_final=_error(graph, out, config),
+                              pcg_iterations=res.pcg_iterations)
 
 
 def solve_cached(graph: FactorGraphData, poses, pose_mask,
@@ -1307,10 +1428,11 @@ def solve_cached(graph: FactorGraphData, poses, pose_mask,
 
 def clone_cache(cache: WoodburyCache) -> WoodburyCache:
     """A copy of the cache that no later extension touches (extensions
-    write every field but the chain factorization, which is shared)."""
+    write every field but the chain: its factorization and its blocks
+    ``T_B``, ``T_A`` are shared)."""
     return cache._replace(**{k: getattr(cache, k).clone()
                              for k in WoodburyCache._fields
-                             if k != 'factors'})
+                             if k not in ('factors', 'T_B', 'T_A')})
 
 
 # ---------------------------------------------------------------------------
@@ -1338,32 +1460,52 @@ def marginal_covariance(graph: FactorGraphData, poses, pose_mask, keys,
     # the local block-Jacobi needs the generous budget.
     iters = config.pcg_iterations * (
         4 if config.preconditioner == 'jacobi' else 1)
-    return _marginal_probes(lin, damping, apply_M, iters, config, keys,
-                            poses, offchain)
+    return _marginal_probes(poses, keys, lin.free,
+                            _make_matvec(lin, damping, config, offchain),
+                            apply_M, iters, config.pcg_tolerance,
+                            config.pcg_init == 'precond')
 
 
-def _marginal_probes(lin: _LinearizedGraph, damping, apply_M, iters,
-                     config: SolverConfig, keys, poses, offchain=None):
+def marginal_covariance_cached(graph: FactorGraphData, poses, pose_mask,
+                               keys, cache: WoodburyCache,
+                               config: SolverConfig) -> torch.Tensor:
+    """:func:`marginal_covariance` entirely from a PREBUILT cache: its
+    Woodbury apply as the preconditioner and its build-point Hessian
+    (:func:`_stale_matvec`) as PCG's matvec, so a query does no O(F)
+    work (no linearization).  The covariances are those of the graph as
+    the cache absorbed it, at its build point: a closure the cache never
+    saw is invisible, and a pose appended after its build rides an
+    identity row (about an identity 6x6 answer; the online runner sends
+    such keys to :func:`marginal_covariance`).  Every probe starts at
+    x0 = M(e) and runs ``config.pcg_iterations`` at most; all K x 6
+    probes in one batched PCG."""
+    return _marginal_probes(poses, keys, _free(graph, poses, pose_mask),
+                            _stale_matvec(cache), _apply_from_cache(cache),
+                            config.pcg_iterations, config.pcg_tolerance,
+                            True)
+
+
+def _marginal_probes(poses, keys, free, mv, apply_M, iters, tol,
+                     precond_start: bool):
     """The probe core: unit right-hand sides E [N,6,6K] (column 6k+d is
-    direction d of key k), one batched PCG, and cov[k, d, :] = X[key_k,
-    :, 6k+d].  Gauge-frozen keys report 0 (their PCG identity row would
-    report I)."""
+    direction d of key k), one batched PCG of ``mv`` preconditioned by
+    ``apply_M`` (started at apply_M(E) with ``precond_start``), and
+    cov[k, d, :] = X[key_k, :, 6k+d].  Gauge-frozen keys (``free`` 0)
+    report 0 (their PCG identity row would report I)."""
     n = poses.shape[0]
     keys = torch.as_tensor(keys, device=poses.device).long().reshape(-1)
     K = keys.shape[0]
     dev = poses.device
-    mv = _make_matvec(lin, damping, config, offchain)
     cols = torch.arange(6 * K, device=dev)
     E = torch.zeros((n, 6, 6 * K), dtype=poses.dtype, device=dev)
     E.index_put_((keys.repeat_interleave(6), cols % 6, cols),
                  torch.ones(6 * K, dtype=poses.dtype, device=dev))
-    x0 = apply_M(E) if config.pcg_init == 'precond' else None
-    X, _ = _pcg(lin, E, damping, iters, config.pcg_tolerance, apply_M,
-                matvec=mv, x0=x0)
+    X, _ = _pcg(None, E, 0.0, iters, tol, apply_M, matvec=mv,
+                x0=apply_M(E) if precond_start else None)
     Xk = X[keys].reshape(K, 6, K, 6)            # [k, state, k', direction]
     idx = torch.arange(K, device=dev)
     cov = Xk[idx, :, idx, :].transpose(-1, -2)  # [k, direction, state]
-    return cov * lin.free[keys][:, None, None]
+    return cov * free[keys][:, None, None]
 
 
 def marginal_covariance_exact(graph: FactorGraphData, poses, pose_mask,
@@ -1383,7 +1525,9 @@ def marginal_covariance_exact(graph: FactorGraphData, poses, pose_mask,
     Hessian is far from block-tridiagonal, so a chain factor with a
     low-rank update would not stay low-rank; the dense factor serves the
     online runner's pose tables: [6n,6n] float64 is 1.2 GB and about
-    6e11 flops at n = 2048, and grows as n^2 and n^3 beyond."""
+    6e11 flops at n = 2048, and grows as n^2 and n^3 beyond (28.8 GB and
+    7e13 flops at n = 10,000, where the matrix and its factor fill 58 GB
+    at once)."""
     import numpy as np
     lin = _linearize(graph, poses, pose_mask, config.cauchy_k)
     n = poses.shape[0] if n_used is None else int(n_used)
@@ -1401,7 +1545,10 @@ def marginal_covariance_exact(graph: FactorGraphData, poses, pose_mask,
     Jpf = lin.Jp.to(f64) * free[pk][:, None, None]
     Hpp = torch.einsum('pji,pjk->pik', Jpf,
                        Jpf * lin.w_prior.to(f64)[:, None, None])
-    H4 = torch.zeros((n, n, 6, 6), dtype=f64, device=poses.device)
+    # The [6n,6n] matrix is written in place through its [n,6,n,6] view
+    # (no second dense copy: at n = 10,000 one is 28.8 GB).
+    H = torch.zeros((6 * n, 6 * n), dtype=f64, device=poses.device)
+    s6 = torch.arange(6, device=poses.device)
     for (ia, ib), blocks in (((ka, ka), Haa), ((kb, kb), Hbb),
                              ((ka, kb), Hab),
                              ((kb, ka), Hab.transpose(-1, -2)),
@@ -1409,19 +1556,25 @@ def marginal_covariance_exact(graph: FactorGraphData, poses, pose_mask,
         # Padding factors and priors sit on key 0 with zero weight; keys
         # past n_used belong to no active factor.
         inside = (ia < n) & (ib < n)
-        H4.index_put_((torch.where(inside, ia, 0), torch.where(inside, ib, 0)),
-                      blocks * inside[:, None, None], accumulate=True)
-    H = H4.permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
+        H.view(n, 6, n, 6).index_put_(
+            (torch.where(inside, ia, 0)[:, None, None], s6[None, :, None],
+             torch.where(inside, ib, 0)[:, None, None], s6[None, None, :]),
+            blocks * inside[:, None, None], accumulate=True)
     # Damping on free states, identity rows for frozen or invalid ones.
     dvals = torch.where(free[:n] > 0, float(config.damping), 1.0)
-    H = H + torch.diag(torch.repeat_interleave(dvals, 6))
+    H.diagonal().add_(torch.repeat_interleave(dvals, 6))
     chol = torch.linalg.cholesky(H)
+    del H
     kq = torch.as_tensor(np.asarray(keys), device=poses.device).long()
     K = kq.shape[0]
     cols = torch.arange(6 * K, device=poses.device)
     E = torch.zeros((6 * n, 6 * K), dtype=f64, device=poses.device)
     E[6 * kq.repeat_interleave(6) + cols % 6, cols] = 1.0
-    X = torch.cholesky_solve(E, chol).reshape(n, 6, K, 6)
+    # Two triangular solves read the factor in place (cholesky_solve
+    # would copy it).
+    X = torch.linalg.solve_triangular(
+        chol.mT, torch.linalg.solve_triangular(chol, E, upper=False),
+        upper=True).reshape(n, 6, K, 6)
     idx = torch.arange(K, device=poses.device)
     out = X[kq, :, idx, :].transpose(-1, -2) * free[kq][:, None, None]
     return out.cpu().numpy()

@@ -44,9 +44,15 @@ Port notes:
 * The full-graph solves take ``offchain``, the runner's host count of
   the factors that may lie off the block-tridiagonal chain, so choosing
   the matvec reads nothing back (solver port notes).
+* ``closure_solve='delta'`` solves a cached closure by
+  ``solver.solve_closure_cached`` (the cached Hessian model, fresh
+  gradients), as the JAX runner does.  ``marginal_covariances`` takes
+  the live cache (``solver.marginal_covariance_cached``) for keys that
+  existed when the cache was built, and the one-shot probes for a query
+  holding a later key, which the cached chain knows only as an identity
+  row (JAX answers about an identity 6x6 there).
 * The JAX runner's background growth precompile hides XLA recompiles and
-  has no counterpart here; neither has the delta closure solve
-  (``closure_solve='delta'``, ROADMAP "Do not port").
+  has no counterpart here: nothing is compiled per shape.
 """
 
 from __future__ import annotations
@@ -766,22 +772,25 @@ def _append_lc_and_solve_cached(state: OnlineState, cache: sv.WoodburyCache,
     persisted WoodburyCache (a rank-6 extension of its capacitance
     factor) and solve with it, as iSAM2 updates its Bayes tree instead
     of refactoring (incremental_estimator.cpp:151-163).  Returns (state,
-    cache, info); the cache is extended in place."""
-    if config.solver.closure_solve != 'full':
-        raise NotImplementedError(
-            f"closure_solve={config.solver.closure_solve!r}: the port runs "
-            "'full' only; the delta solve (solve_closure_cached) is on the "
-            "ROADMAP's \"Do not port\" list")
+    cache, info); the cache is extended in place.  With
+    ``closure_solve='delta'`` the relinearize-skip solve
+    (:func:`solver.solve_closure_cached`) extends the cache and solves
+    against its Hessian model; with 'full' the cache is extended and a
+    full GN solve runs with it."""
     if align_mask is not None:
         state = _apply_group_alignment(state, key_a, key_b, a_T_a_b,
                                        align_mask)
     state, idx = _append_lc_factor(state, key_a, key_b, a_T_a_b, config,
                                    remove_prior_slot, use_association)
     graph, pose_mask = _graph_view(state), _pose_mask(state)
-    cache = sv.extend_cache(graph, state.traj_poses, pose_mask, cache, idx,
-                            config.solver)
-    result = sv.solve_cached(graph, state.traj_poses, pose_mask, cache,
-                             config.solver, offchain)
+    if config.solver.closure_solve == 'delta':
+        cache, result = sv.solve_closure_cached(
+            graph, state.traj_poses, pose_mask, cache, idx, config.solver)
+    else:
+        cache = sv.extend_cache(graph, state.traj_poses, pose_mask, cache,
+                                idx, config.solver)
+        result = sv.solve_cached(graph, state.traj_poses, pose_mask, cache,
+                                 config.solver, offchain)
     state, info = _lc_result(state, key_b, result)
     return state, cache, info
 
@@ -1180,6 +1189,12 @@ class OnlineRunner:
         # cache_rebuild_after appended factors or any growth.
         self._solver_cache = None
         self._cache_rel_count = 0
+        # Keys at the cache's build: later keys ride identity rows of its
+        # chain, so their covariances take the one-shot probes.
+        self._cache_pose_count = 0
+        # Which route the last marginal_covariances query took: 'exact',
+        # 'cached' or 'probes'.
+        self.covariance_route = None
 
     def enable_packed_ingest(self, elev_deg, n_azimuth: int,
                              range_unit_m: Optional[float] = None) -> None:
@@ -1546,19 +1561,36 @@ class OnlineRunner:
         (:func:`solver.marginal_covariance_exact`), which weakly anchored
         modes need.  On interleaved multi-robot keys no factor lies on the
         chain the preconditioner factors, and the probes need thousands
-        of PCG iterations.  Where the JAX runner holds a live Woodbury
-        cache it takes ``marginal_covariance_cached``; the port always
-        takes the one-shot probes (ROADMAP queue 3)."""
+        of PCG iterations.  With a live Woodbury cache (a past closure
+        solve under ``preconditioner='woodbury'``) the probes run against
+        the cache alone (:func:`solver.marginal_covariance_cached`, no
+        linearization), as in the JAX runner: the covariances of the
+        graph as the cache absorbed it, at its build point.  A query
+        holding a key added after the cache's build takes the one-shot
+        probes instead, where the JAX runner answers about an identity
+        6x6 (ROADMAP queue 3).  ``covariance_route`` names the route
+        taken."""
         graph, traj = _graph_view(self.state), self.state.traj_poses
         pose_mask = _pose_mask(self.state)
+        keys = np.asarray(keys, np.int64)
         if exact:
+            self.covariance_route = 'exact'
             return sv.marginal_covariance_exact(
-                graph, traj, pose_mask, np.asarray(keys, np.int64),
-                self.config.solver, n_used=len(self.key_info))
-        keys = torch.as_tensor(np.asarray(keys, np.int64), device=self.device)
-        return sv.marginal_covariance(
-            graph, traj, pose_mask, keys, self.config.solver,
-            offchain=self._n_offchain_host).cpu().numpy()
+                graph, traj, pose_mask, keys, self.config.solver,
+                n_used=len(self.key_info))
+        tkeys = torch.as_tensor(keys, device=self.device)
+        if (self._solver_cache is not None
+                and int(keys.max(initial=-1)) < self._cache_pose_count):
+            self.covariance_route = 'cached'
+            covs = sv.marginal_covariance_cached(
+                graph, traj, pose_mask, tkeys, self._solver_cache,
+                self.config.solver)
+        else:
+            self.covariance_route = 'probes'
+            covs = sv.marginal_covariance(
+                graph, traj, pose_mask, tkeys, self.config.solver,
+                offchain=self._n_offchain_host)
+        return covs.cpu().numpy()
 
     def refine(self, iterations: int = 1,
                gn_iterations: Optional[int] = None,
@@ -1600,8 +1632,10 @@ class OnlineRunner:
         ``do_icp_step_on_loop_closures`` the alignment is first refined by
         submap ICP (incremental_estimator.cpp:90-115); with
         ``preconditioner='woodbury'`` the solve extends the persisted
-        cache instead of building its preconditioner cold.  The solve is
-        timed as ``online.lc_solve_dispatch``.  An attached mapper
+        cache instead of building its preconditioner cold, and with
+        ``closure_solve='delta'`` also takes its Hessian model from it
+        (:func:`solver.solve_closure_cached`).  The solve is timed as
+        ``online.lc_solve_dispatch``.  An attached mapper
         re-rigidifies each track's map by that track's own correction.
 
         ``verify_with_icp`` (needs the archive): score the closure with
@@ -1737,6 +1771,7 @@ class OnlineRunner:
                     _graph_view(self.state), self.state.traj_poses,
                     _pose_mask(self.state), s)
             self._cache_rel_count = self._n_rel_host
+            self._cache_pose_count = len(self.key_info)
         return self._solver_cache
 
     def _find_group(self, track_id: int) -> list:

@@ -217,15 +217,20 @@ def test_runner_gating_and_later_slices():
     assert np.all(np.isfinite(np.stack(list(wrun.trajectory().values()))))
     with pytest.raises(ValueError, match='n_tracks'):
         wrun.process_scans([(2, pts, odom)], track_id=1)
-    # Only the delta closure solve is left out (ROADMAP "Do not port").
+    # The delta closure solve came with slice 10: the closure is added
+    # through the cache and the poses stay finite.
     delta = dataclasses.replace(small_config(), solver=dataclasses.replace(
         small_config().solver, preconditioner='woodbury',
         closure_solve='delta'))
     drun = ton.OnlineRunner(delta, device='cpu', **CAPS)
+    moved = odom.copy()
+    moved[4] = 0.5
     drun.process_scan(0, pts * 10, odom)
-    drun.process_scan(1, pts * 10, odom)
-    with pytest.raises(NotImplementedError, match='Do not port'):
-        drun.add_loop_closure(0, 1, odom)
+    drun.process_scan(1, pts * 10, moved)
+    assert drun.add_loop_closure(0, 1, moved)
+    assert int(drun.state.n_rel) == 3
+    assert drun._solver_cache is not None
+    assert np.all(np.isfinite(np.stack(list(drun.trajectory().values()))))
 
 
 def test_entry_points_default_to_the_card():
