@@ -12,18 +12,31 @@ Timers read the host clock: CUDA work is asynchronous, so a timer around
 a call measures the host's issue of it unless the call reads a result
 back (or the caller synchronizes).  :func:`device_trace` records the
 card's timeline beside them.
+
+Spans.  :func:`scoped_timer` (alias :func:`span`) is also the port's
+span primitive: inside :func:`record_spans` every span is kept in memory
+as a :class:`Span` (name, trace id, parent, start and end ns) until
+:func:`take_spans`.  A span opened with no span open on its thread is a
+root and opens a new trace id, which the spans under it share: one unit
+of work, one id.  Spans are stamped with :data:`span_clock`, the clock of
+``torch.profiler``'s records, so that a launch's host record falls inside
+the span that issued it.  Counters (:func:`counter`, :func:`add_count`,
+:func:`take_counters`) are kept only while spans are recorded; a device
+counter stays on its device until it is taken.  With the registry and
+span recording both off, a span costs one flag check.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import itertools
 import logging
 import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from laser_slam_tpu_torch.config import BenchmarkerConfig
 
@@ -104,9 +117,11 @@ class Benchmarker:
         if params is not None:
             self._params = params
         self._enabled = True
+        _refresh_active()
 
     def disable(self):
         self._enabled = False
+        _refresh_active()
 
     @property
     def enabled(self) -> bool:
@@ -195,15 +210,157 @@ log_statistics = _instance.log_statistics
 save_data = _instance.save_data
 
 
-@contextlib.contextmanager
+# -- spans and counters -----------------------------------------------------
+
+class Span(NamedTuple):
+    """One recorded span.  ``parent`` is the index of the enclosing span
+    in the list :func:`take_spans` returns, -1 for a root; ``trace`` is
+    the id its root opened.  Times are :data:`span_clock` ns."""
+    name: str
+    trace: int
+    parent: int
+    start_ns: int
+    end_ns: int
+
+
+# The clock of torch.profiler's records (Unix-epoch ns, on the CPU and
+# on the card), so that spans and launch records share one time line.
+span_clock = time.time_ns
+
+_active = False        # the registry is on or spans are recorded
+_recording = False     # spans and counters are kept
+_lock = threading.Lock()
+_spans: List[list] = []             # [name, trace, parent, start, end]
+_open = threading.local()           # .stack: this thread's open spans
+_trace_ids = itertools.count()
+_device_counts: Dict[tuple, object] = {}   # (name, device) -> int64 0-d
+_host_counts: Dict[str, int] = {}
+
+
+def _refresh_active() -> None:
+    global _active
+    _active = _instance.enabled or _recording
+
+
+class _Span:
+    """What :func:`scoped_timer` returns while the registry or span
+    recording is on."""
+    __slots__ = ('topic', 'start', 'rec')
+
+    def __init__(self, topic: str):
+        self.topic = topic
+        self.rec = None
+
+    def __enter__(self):
+        if _recording:
+            stack = getattr(_open, 'stack', None)
+            if stack is None:
+                stack = _open.stack = []
+            with _lock:
+                parent = stack[-1][0] if stack else -1
+                trace = (stack[-1][1][1] if stack else next(_trace_ids))
+                self.rec = [self.topic, trace, parent, 0, 0]
+                stack.append((len(_spans), self.rec))
+                _spans.append(self.rec)
+        self.start = span_clock()
+        if self.rec is not None:
+            self.rec[3] = self.start
+        return self
+
+    def __exit__(self, *exc):
+        end = span_clock()
+        if self.rec is not None:
+            self.rec[4] = end
+            _open.stack.pop()
+        if _instance.enabled:
+            record_value(self.topic, (end - self.start) / 1e6)
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
 def scoped_timer(topic: str):
-    """ScopedTimer equivalent (benchmarker.hpp:187-205)."""
-    start = time.perf_counter()
+    """ScopedTimer equivalent (benchmarker.hpp:187-205), and the port's
+    span: with the registry on, the block's host ms go to ``topic``;
+    inside :func:`record_spans` the block is also kept as a :class:`Span`
+    named ``topic``.  With both off it returns at once."""
+    if not _active:
+        return _NO_SPAN
+    return _Span(topic)
+
+
+span = scoped_timer
+
+
+@contextlib.contextmanager
+def record_spans():
+    """Keep spans and counters inside the block; the state before it
+    comes back on exit, on an exception too.  What was kept stays in
+    memory until :func:`take_spans` and :func:`take_counters`."""
+    global _recording
+    before = _recording
+    _recording = True
+    _refresh_active()
     try:
         yield
     finally:
-        if _instance.enabled:
-            record_value(topic, (time.perf_counter() - start) * 1e3)
+        _recording = before
+        _refresh_active()
+
+
+def recording() -> bool:
+    """Whether spans and counters are being kept."""
+    return _recording
+
+
+def take_spans() -> List[Span]:
+    """The spans kept so far, in the order they opened, and clears them.
+    Take them when no span is open: a parent index counts from the start
+    of the list."""
+    with _lock:
+        out = [Span(*rec) for rec in _spans]
+        _spans.clear()
+    return out
+
+
+def counter(name: str, device):
+    """The int64 0-d tensor on ``device`` that counts ``name``: add to it
+    on the device (one accumulator a name and device, made zero at first
+    use), so that counting reads nothing back."""
+    import torch
+    key = (name, torch.device(device))
+    with _lock:
+        acc = _device_counts.get(key)
+        if acc is None:
+            acc = _device_counts[key] = torch.zeros(
+                (), dtype=torch.int64, device=key[1])
+    return acc
+
+
+def add_count(name: str, n: int) -> None:
+    """Add the host count ``n`` to the counter ``name``."""
+    with _lock:
+        _host_counts[name] = _host_counts.get(name, 0) + int(n)
+
+
+def take_counters() -> Dict[str, int]:
+    """Every counter's total, host and device counts summed by name (one
+    read a device), and clears them."""
+    import torch
+    with _lock:
+        device_counts = dict(_device_counts)
+        out = dict(_host_counts)
+        _device_counts.clear()
+        _host_counts.clear()
+    by_device: Dict[object, list] = {}
+    for (name, dev), acc in device_counts.items():
+        by_device.setdefault(dev, []).append((name, acc))
+    for items in by_device.values():
+        values = torch.stack([acc for _, acc in items]).tolist()
+        for (name, _), v in zip(items, values):
+            out[name] = out.get(name, 0) + int(v)
+    return out
 
 
 @contextlib.contextmanager

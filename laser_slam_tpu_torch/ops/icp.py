@@ -31,6 +31,12 @@ reading is reduced explicitly onto the guess's device: the trim's
 quantile (:func:`trim_shards`), the 6x6 normal equations, the inlier
 count and the error sum.  The loop state lives there and goes back to
 the parts as a pose a lane.  One part is :func:`icp_point_to_plane`.
+
+Spans.  Each iteration is three spans of ``core/benchmarker.py``, which
+cost one flag check unless spans are recorded: ``icp.match`` (the points
+transform, the matcher, the payload gathers, the radius test),
+``icp.trim`` (the trim, the inlier count) and ``icp.gn`` (the GN steps,
+the differential checker, the freeze of the loop state).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from laser_slam_tpu_torch.config import IcpConfig
+from laser_slam_tpu_torch.core import benchmarker as bench
 from laser_slam_tpu_torch.ops import se3
 from laser_slam_tpu_torch.ops.cloud import Cloud
 from laser_slam_tpu_torch.ops import neighbors as nb
@@ -352,61 +359,67 @@ def icp_point_shards(readings, matchers, initial_guess: torch.Tensor,
         mean_err = torch.full(lead, float('inf'), dtype=dt, device=dev)
         n_in = torch.zeros(lead, dtype=torch.int32, device=dev)
         for _ in range(max_iterations):
-            running = ~done        # JAX's while-cond: it < max_it & ~done
-            matched = []
-            for pts, msk, match in parts:
-                p_world = se3.apply(
-                    shd.to_device(T, pts.device)[..., None, :], pts)
-                q, n, d2, base_valid = match(p_world, msk)
-                matched.append((q, n, d2, base_valid & (d2 <= max_corr2)))
-            inliers = trim_shards([m[2] for m in matched],
-                                  [m[3] for m in matched],
-                                  config.trimmed_dist_ratio,
-                                  config.trim_method, max_corr2, dev)
-            ws = [inlier.to(dt) for inlier in inliers]
-            n_new = shd.reduce_sum([torch.sum(inlier, dim=-1)
-                                    for inlier in inliers],
-                                   dev).to(torch.int32)
-            enough = n_new >= MIN_INLIERS
-            T_b, it_b, hist_b, done_b, err_b = T, it, hist, done, mean_err
-            for _ in range(S):
-                sums = [_normal_sums(
-                    se3.apply(shd.to_device(T_b, pts.device)[..., None, :],
-                              pts), q, n, w)[:3]
-                    for (pts, _, _), (q, n, _, _), w in zip(parts, matched,
-                                                            ws)]
-                A, b, abs_sum = (shd.reduce_sum(list(s), dev)
-                                 for s in zip(*sums))
-                delta = _solve_normal(A, b)
-                step_on = enough & ~done_b & (it_b < max_iterations)
-                delta = torch.where(step_on[..., None], delta,
-                                    torch.zeros_like(delta))
-                T_b = se3.normalize(se3.compose(se3.exp(delta), T_b))
-                # Differential checker window (icp_default.yaml:24-27).
-                d_rot = torch.linalg.norm(delta[..., :3], dim=-1)
-                d_trans = torch.linalg.norm(delta[..., 3:], dim=-1)
-                rolled = torch.cat([hist_b[..., 1:, :],
-                                    torch.stack([d_rot, d_trans],
-                                                dim=-1)[..., None, :]],
-                                   dim=-2)
-                hist_b = torch.where(step_on[..., None, None], rolled,
-                                     hist_b)
-                means = torch.mean(hist_b, dim=-2)
-                converged = ((it_b + 1 >= smooth) &
-                             (means[..., 0] < config.min_diff_rot) &
-                             (means[..., 1] < config.min_diff_trans))
-                err_b = torch.where(
-                    step_on,
-                    abs_sum / torch.clamp(n_new, min=1).to(dt),
-                    err_b)
-                it_b = it_b + step_on.to(torch.int32)
-                done_b = done_b | converged | ~enough
-            T = torch.where(running[..., None], T_b, T)
-            it = torch.where(running, it_b, it)
-            hist = torch.where(running[..., None, None], hist_b, hist)
-            mean_err = torch.where(running, err_b, mean_err)
-            n_in = torch.where(running, n_new, n_in)
-            done = torch.where(running, done_b, done)
+            with bench.span('icp.match'):
+                matched = []
+                for pts, msk, match in parts:
+                    p_world = se3.apply(
+                        shd.to_device(T, pts.device)[..., None, :], pts)
+                    q, n, d2, base_valid = match(p_world, msk)
+                    matched.append((q, n, d2,
+                                    base_valid & (d2 <= max_corr2)))
+            with bench.span('icp.trim'):
+                inliers = trim_shards([m[2] for m in matched],
+                                      [m[3] for m in matched],
+                                      config.trimmed_dist_ratio,
+                                      config.trim_method, max_corr2, dev)
+                ws = [inlier.to(dt) for inlier in inliers]
+                n_new = shd.reduce_sum([torch.sum(inlier, dim=-1)
+                                        for inlier in inliers],
+                                       dev).to(torch.int32)
+                enough = n_new >= MIN_INLIERS
+            with bench.span('icp.gn'):
+                T_b, it_b, hist_b, done_b, err_b = (T, it, hist, done,
+                                                    mean_err)
+                for _ in range(S):
+                    sums = [_normal_sums(
+                        se3.apply(shd.to_device(T_b, pts.device)[
+                            ..., None, :], pts), q, n, w)[:3]
+                        for (pts, _, _), (q, n, _, _), w in zip(
+                            parts, matched, ws)]
+                    A, b, abs_sum = (shd.reduce_sum(list(s), dev)
+                                     for s in zip(*sums))
+                    delta = _solve_normal(A, b)
+                    step_on = enough & ~done_b & (it_b < max_iterations)
+                    delta = torch.where(step_on[..., None], delta,
+                                        torch.zeros_like(delta))
+                    T_b = se3.normalize(se3.compose(se3.exp(delta), T_b))
+                    # Differential checker window (icp_default.yaml:24-27).
+                    d_rot = torch.linalg.norm(delta[..., :3], dim=-1)
+                    d_trans = torch.linalg.norm(delta[..., 3:], dim=-1)
+                    rolled = torch.cat([hist_b[..., 1:, :],
+                                        torch.stack([d_rot, d_trans],
+                                                    dim=-1)[..., None, :]],
+                                       dim=-2)
+                    hist_b = torch.where(step_on[..., None, None], rolled,
+                                         hist_b)
+                    means = torch.mean(hist_b, dim=-2)
+                    converged = ((it_b + 1 >= smooth) &
+                                 (means[..., 0] < config.min_diff_rot) &
+                                 (means[..., 1] < config.min_diff_trans))
+                    err_b = torch.where(
+                        step_on,
+                        abs_sum / torch.clamp(n_new, min=1).to(dt),
+                        err_b)
+                    it_b = it_b + step_on.to(torch.int32)
+                    done_b = done_b | converged | ~enough
+                # JAX's while-cond (it < max_it & ~done) freezes the state.
+                running = ~done
+                T = torch.where(running[..., None], T_b, T)
+                it = torch.where(running, it_b, it)
+                hist = torch.where(running[..., None, None], hist_b, hist)
+                mean_err = torch.where(running, err_b, mean_err)
+                n_in = torch.where(running, n_new, n_in)
+                done = torch.where(running, done_b, done)
             if early_break and dev.type == 'cpu' and bool(torch.all(done)):
                 # A host read costs nothing on the CPU: stop where JAX's
                 # while loop stops (every later iteration would leave the

@@ -25,7 +25,9 @@ whatever order the items run in.
 Each wrapper takes its plain torch version (a chunked coordinate-wise
 brute force with ``min``, which returns the first index) when the tensors
 lie on the CPU.  For CUDA tensors it launches its kernel, adds one to its
-``launches`` counter, or raises: there is no fallback.  Distances are
+``launches`` counter, or raises: there is no fallback.  While spans are
+recorded (``core/benchmarker.record_spans``), K2 and K2L also count the
+pairs they scan on the card (:func:`_launch_counted`).  Distances are
 coordinate-wise f32 ``(q-r)^2`` in both, never the ``|q|^2 - 2 q.r +
 |r|^2`` expansion, which loses rank order at 50 m scene scale.
 
@@ -49,6 +51,7 @@ from typing import NamedTuple
 
 import torch
 
+from laser_slam_tpu_torch.core import benchmarker as bench
 from laser_slam_tpu_torch.ops.neighbors import (nn_brute, nn_brute_lanes,
                                                 query_chunks, sqdist)
 
@@ -437,7 +440,29 @@ def nn_indices_pruned(queries: torch.Tensor, pref: PrunedRef,
         return (torch.empty(0, dtype=torch.float32, device=device),
                 torch.empty(0, dtype=torch.int32, device=device))
     tables, keys, rows = pruned_setup(queries, pref, cutoff)
-    return _launch_pruned(tables, pref, cutoff, keys=keys, rows=rows)
+    return _launch_counted('k2', tables, pref, cutoff, keys, rows)
+
+
+def _launch_counted(kind: str, tables, pref: PrunedRef, cutoff: float,
+                    keys: torch.Tensor, rows: torch.Tensor | None):
+    """:func:`_launch_pruned` from the wrappers.  While spans are recorded
+    (``core/benchmarker.record_spans``) it also counts, on the card, the
+    (query, reference point) pairs the kernel scanned, its ``scanned``
+    times the query tile, into ``nn.<kind>.pairs_scanned``, and the call's
+    B x Q x R pairs into ``nn.<kind>.pairs``: a few more launches (the
+    zeroed counts, their int64 sum, the add) and no read."""
+    if not bench.recording():
+        return _launch_pruned(tables, pref, cutoff, keys=keys, rows=rows)
+    q_sorted, order, qb = tables[1], tables[2], tables[4]
+    scanned = torch.zeros(order.shape[:-1], dtype=torch.int32,
+                          device=order.device)
+    out = _launch_pruned(tables, pref, cutoff, scanned=scanned, keys=keys,
+                         rows=rows)
+    bench.counter(f'nn.{kind}.pairs_scanned', order.device).add_(
+        scanned.sum(), alpha=qb)             # an int64 sum
+    bench.add_count(f'nn.{kind}.pairs',
+                    q_sorted.numel() // 3 * pref.points.shape[-2])
+    return out
 
 
 def pruned_setup(queries: torch.Tensor, pref: PrunedRef, cutoff: float):
@@ -621,7 +646,7 @@ def nn_indices_pruned_lanes(queries: torch.Tensor, pref: PrunedRef,
                 torch.empty(queries.shape[:2], dtype=torch.int32,
                             device=device))
     tables, keys, rows = pruned_setup(queries, pref, cutoff)
-    return _launch_pruned(tables, pref, cutoff, keys=keys, rows=rows)
+    return _launch_counted('k2l', tables, pref, cutoff, keys, rows)
 
 
 nn_indices_pruned_lanes.launches = 0

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from laser_slam_tpu_torch.config import IcpConfig, SolverConfig
+from laser_slam_tpu_torch.core import benchmarker as bench
 from laser_slam_tpu_torch.graph import solver as sv
 from laser_slam_tpu_torch.graph.factors import (  # noqa: F401  (re-export)
     FactorGraphData, build_fleet_chain_graphs)
@@ -69,7 +70,8 @@ def fleet_icp_odometry(points, masks, normals, init_pose, odom_rel,
 
     Registers scan t against scan t-1 in every lane (one lane-axis ICP
     call a step, each lane against its own reference) and integrates the
-    relative transforms.
+    relative transforms.  The call is one root span,
+    ``fleet.icp_odometry`` (``core/benchmarker.py``).
     """
     def register(t):
         return icp_mod.icp_point_to_plane(
@@ -77,7 +79,8 @@ def fleet_icp_odometry(points, masks, normals, init_pose, odom_rel,
             pc.Cloud(points[:, t - 1], masks[:, t - 1]), normals[:, t - 1],
             odom_rel[:, t], config)
 
-    return chain_odometry(register, init_pose, points.shape[1])
+    with bench.span('fleet.icp_odometry'):
+        return chain_odometry(register, init_pose, points.shape[1])
 
 
 def chain_odometry(register, init_pose, n_scans: int) -> FleetOdometryResult:
@@ -122,9 +125,11 @@ def batched_icp(points, masks, reference: pc.Cloud, ref_normals, guesses,
     guesses [B,7]) against one SHARED reference: the serving path behind
     the headline benchmark.  The reference is searched once for all
     lanes' queries (one K1/K2 call, brute block or range image an
-    iteration)."""
-    return icp_mod.icp_point_to_plane(pc.Cloud(points, masks), reference,
-                                      ref_normals, guesses, config)
+    iteration).  The call is one root span, ``fleet.batched_icp``."""
+    with bench.span('fleet.batched_icp'):
+        return icp_mod.icp_point_to_plane(pc.Cloud(points, masks),
+                                          reference, ref_normals, guesses,
+                                          config)
 
 
 class FleetMaps(NamedTuple):

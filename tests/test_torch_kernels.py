@@ -481,6 +481,124 @@ def test_k2l_skips_far_tiles_on_clustered_lanes_on_card():
 
 
 @pytest.mark.gpu
+def test_spans_hold_the_launches_they_issue_on_card():
+    """Spans and ``torch.profiler``'s records share one clock: under the
+    device-only profiler, the runtime's launch call of every kernel that
+    K2 (counters on) issues inside one span, and K2L inside another,
+    lies within that span, and the launch issued between them in
+    neither.  Launches are told apart by correlation id, in issue
+    order."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from laser_slam_tpu_torch.core import benchmarker as bench
+    q, ref, _ = sh.make_scene(2048, 16384, seed=15)
+    qc, rc = torch.tensor(q, device='cuda'), torch.tensor(ref, device='cuda')
+    pref = nk.build_pruned_ref(rc)
+    ql, rl = _lane_scene(16, 4, 1024, 4096)
+    ql, rl = torch.tensor(ql, device='cuda'), torch.tensor(rl, device='cuda')
+    prefl = nk.build_pruned_ref_lanes(rl)
+    nk.nn_indices_pruned(qc, pref, 3.0)             # builds the library
+    torch.cuda.synchronize()
+    bench.take_spans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with bench.record_spans():
+            with bench.span('k2'):
+                nk.nn_indices_pruned(qc, pref, 3.0)
+            torch.cuda._sleep(1000)                 # one 'spin_kernel'
+            with bench.span('k2l'):
+                nk.nn_indices_pruned_lanes(ql, prefl, 3.0)
+        torch.cuda.synchronize()
+    spans = {s.name: s for s in bench.take_spans()}
+    counts = bench.take_counters()
+    assert counts['nn.k2.pairs'] == 2048 * 16384
+    assert counts['nn.k2l.pairs'] == 4 * 1024 * 4096
+    events = list(prof.profiler.kineto_results.events())
+    device = {e.correlation_id(): e.name() for e in events
+              if e.device_type() == DeviceType.CUDA}
+    launch = {}
+    for e in events:
+        if (e.device_type() == DeviceType.CPU and e.name().startswith('cu')
+                and e.correlation_id() in device):
+            launch[e.correlation_id()] = e.start_ns()
+    assert set(launch) == set(device)
+    (cut,) = [c for c, name in device.items() if 'spin_kernel' in name]
+    first = [launch[c] for c in sorted(launch) if c < cut]
+    second = [launch[c] for c in sorted(launch) if c > cut]
+    # K2: sort, tables, items, unpack and the counters' fill, sum and add
+    # (and the first call's zeroed accumulator); K2L alike.
+    assert len(first) >= 7 and len(second) >= 7
+    k2, k2l = spans['k2'], spans['k2l']
+    assert all(k2.start_ns <= t <= k2.end_ns for t in first)
+    assert all(k2l.start_ns <= t <= k2l.end_ns for t in second)
+    assert k2.end_ns < launch[cut] < k2l.start_ns
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('lanes', [False, True])
+def test_scanned_pair_counters_match_the_kernels_count_on_card(lanes,
+                                                               monkeypatch):
+    """``nn.<kind>.pairs_scanned`` is the query tile times the sum of the
+    kernel's own ``scanned`` count of that call, and ``nn.<kind>.pairs``
+    is B x Q x R.  Which tiles the kernel scans depends on block timing,
+    so the counter and a direct ``_launch_pruned(..., scanned=...)`` on
+    the same tables are each held between the replayed Pallas walk's
+    pairs and every pair.  With recording off nothing is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from laser_slam_tpu_torch.core import benchmarker as bench
+    if lanes:
+        q, ref = _lane_scene(13, 6, 4096, 16384)
+        qc = torch.tensor(q, device='cuda')
+        pref = nk.build_pruned_ref_lanes(torch.tensor(ref, device='cuda'))
+        call, tables_of, kind = (nk.nn_indices_pruned_lanes,
+                                 nk.pruned_tables_lanes, 'k2l')
+        B, Q, R = 6, 4096, 16384
+    else:
+        q, ref, _ = sh.make_scene(8192, 81920, seed=11)
+        qc = torch.tensor(q, device='cuda')
+        pref = nk.build_pruned_ref(torch.tensor(ref, device='cuda'))
+        call, tables_of, kind = (nk.nn_indices_pruned, nk.pruned_tables,
+                                 'k2')
+        B, Q, R = 1, 8192, 81920
+    seen = []
+    launch = nk._launch_pruned
+
+    def spy(tables, *args, scanned=None, **kw):
+        out = launch(tables, *args, scanned=scanned, **kw)
+        seen.append((tables[4], scanned))
+        return out
+
+    monkeypatch.setattr(nk, '_launch_pruned', spy)
+    bench.take_counters()
+    call(qc, pref, 3.0)
+    assert bench.take_counters() == {} and seen[-1][1] is None
+    with bench.record_spans():
+        d2, idx = call(qc, pref, 3.0)
+    counts = bench.take_counters()
+    qb, scanned = seen[-1]
+    assert counts[f'nn.{kind}.pairs'] == B * Q * R
+    assert counts[f'nn.{kind}.pairs_scanned'] == qb * int(scanned.sum())
+    for b in range(B):
+        if lanes:
+            _k2_holds(qc[b], pref.lane(b), 3.0, d2[b], idx[b])
+        else:
+            _k2_holds(qc, pref, 3.0, d2, idx)
+    tables = tables_of(qc, pref, 3.0)
+    direct = torch.zeros(tables[2].shape[:-1], dtype=torch.int32,
+                         device='cuda')
+    launch(tables, pref, 3.0, scanned=direct)
+    rb = tables[5]
+    walk = sum(int(nk.pruned_visits(qc[b], pref.lane(b), 3.0)[0].sum())
+               for b in range(B)) if lanes else int(
+                   nk.pruned_visits(qc, pref, 3.0)[0].sum())
+    for pairs in (counts[f'nn.{kind}.pairs_scanned'],
+                  qb * int(direct.sum())):
+        assert qb * rb * walk <= pairs <= B * Q * R
+
+
+@pytest.mark.gpu
 def test_fleet_runs_the_lane_kernels_on_card():
     """A small fleet on the card with 'pallas' under both prune values:
     K2L or K1L launches once an ICP iteration, never K1/K2, and the poses
