@@ -10,9 +10,9 @@ result line):
 
 1. Device: the card's name, and its name and power limit as nvidia-smi
    reports them.
-2. Build: compile ``laser_slam_tpu_torch/csrc/nn.cu`` and
-   ``csrc/nn_variants.cu`` with nvcc, one process each, started together
-   (seconds printed).
+2. Build: compile ``laser_slam_tpu_torch/csrc/nn.cu``,
+   ``csrc/nn_variants.cu`` and ``csrc/icp.cu`` with nvcc, one process
+   each, started together (seconds printed).
 3. K1 (``nn_indices``) against its plain torch version at the main path's
    ICP shape (8192 queries x 81920 reference points), with exact copies
    of 64 reference points in another reference tile, at an awkward shape
@@ -315,6 +315,22 @@ result line):
    and for its last key (the one-shot probes), and, with a cache built
    at the runner's state, the two routes on 8 keys within rtol 1e-3 /
    atol 1e-5 of each other.  The numbers go on a ``delta`` line.
+17. The GN kernels of ICP (``csrc/icp.cu``: ``gn_sums_kernel``,
+   ``gn_update_kernel``) at the main path's shapes, 256 lanes x 4096
+   points (the fleet) and 32 x 8192 (the registration service), with a
+   lane short of inliers, a lane done at the start and a planar lane:
+   six GN stages of ``gn_stage`` on the card at gn_steps_per_match 1
+   and 4 against the plain twin ``gn_stage_plain`` in float32 and in
+   float64, T within 1e-5 of the float64 twin and it, done and n_in
+   equal to both after every stage, two runs bit-equal, the done lane
+   bit-identical, the short lane stepless, every other lane but the
+   planar one converged.  Then one GN step's device time of each
+   kernel (CUDA events around 50 calls queued behind the card's spin),
+   the stage synchronized, the plain twin's stage and its sums, the
+   library calls (``torch.bmm`` of J^T W J, ``torch.linalg.solve_ex``
+   of the 6x6 systems) and the bounds (37 B a point; the chunk sums and
+   the state).  Each kernel must launch once a GN step in phase 12's
+   batched and fleet runs, counted against the steps of their configs.
 
 The kernel counters are reset right before phase 5 (K2), phase 6 (K1),
 the shootout run of phase 7, the production, flagship and multi-robot
@@ -322,8 +338,8 @@ runs of phases 8-10, the host-API lap and closure of phase 11, the
 fleet and map runs of phase 12 (K1L, K2L), the KITTI example's K2
 leg of phase 13, the synthetic demo's K2 run and the K1 roofline of
 phase 14, each sharded fleet step of phase 15 (K1L, K2L), phase 16
-(where K1 and K2 must not launch), the main-path runs, and read right
-after; launches
+(where K1 and K2 must not launch), the main-path runs (the GN kernels
+over phase 12's batched and fleet runs), and read right after; launches
 made to compare a kernel with its plain version are not counted.  Each
 kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the
@@ -348,8 +364,10 @@ record (K2's ``launches`` from phase 5, ``launches_host_api`` from phase
 11, ``launches_kitti`` from phase 13, ``launches_demo`` from phase 14;
 K1's ``launches_profiling`` from phase 14; K1L's and K2L's from phase 12, with
 the map query's ms through K1L and through the plain path, and their
-``launches_sharded`` from phase 15's one-card step); the last line
-is the result record.
+``launches_sharded`` from phase 15's one-card step; the GN kernels'
+from phase 17, their ``launches`` from phase 12's fleet runs and
+``launches_serving`` from its batched ones); the last line is the
+result record.
 """
 
 import collections
@@ -480,6 +498,15 @@ DELTA_LC_EVERY, DELTA_REPS, DELTA_GAP_M = 500, 5, 5e-3
 DELTA_RC, DELTA_STRESS = (4000, 4100), (1234, 8765)
 DELTA_COV_PCG, DELTA_COV_TOL = 128, 1e-9
 DELTA_COV_RTOL, DELTA_COV_ATOL = 1e-3, 1e-5
+# Phase 17, the GN kernels (csrc/icp.cu) at the main path's shapes: the
+# fleet cell's 256 lanes x 4096 points and the register cell's 32 x 8192,
+# six GN stages on fixed correspondences at gn_steps_per_match 1 and 4,
+# T within 1e-5 of the plain twin run in float64 (tests/test_torch_icp_
+# gn.py's tolerance); 40 iterations, so no lane meets the iteration cap.
+GN_SHAPES = ((256, 4096), (32, 8192))
+GN_STAGES, GN_MAX_IT, GN_T_ATOL = 6, 40, 1e-5
+GN_POINT_BYTES = 37     # p, q, n in f32 and the inlier byte, read once
+GN_TIMED = 50           # calls a device time is the mean of
 # Phase 13, the data path: the first 48 frames of phase 9b's stream as a
 # KITTI sequence through the KITTI example at the full width of an HDL-64
 # scan (8 warm-up scans), 16 of them with K2; the bag example's defaults.
@@ -1903,12 +1930,19 @@ def fleet_phase(nk, smi, bound):
         return fleet.batched_icp(p, m, ref, normals,
                                  ident.expand(p.shape[0], 7), cfg_b)
 
+    icp_mod.gn_sums.launches = icp_mod.gn_update.launches = 0
     serve(*batches[0])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = [serve(*b) for b in batches[::-1]]
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
+    gn_launches = {'serving': (icp_mod.gn_sums.launches,
+                               icp_mod.gn_update.launches)}
+    want = (1 + SERVE_REPS) * gn_steps(cfg_b, SERVE_READ)
+    if gn_launches['serving'] != (want, want):
+        raise AssertionError(f'batched_icp: GN kernels launched '
+                             f'{gn_launches["serving"]} times, not {want}')
     out = outs[-1]
     rate_b = SERVE_B * SERVE_REPS / serve_s
     t_norm = torch.linalg.norm(out.T[:, 4:], dim=1)
@@ -1975,6 +2009,7 @@ def fleet_phase(nk, smi, bound):
     nk.nn_indices_pruned_lanes.launches = 0
     single = (nk.nn_indices.launches, nk.nn_indices_pruned.launches)
     res, rates = {}, {}
+    icp_mod.gn_sums.launches = icp_mod.gn_update.launches = 0
     for label, cfg in runs.items():
         fleet.fleet_icp_odometry(*card, cfg)
         torch.cuda.synchronize()
@@ -1982,6 +2017,15 @@ def fleet_phase(nk, smi, bound):
         res[label] = fleet.fleet_icp_odometry(*card2, cfg)
         torch.cuda.synchronize()
         rates[label] = B * (T - 1) / (time.perf_counter() - t0)
+    gn_launches['fleet'] = (icp_mod.gn_sums.launches,
+                            icp_mod.gn_update.launches)
+    want = sum(2 * (T - 1) * gn_steps(cfg, N) for cfg in runs.values())
+    log(f'  GN kernels: {gn_launches["fleet"]} launches (gn_sums, '
+        f'gn_update) over the fleet runs, {gn_launches["serving"]} over '
+        f'the batched ones, one each a GN step')
+    if gn_launches['fleet'] != (want, want):
+        raise AssertionError(f'fleet: GN kernels launched '
+                             f'{gn_launches["fleet"]} times, not {want}')
     k1 = res['pallas K1L'].poses.reshape(-1, 7).cpu().numpy()
     for label, r in res.items():
         if not bool(torch.all(torch.isfinite(r.poses))):
@@ -2247,7 +2291,7 @@ def fleet_phase(nk, smi, bound):
              scanned_share_by_reference_tile=rb_share, plain_ms=k2l_plain,
              bound_ms=k2l_bound[0], bound_by=k2l_bound[1],
              library_ms=lib_ms, library=lib_call + ' (the cutoff is a '
-             'where)')]
+             'where)')], gn_launches
 
 
 def sharding_phase(nk, smi):
@@ -3222,6 +3266,239 @@ def profiling_phase(nk, smi, production, k1_ms, queries, submap, frames):
     return out
 
 
+def gn_steps(cfg, n_points):
+    """GN steps (launches of each GN kernel) of one ICP call of
+    ``cfg`` over a reading of ``n_points``: the coarse phase's
+    iterations when it runs, the full phase's, each
+    ``gn_steps_per_match`` steps; the card runs every iteration."""
+    coarse = cfg.coarse_capacity and cfg.coarse_capacity < n_points
+    iters = cfg.max_iterations + (cfg.coarse_max_iterations if coarse
+                                  else 0)
+    return iters * max(int(cfg.gn_steps_per_match), 1)
+
+
+def queued_ms(fn, reps=GN_TIMED):
+    """Device ms of one call of ``fn``: CUDA events around ``reps`` calls
+    queued behind ~50 ms of the card spinning, so that the host's issue
+    stays hidden (after one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gn_scene(B, N, seed, dev):
+    """GN-stage inputs on the card: B lanes of N points in a 10 x 8 x 4 m
+    room (q on its five faces, with their normals), each lane's reading
+    q moved by a small motion of its own plus 5 mm of noise, 90% of the
+    points inliers.  Lane 1 keeps 20 inliers (fewer than MIN_INLIERS),
+    lane 2 starts done with a state of its own, lane 3 is the floor
+    alone with normals tilted by ~1e-3 (planar, nearly degenerate).
+    Returns (pts, q, n, inlier) and the loop state."""
+    from laser_slam_tpu_torch.config import IcpConfig
+    from laser_slam_tpu_torch.ops import icp as icp_mod, se3
+    f64 = torch.float64
+    g = torch.Generator().manual_seed(seed)
+    q = (torch.tensor([-5.0, -4.0, 0.0], dtype=f64) + torch.rand(
+        (B, N, 3), generator=g, dtype=f64) * torch.tensor(
+            [10.0, 8.0, 4.0], dtype=f64))
+    face = torch.randint(0, 5, (B, N), generator=g)
+    face[3] = 0
+    axis = torch.tensor([2, 0, 0, 1, 1])[face][..., None]
+    q.scatter_(2, axis, torch.tensor([0.0, -5.0, 5.0, -4.0, 4.0],
+                                     dtype=f64)[face][..., None])
+    n = torch.zeros_like(q).scatter_(2, axis, 1.0)
+    n[3] += torch.randn((N, 3), generator=g, dtype=f64) * 1e-3
+    n[3] /= torch.linalg.norm(n[3], dim=-1, keepdim=True)
+    xi = torch.randn((B, 6), generator=g, dtype=f64) * torch.tensor(
+        [0.02] * 3 + [0.1] * 3, dtype=f64)
+    pts = se3.apply(se3.inverse(se3.exp(xi))[:, None, :], q) + 0.005 * (
+        torch.randn((B, N, 3), generator=g, dtype=f64))
+    inlier = torch.rand((B, N), generator=g) < 0.9
+    inlier[1] = False
+    inlier[1, torch.randperm(N, generator=g)[:20]] = True
+    smooth = IcpConfig().smooth_length
+    T = se3.identity(f64).expand(B, 7).clone()
+    T[2] = se3.exp(torch.randn(6, generator=g, dtype=f64) * 0.05)
+    it = torch.zeros(B, dtype=torch.int32)
+    hist = torch.full((B, smooth, 2), float('inf'))
+    hist[2] = torch.rand((smooth, 2), generator=g) * 1e-3
+    done = torch.zeros(B, dtype=torch.bool)
+    err = torch.full((B,), float('inf'))
+    n_in = torch.zeros(B, dtype=torch.int32)
+    it[2], done[2], err[2], n_in[2] = 3, True, 0.0123, 4321
+    arrays = [a.to(dev, torch.float32) for a in (pts, q, n)] + [
+        inlier.to(dev)]
+    state = icp_mod.GnState(*(a.to(dev) for a in (
+        T.float(), it, hist, done, err, n_in)))
+    return arrays, state
+
+
+def gn_phase(smi, peaks, launches):
+    """Phase 17: the GN kernels of ``csrc/icp.cu`` (``gn_sums_kernel``,
+    ``gn_update_kernel``) at the main path's shapes, ``gn_stage`` on the
+    card against the plain twin ``gn_stage_plain`` in float32 and in
+    float64; their device times, the plain twin's, the library calls'
+    and the bounds.  ``launches`` are the kernels' counts from phase
+    12's main-path runs.  Returns the kernels' record entries."""
+    from laser_slam_tpu_torch.config import IcpConfig
+    from laser_slam_tpu_torch.ops import icp as icp_mod, se3
+    t_phase = time.perf_counter()
+    dev = torch.device('cuda')
+    fields = icp_mod.GnState._fields
+    err, rows = 0.0, {}
+    for B, N in GN_SHAPES:
+        (pts, q, n, inlier), state0 = gn_scene(B, N, 17 + B, dev)
+        n_new = inlier.sum(-1).to(torch.int32)
+        args = ([pts], [(q, n)], [inlier], n_new)
+        args64 = ([pts.double()], [(q.double(), n.double())], [inlier],
+                  n_new)
+
+        def widen(st):
+            return icp_mod.GnState(*(a.double() if a.is_floating_point()
+                                     else a.clone() for a in st))
+        for S in (1, 4):
+            cfg = IcpConfig(gn_steps_per_match=S)
+            runs, gap = [], 0.0
+            for rep in range(2):
+                # The kernels update their state in place: each run has
+                # its own copies.
+                fused, plain = (icp_mod.GnState(*(a.clone() for a in
+                                                  state0)) for _ in '12')
+                wide = widen(state0)
+                if not icp_mod.gn_fused_path(fused.T, args[0]):
+                    raise AssertionError('gn: card tensors took the twin')
+                for k in range(GN_STAGES):
+                    fused = icp_mod.gn_stage(*args, fused, GN_MAX_IT, cfg,
+                                             True)
+                    if rep:
+                        continue
+                    plain = icp_mod.gn_stage_plain(*args, plain, GN_MAX_IT,
+                                                   cfg)
+                    wide = icp_mod.gn_stage_plain(*args64, wide, GN_MAX_IT,
+                                                  cfg)
+                    gap = max(gap, float(torch.max(torch.abs(
+                        fused.T.double() - wide.T))))
+                    unequal = [f for f in ('it', 'done', 'n_in')
+                               if not (torch.equal(getattr(fused, f),
+                                                   getattr(plain, f))
+                                       and torch.equal(getattr(fused, f),
+                                                       getattr(wide, f)))]
+                    if gap > GN_T_ATOL or unequal:
+                        raise AssertionError(
+                            f'gn {B} x {N}, S {S}, stage {k}: T {gap} from '
+                            f'the float64 twin, unequal {unequal}')
+                runs.append(icp_mod.GnState(*(a.clone() for a in fused)))
+            err = max(err, gap)
+            for f, a, b in zip(fields, *runs):
+                if not torch.equal(a, b):
+                    raise AssertionError(f'gn {B} x {N}, S {S}: {f} differs '
+                                         'between two runs')
+            for f, a, a0 in zip(fields, runs[0], state0):
+                if not torch.equal(a[2], a0[2]):
+                    raise AssertionError(f'gn {B} x {N}, S {S}: the done '
+                                         f'lane\'s {f} changed')
+            if not (bool(runs[0].done[1]) and int(runs[0].it[1]) == 0):
+                raise AssertionError(f'gn {B} x {N}, S {S}: the lane short '
+                                     'of inliers took a step')
+            others = [b for b in range(B) if b != 3]
+            if not bool(runs[0].done[others].all()):
+                raise AssertionError(f'gn {B} x {N}, S {S}: lanes still '
+                                     'running after six stages')
+            log(f'  gn {B} x {N}, gn_steps_per_match {S}: {GN_STAGES} '
+                f'stages, T within {gap:.3g} of the float64 twin, it, done '
+                f'and n_in equal to both twins, two runs bit-equal, lanes '
+                f'done {int(runs[0].done.sum())}/{B}')
+        # Times of one GN step (gn_steps_per_match 1).
+        cfg = IcpConfig()
+        T = state0.T
+        partial = icp_mod.gn_sums(pts, q, n, inlier, T)
+        src = [a.clone() for a in state0[:5]]
+        dst = [a.clone() for a in state0[:5]]
+        chunks = partial.shape[1]
+        row = dict(
+            sums_ms=queued_ms(lambda: icp_mod.gn_sums(pts, q, n, inlier, T)),
+            update_ms=queued_ms(lambda: icp_mod.gn_update(
+                partial, n_new, src, dst, None, GN_MAX_IT, cfg)),
+            stage_ms=sync_ms(lambda: icp_mod.gn_stage_fused(
+                *args, icp_mod.GnState(*dst, state0.n_in.clone()),
+                GN_MAX_IT, cfg), 20))
+        w = inlier.to(torch.float32)
+        p_world = se3.apply(T[:, None, :], pts)
+        row['plain_sums_ms'] = sync_ms(lambda: icp_mod._normal_sums(
+            se3.apply(T[:, None, :], pts), q, n, w), 20)
+        row['plain_ms'] = sync_ms(lambda: icp_mod.gn_stage_plain(
+            *args, state0, GN_MAX_IT, cfg), 20)
+        J = torch.cat([torch.linalg.cross(p_world, n, dim=-1), n], dim=-1)
+        Jw = J * w[..., None]
+        A = torch.bmm(Jw.mT, J)
+        A = A + 1e-6 * torch.eye(6, device=dev) * (
+            1.0 + A.diagonal(dim1=-2, dim2=-1).sum(-1) / 6.0)[:, None, None]
+        b = -torch.bmm(Jw.mT, (n * (p_world - q)).sum(-1)[..., None])
+        row['gemm_ms'] = queued_ms(lambda: torch.bmm(Jw.mT, J))
+        row['solve_ms'] = queued_ms(lambda: torch.linalg.solve_ex(A, b))
+        row['sums_bound_ms'] = 1e3 * B * N * GN_POINT_BYTES / (
+            peaks.hbm_bytes_per_s)
+        state_bytes = 4 * (7 + 1 + 2 * cfg.smooth_length + 1) + 1
+        row['update_bound_ms'] = 1e3 * B * (
+            4 * chunks * icp_mod.GN_SUMS + 4 + 2 * state_bytes) / (
+            peaks.hbm_bytes_per_s)
+        rows[f'{B}x{N}'] = row
+        log(f'  gn {B} x {N} ({smi}), one step: gn_sums_kernel '
+            f'{row["sums_ms"]:.5f} ms on the card (bound '
+            f'{row["sums_bound_ms"]:.5f}, bytes), gn_update_kernel '
+            f'{row["update_ms"]:.5f} ms (bound {row["update_bound_ms"]:.5f}), '
+            f'the stage {row["stage_ms"]:.4f} ms synchronized; the plain '
+            f'twin {row["plain_ms"]:.4f} ms (its sums '
+            f'{row["plain_sums_ms"]:.4f}); library: bmm of J^T W J '
+            f'{row["gemm_ms"]:.5f} ms, solve_ex of the 6x6 systems '
+            f'{row["solve_ms"]:.5f} ms')
+    log(f'  GN kernels in phase 12\'s main-path runs: {launches}')
+    log(f'phase 17 took {time.perf_counter() - t_phase:.1f} s')
+    main_shape = f'{GN_SHAPES[0][0]}x{GN_SHAPES[0][1]}'
+    main = rows[main_shape]
+    src_file = 'laser_slam_tpu_torch/csrc/icp.cu'
+    replaces = ('laser_slam_tpu/ops/icp.py _gauss_newton_step and the loop '
+                'body around it (jnp; no Pallas kernel)')
+
+    def by_shape(key):
+        return {shape: r[key] for shape, r in rows.items()}
+    return [
+        dict(name='gn_sums_kernel', route='cuda', source=src_file,
+             replaces=replaces, launches=launches['fleet'][0],
+             launches_serving=launches['serving'][0], max_abs_err=err,
+             ms=main['sums_ms'], ms_by_shape=by_shape('sums_ms'),
+             plain_ms=main['plain_sums_ms'],
+             plain_ms_by_shape=by_shape('plain_sums_ms'),
+             bound_ms=main['sums_bound_ms'], bound_by='bytes',
+             bound_ms_by_shape=by_shape('sums_bound_ms'),
+             library_ms=main['gemm_ms'],
+             library_ms_by_shape=by_shape('gemm_ms'),
+             library='torch.bmm(Jw.mT, J) (cuBLAS, f32), the 6x6 product '
+             'alone on a J built beforehand'),
+        dict(name='gn_update_kernel', route='cuda', source=src_file,
+             replaces=replaces, launches=launches['fleet'][1],
+             launches_serving=launches['serving'][1], max_abs_err=err,
+             ms=main['update_ms'], ms_by_shape=by_shape('update_ms'),
+             stage_ms=main['stage_ms'],
+             stage_ms_by_shape=by_shape('stage_ms'),
+             plain_ms=main['plain_ms'],
+             plain_ms_by_shape=by_shape('plain_ms'),
+             bound_ms=main['update_bound_ms'], bound_by='bytes',
+             bound_ms_by_shape=by_shape('update_bound_ms'),
+             library_ms=main['solve_ms'],
+             library_ms_by_shape=by_shape('solve_ms'),
+             library='torch.linalg.solve_ex of the damped 6x6 systems, the '
+             'solve alone')]
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: chip_smoke.py runs on a GPU')
@@ -3259,13 +3536,14 @@ def main():
 
     # 2. Build ---------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build(['nn.cu', 'nn_variants.cu'])
+    cuda_build.build(['nn.cu', 'nn_variants.cu', 'icp.cu'])
     nk._kernels()
     nv._kernels()
+    icp_mod._kernels()
     log(f'build: nn.cu {cuda_build.build_seconds["nn.cu"]:.2f} s, '
         f'nn_variants.cu {cuda_build.build_seconds["nn_variants.cu"]:.2f} '
-        f's of nvcc in parallel, {time.perf_counter() - t0:.2f} s with '
-        'loading')
+        f's, icp.cu {cuda_build.build_seconds["icp.cu"]:.2f} s of nvcc in '
+        f'parallel, {time.perf_counter() - t0:.2f} s with loading')
 
     # Scenes at the main path's shapes: a submap of 5 scans and a reading.
     t0 = time.perf_counter()
@@ -3918,7 +4196,7 @@ def main():
 
     # 12. Fleet mode and batched serving (slice 6) ------------------------
     elapsed(12)
-    lane_records = fleet_phase(nk, smi, bound)
+    lane_records, gn_launches = fleet_phase(nk, smi, bound)
 
     # 13. The data path in and out (slice 7) ------------------------------
     elapsed(13)
@@ -3945,6 +4223,10 @@ def main():
     elapsed(16)
     delta = delta_phase(nk, smi, flag_frames)
 
+    # 17. The GN kernels at the main path's shapes ------------------------
+    elapsed(17)
+    gn_records = gn_phase(smi, peaks, gn_launches)
+
     # Records ----------------------------------------------------------
     source = 'laser_slam_tpu_torch/csrc/nn.cu'
     record = {'kernels': [
@@ -3962,7 +4244,8 @@ def main():
              bound_ms=bounds[key][0], bound_by=bounds[key][1],
              library_ms=shoot_row[key]['library_ms'],
              library=shoot_row[key]['library'], **extra.get(key, {}))
-        for key in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6')] + lane_records}
+        for key in ('E1', 'E2', 'E3', 'E4', 'E5', 'E6')] + lane_records
+        + gn_records}
     print(f'E3 sweep at {SHOOT_Q} x {SHOOT_R}: {json.dumps(sweep_line)}',
           flush=True)
     print('data_path: ' + json.dumps(data_path), flush=True)

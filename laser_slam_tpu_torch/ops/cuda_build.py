@@ -28,6 +28,11 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # source, per source name (0.0 when a previous build was reused).
 build_seconds: dict = {}
 
+# The sources every ICP on the card loads (the matcher's kernels, the GN
+# stage's): the first load of either builds both, side by side, so a
+# fresh checkout pays one nvcc wait instead of two in a row.
+BUILT_TOGETHER = ('nn.cu', 'icp.cu')
+
 
 def _nvcc() -> str:
     home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
@@ -83,6 +88,8 @@ def build(sources) -> None:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` if needed and return the loaded library."""
-    build([source])
+    """Compile ``csrc/<source>`` if needed (with the rest of
+    ``BUILT_TOGETHER`` when it is one of them) and return the loaded
+    library."""
+    build(BUILT_TOGETHER if source in BUILT_TOGETHER else [source])
     return ctypes.CDLL(_library_path(source)[1])

@@ -32,6 +32,14 @@ quantile (:func:`trim_shards`), the 6x6 normal equations, the inlier
 count and the error sum.  The loop state lives there and goes back to
 the parts as a pose a lane.  One part is :func:`icp_point_to_plane`.
 
+GN stage.  On CUDA a GN step is two hand-written CUDA kernels
+(``csrc/icp.cu``, float32 only): :func:`gn_sums`, the point-to-plane
+sums of every (lane, chunk of points) on each part's device, and
+:func:`gn_update`, the damped 6x6 solve, the pose update, the
+differential checker and, on the match's last step, the freeze of the
+loop state, in place.  On the CPU :func:`gn_stage_plain` runs the same
+stage in plain torch; it is also the kernels' test oracle.
+
 Spans.  Each iteration is three spans of ``core/benchmarker.py``, which
 cost one flag check unless spans are recorded: ``icp.match`` (the points
 transform, the matcher, the payload gathers, the radius test),
@@ -41,6 +49,7 @@ the differential checker, the freeze of the loop state).
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -50,6 +59,7 @@ from laser_slam_tpu_torch.core import benchmarker as bench
 from laser_slam_tpu_torch.ops import se3
 from laser_slam_tpu_torch.ops.cloud import Cloud
 from laser_slam_tpu_torch.ops import neighbors as nb
+from laser_slam_tpu_torch.ops.nn_kernels import _check_launch
 from laser_slam_tpu_torch.parallel import sharding as shd
 
 
@@ -74,6 +84,8 @@ class IcpResult(NamedTuple):
 
 # Minimum trimmed-inlier count below which the solve is declared failed.
 MIN_INLIERS = 24
+# The GN system's damping, scaled by 1 + trace / 6 a lane.
+GN_DAMPING = 1e-6
 
 
 def _trim_threshold(d2: torch.Tensor, valid: torch.Tensor, ratio: float,
@@ -160,7 +172,7 @@ def _normal_sums(p_world, q, n, w):
     return A, b, torch.sum(torch.abs(r) * w, dim=-1), r
 
 
-def _solve_normal(A, b, damping=1e-6):
+def _solve_normal(A, b, damping=GN_DAMPING):
     """The increment [omega, v] from summed normal equations, damped by
     each lane's trace."""
     eye = torch.eye(6, dtype=A.dtype, device=A.device)
@@ -170,7 +182,7 @@ def _solve_normal(A, b, damping=1e-6):
     return torch.linalg.solve_ex(A, b)[0]
 
 
-def _gauss_newton_step(p_world, q, n, w, damping=1e-6):
+def _gauss_newton_step(p_world, q, n, w, damping=GN_DAMPING):
     """One point-to-plane GN step.
 
     Minimizes sum_i w_i (n_i . (p_i - q_i))^2 over a left-multiplicative
@@ -180,6 +192,253 @@ def _gauss_newton_step(p_world, q, n, w, damping=1e-6):
     """
     A, b, _, r = _normal_sums(p_world, q, n, w)
     return _solve_normal(A, b, damping), r
+
+
+class GnState(NamedTuple):
+    """The match/GN loop's state (over lanes each field has a leading
+    [B] axis): the pose7, the GN steps taken, the differential checker's
+    window [..., smooth, 2] of (|omega|, |v|), whether the checkers have
+    fired, the mean |residual| and the inlier count."""
+    T: torch.Tensor
+    it: torch.Tensor
+    hist: torch.Tensor
+    done: torch.Tensor
+    mean_err: torch.Tensor
+    n_in: torch.Tensor
+
+
+def gn_fused_path(T: torch.Tensor, points) -> bool:
+    """Whether the GN stage runs the CUDA kernels (:func:`gn_stage_fused`):
+    by device alone, when the pose or any part's points are on CUDA.  The
+    kernels take float32 tensors on CUDA and refuse anything else
+    (ValueError), so a float64 or mixed-device call there fails rather
+    than falling back; CPU tensors run :func:`gn_stage_plain`."""
+    return any(t.is_cuda for t in [T, *points])
+
+
+def gn_stage(points, pairs, inliers, n_new, state: GnState,
+             max_iterations: int, config: IcpConfig, fused: bool
+             ) -> GnState:
+    """The GN stage of one match/GN iteration: ``config.gn_steps_per_match``
+    point-to-plane steps, the differential checker, then the freeze of the
+    loop state (lane by lane, JAX's while-cond ``it < max_it & ~done``).
+    ``points`` are the reading's parts, ``pairs`` each part's matched
+    (q, n), ``inliers`` its trimmed inlier mask and ``n_new`` the whole
+    reading's inlier count.  While spans are recorded it counts the steps
+    (``icp.gn.steps``) and those the kernels took (``icp.gn.steps_fused``),
+    host counts that launch nothing."""
+    if bench.recording():
+        steps = max(int(config.gn_steps_per_match), 1)
+        bench.add_count('icp.gn.steps', steps)
+        bench.add_count('icp.gn.steps_fused', steps if fused else 0)
+    stage = gn_stage_fused if fused else gn_stage_plain
+    return stage(points, pairs, inliers, n_new, state, max_iterations,
+                 config)
+
+
+def gn_stage_plain(points, pairs, inliers, n_new, state: GnState,
+                   max_iterations: int, config: IcpConfig) -> GnState:
+    """:func:`gn_stage` in plain torch: the CPU path (any dtype) and the
+    kernels' test oracle.  Sums over the parts are
+    reduced onto the state's device in part order."""
+    T, it, hist, done, mean_err, n_in = state
+    dev = T.device
+    dt = points[0].dtype
+    smooth = config.smooth_length
+    S = max(int(config.gn_steps_per_match), 1)
+    ws = [inlier.to(dt) for inlier in inliers]
+    enough = n_new >= MIN_INLIERS
+    T_b, it_b, hist_b, done_b, err_b = (T, it, hist, done, mean_err)
+    for _ in range(S):
+        sums = [_normal_sums(
+            se3.apply(shd.to_device(T_b, pts.device)[..., None, :], pts),
+            q, n, w)[:3] for pts, (q, n), w in zip(points, pairs, ws)]
+        A, b, abs_sum = (shd.reduce_sum(list(s), dev) for s in zip(*sums))
+        delta = _solve_normal(A, b)
+        step_on = enough & ~done_b & (it_b < max_iterations)
+        delta = torch.where(step_on[..., None], delta,
+                            torch.zeros_like(delta))
+        T_b = se3.normalize(se3.compose(se3.exp(delta), T_b))
+        # Differential checker window (icp_default.yaml:24-27).
+        d_rot = torch.linalg.norm(delta[..., :3], dim=-1)
+        d_trans = torch.linalg.norm(delta[..., 3:], dim=-1)
+        rolled = torch.cat([hist_b[..., 1:, :],
+                            torch.stack([d_rot, d_trans],
+                                        dim=-1)[..., None, :]], dim=-2)
+        hist_b = torch.where(step_on[..., None, None], rolled, hist_b)
+        means = torch.mean(hist_b, dim=-2)
+        converged = ((it_b + 1 >= smooth) &
+                     (means[..., 0] < config.min_diff_rot) &
+                     (means[..., 1] < config.min_diff_trans))
+        err_b = torch.where(step_on,
+                            abs_sum / torch.clamp(n_new, min=1).to(dt),
+                            err_b)
+        it_b = it_b + step_on.to(torch.int32)
+        done_b = done_b | converged | ~enough
+    # JAX's while-cond (it < max_it & ~done) freezes the state.
+    running = ~done
+    return GnState(T=torch.where(running[..., None], T_b, T),
+                   it=torch.where(running, it_b, it),
+                   hist=torch.where(running[..., None, None], hist_b, hist),
+                   done=torch.where(running, done_b, done),
+                   mean_err=torch.where(running, err_b, mean_err),
+                   n_in=torch.where(running, n_new, n_in))
+
+
+def gn_stage_fused(points, pairs, inliers, n_new, state: GnState,
+                   max_iterations: int, config: IcpConfig) -> GnState:
+    """:func:`gn_stage` on the card, two launches a GN step
+    (``csrc/icp.cu``): :func:`gn_sums` on each part's device, the parts'
+    chunk sums gathered onto the state's device in part order, then one
+    :func:`gn_update`, whose last step freezes ``state`` in place.  The
+    state's tensors must be contiguous and the caller's own."""
+    dev = state.T.device
+    S = max(int(config.gn_steps_per_match), 1)
+    src = state[:5]
+    steps = None
+    for k in range(S):
+        partial = shd.gather_cat(
+            [gn_sums(pts, q, n, w, shd.to_device(src[0], pts.device))
+             for pts, (q, n), w in zip(points, pairs, inliers)], 1, dev)
+        last = k == S - 1
+        if last:
+            dst = state[:5]
+        else:
+            if steps is None:
+                steps = tuple(torch.empty_like(x) for x in src)
+            dst = steps
+        gn_update(partial, n_new, src, dst, state.n_in if last else None,
+                  max_iterations, config)
+        src = dst
+    return state
+
+
+# --------------------------------------------------------------------------
+# The GN kernels (csrc/icp.cu)
+# --------------------------------------------------------------------------
+
+# Points a gn_sums block sums (csrc/icp.cu GN_CHUNK): the chunk count
+# depends on N alone, so a lane's sums do not depend on its batch.
+GN_CHUNK = 1024
+GN_SUMS = 28
+
+_lib = None
+
+
+def _kernels() -> ctypes.CDLL:
+    """Build (first use only) and bind the kernels of ``csrc/icp.cu``."""
+    global _lib
+    if _lib is None:
+        from laser_slam_tpu_torch.ops.cuda_build import load_library
+        lib = load_library('icp.cu')
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ll, d = ctypes.c_longlong, ctypes.c_double
+        lib.lsl_gn_sums.argtypes = [p, ll, ll, p, ll, ll, p, ll, ll, p, ll,
+                                    ll, p, ll, i, i, p, i, p]
+        lib.lsl_gn_sums.restype = i
+        lib.lsl_gn_update.argtypes = [p, i, p, i, i, i, i, f, f, d, p, p, p,
+                                      p, p, p, p, p, p, p, p, i, i, p]
+        lib.lsl_gn_update.restype = i
+        _lib = lib
+    return _lib
+
+
+def _rows(a: torch.Tensor, lanes: bool):
+    """``a`` with unit stride along its last axis (rows of 3 floats) and
+    its (lane, row) strides in elements; the lane stride is 0 without a
+    lane axis."""
+    if a.dim() - lanes == 2 and a.stride(-1) != 1:
+        a = a.contiguous()
+    row = a.stride(-2) if a.dim() - lanes == 2 else a.stride(-1)
+    return a, (a.stride(0) if lanes else 0), row
+
+
+def _check(name: str, cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f'{name}: {msg}')
+
+
+def gn_sums(pts, q, n, inlier, T) -> torch.Tensor:
+    """``gn_sums_kernel``: the point-to-plane sums of one part of a
+    reading, GN_SUMS a (lane, chunk of GN_CHUNK points): the 21 upper
+    entries of J^T W J (row-major), the 6 of -J^T W r and sum w |r|, the
+    points taken through ``T`` and weighted by the bool ``inlier``.
+    pts, q, n [B,N,3] or [N,3] float32, inlier [B,N] or [N], T [B,7] or
+    [7], all on one card; returns [B, ceil(N / GN_CHUNK), GN_SUMS]
+    (B = 1 without a lane axis)."""
+    lanes = pts.dim() == 3
+    B, N = (pts.shape[0] if lanes else 1), pts.shape[-2]
+    for key, a in (('pts', pts), ('q', q), ('n', n), ('T', T)):
+        _check('gn_sums', a.dtype == torch.float32 and a.is_cuda
+               and a.device == pts.device, f'{key} must be float32 on '
+               f'{pts.device}, got {a.dtype} on {a.device}')
+    _check('gn_sums', inlier.dtype == torch.bool
+           and inlier.shape == pts.shape[:-1]
+           and inlier.device == pts.device, 'inlier must be a bool mask of '
+           'the points on their device')
+    _check('gn_sums', q.shape == pts.shape and n.shape == pts.shape
+           and T.shape == pts.shape[:-2] + (7,) and T.stride(-1) == 1,
+           'shapes of q, n or T do not match the points')
+    chunks = -(-N // GN_CHUNK)
+    partial = torch.empty((B, chunks, GN_SUMS), dtype=torch.float32,
+                          device=pts.device)
+    if chunks == 0:
+        return partial
+    pts, pl, pr = _rows(pts, lanes)
+    q, ql, qr = _rows(q, lanes)
+    n, nl, nr = _rows(n, lanes)
+    _, wl, wr = _rows(inlier, lanes)
+    err = _kernels().lsl_gn_sums(
+        pts.data_ptr(), pl, pr, q.data_ptr(), ql, qr, n.data_ptr(), nl, nr,
+        inlier.data_ptr(), wl, wr, T.data_ptr(), T.stride(0) if lanes else 0,
+        B, N, partial.data_ptr(), pts.device.index,
+        torch.cuda.current_stream(pts.device).cuda_stream)
+    _check_launch('gn_sums', err)
+    gn_sums.launches += 1
+    return partial
+
+
+gn_sums.launches = 0
+
+
+def gn_update(partial, n_new, src, dst, n_in, max_iterations: int,
+              config: IcpConfig) -> None:
+    """``gn_update_kernel``: one GN step of every lane from its chunk sums
+    ``partial`` [B, C, GN_SUMS] and the inlier count ``n_new``.  Reads
+    the step's state ``src`` (T, it, hist, done, mean_err), writes it to
+    ``dst`` (may be ``src``).  With ``n_in`` given, ``dst`` is the loop
+    state and the step is the match's last: lanes done in ``dst`` keep
+    their state, the others take the step's and ``n_in = n_new``."""
+    dev = partial.device
+    B, C = partial.shape[0], partial.shape[1]
+    freeze = n_in is not None
+    _check('gn_update', partial.is_cuda and partial.dtype == torch.float32
+           and partial.is_contiguous() and partial.shape[2:] == (GN_SUMS,),
+           f'partial must be contiguous float32 [B, C, {GN_SUMS}] on CUDA, '
+           f'got {partial.dtype} {tuple(partial.shape)} on {dev}')
+    kinds = ((torch.float32, 7), (torch.int32, 1),
+             (torch.float32, 2 * config.smooth_length), (torch.bool, 1),
+             (torch.float32, 1))
+    for a, (dtype, size) in [*zip(src, kinds), *zip(dst, kinds),
+                             (n_new, kinds[1])] + ([(n_in, kinds[1])]
+                                                   if freeze else []):
+        _check('gn_update', a.device == dev and a.dtype == dtype
+               and a.is_contiguous() and a.numel() == B * size,
+               f'expected a contiguous {dtype} tensor of {size} a lane '
+               f'for {B} lanes on {dev}, got {a.dtype} {tuple(a.shape)} on '
+               f'{a.device}')
+    err = _kernels().lsl_gn_update(
+        partial.data_ptr(), C, n_new.data_ptr(), B, config.smooth_length,
+        max_iterations, MIN_INLIERS, config.min_diff_rot,
+        config.min_diff_trans, GN_DAMPING, *(a.data_ptr() for a in src),
+        *(a.data_ptr() for a in dst),
+        n_in.data_ptr() if freeze else None, int(freeze), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch('gn_update', err)
+    gn_update.launches += 1
+
+
+gn_update.launches = 0
 
 
 def make_matcher(reference: Cloud, ref_normals: torch.Tensor,
@@ -345,25 +604,33 @@ def icp_point_shards(readings, matchers, initial_guess: torch.Tensor,
     dev = initial_guess.device
     dt = readings[0].points.dtype
     lead = readings[0].points.shape[:-2]        # () or (B,)
-    S = max(int(config.gn_steps_per_match), 1)
 
     def run_loop(parts, T0, max_iterations: int):
         """Match/GN loop over a (possibly subset) reading in ``parts``
         (points, mask, matcher), run for its full count with the state
         frozen once the checkers have fired (lane by lane over lanes)."""
+        points = [pts for pts, _, _ in parts]
+        fused = gn_fused_path(T0, points)
         T = T0
+        if fused:
+            # The kernels update the loop state in place: T0 is the
+            # caller's.
+            T = T0.expand(lead + (7,)).clone(
+                memory_format=torch.contiguous_format)
         it = torch.zeros(lead, dtype=torch.int32, device=dev)
         hist = torch.full(lead + (smooth, 2), float('inf'), dtype=dt,
                           device=dev)
         done = torch.zeros(lead, dtype=torch.bool, device=dev)
         mean_err = torch.full(lead, float('inf'), dtype=dt, device=dev)
         n_in = torch.zeros(lead, dtype=torch.int32, device=dev)
+        state = GnState(T, it, hist, done, mean_err, n_in)
         for _ in range(max_iterations):
             with bench.span('icp.match'):
                 matched = []
                 for pts, msk, match in parts:
                     p_world = se3.apply(
-                        shd.to_device(T, pts.device)[..., None, :], pts)
+                        shd.to_device(state.T, pts.device)[..., None, :],
+                        pts)
                     q, n, d2, base_valid = match(p_world, msk)
                     matched.append((q, n, d2,
                                     base_valid & (d2 <= max_corr2)))
@@ -372,60 +639,19 @@ def icp_point_shards(readings, matchers, initial_guess: torch.Tensor,
                                       [m[3] for m in matched],
                                       config.trimmed_dist_ratio,
                                       config.trim_method, max_corr2, dev)
-                ws = [inlier.to(dt) for inlier in inliers]
                 n_new = shd.reduce_sum([torch.sum(inlier, dim=-1)
                                         for inlier in inliers],
                                        dev).to(torch.int32)
-                enough = n_new >= MIN_INLIERS
             with bench.span('icp.gn'):
-                T_b, it_b, hist_b, done_b, err_b = (T, it, hist, done,
-                                                    mean_err)
-                for _ in range(S):
-                    sums = [_normal_sums(
-                        se3.apply(shd.to_device(T_b, pts.device)[
-                            ..., None, :], pts), q, n, w)[:3]
-                        for (pts, _, _), (q, n, _, _), w in zip(
-                            parts, matched, ws)]
-                    A, b, abs_sum = (shd.reduce_sum(list(s), dev)
-                                     for s in zip(*sums))
-                    delta = _solve_normal(A, b)
-                    step_on = enough & ~done_b & (it_b < max_iterations)
-                    delta = torch.where(step_on[..., None], delta,
-                                        torch.zeros_like(delta))
-                    T_b = se3.normalize(se3.compose(se3.exp(delta), T_b))
-                    # Differential checker window (icp_default.yaml:24-27).
-                    d_rot = torch.linalg.norm(delta[..., :3], dim=-1)
-                    d_trans = torch.linalg.norm(delta[..., 3:], dim=-1)
-                    rolled = torch.cat([hist_b[..., 1:, :],
-                                        torch.stack([d_rot, d_trans],
-                                                    dim=-1)[..., None, :]],
-                                       dim=-2)
-                    hist_b = torch.where(step_on[..., None, None], rolled,
-                                         hist_b)
-                    means = torch.mean(hist_b, dim=-2)
-                    converged = ((it_b + 1 >= smooth) &
-                                 (means[..., 0] < config.min_diff_rot) &
-                                 (means[..., 1] < config.min_diff_trans))
-                    err_b = torch.where(
-                        step_on,
-                        abs_sum / torch.clamp(n_new, min=1).to(dt),
-                        err_b)
-                    it_b = it_b + step_on.to(torch.int32)
-                    done_b = done_b | converged | ~enough
-                # JAX's while-cond (it < max_it & ~done) freezes the state.
-                running = ~done
-                T = torch.where(running[..., None], T_b, T)
-                it = torch.where(running, it_b, it)
-                hist = torch.where(running[..., None, None], hist_b, hist)
-                mean_err = torch.where(running, err_b, mean_err)
-                n_in = torch.where(running, n_new, n_in)
-                done = torch.where(running, done_b, done)
-            if early_break and dev.type == 'cpu' and bool(torch.all(done)):
+                state = gn_stage(points, [m[:2] for m in matched], inliers,
+                                 n_new, state, max_iterations, config, fused)
+            if (early_break and dev.type == 'cpu'
+                    and bool(torch.all(state.done))):
                 # A host read costs nothing on the CPU: stop where JAX's
                 # while loop stops (every later iteration would leave the
                 # frozen state as it is); over lanes once all are done.
                 break
-        return T, it, hist, done, mean_err, n_in
+        return state
 
     C = config.coarse_capacity
     N = sum(r.capacity for r in readings)

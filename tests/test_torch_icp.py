@@ -165,6 +165,142 @@ def test_gauss_newton_step_matches_jax(rng):
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-6)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-5,
                                rtol=1e-4)
+    # The GN stage's plain twin takes the same step from the identity: T
+    # becomes normalize(exp(delta)), and the step is counted.
+    inlier = torch.tensor(w > 0)
+    cfg = IcpConfig()
+    state = ticp.GnState(
+        T=torch.tensor([1.0, 0, 0, 0, 0, 0, 0]),
+        it=torch.zeros((), dtype=torch.int32),
+        hist=torch.full((cfg.smooth_length, 2), float('inf')),
+        done=torch.zeros((), dtype=torch.bool),
+        mean_err=torch.full((), float('inf')),
+        n_in=torch.zeros((), dtype=torch.int32))
+    n_new = inlier.sum().to(torch.int32)
+    out = ticp.gn_stage_plain([torch.tensor(p)],
+                              [(torch.tensor(q), torch.tensor(n))],
+                              [inlier], n_new, state, 8, cfg)
+    np.testing.assert_allclose(out.T.numpy(),
+                               np.asarray(jse3.normalize(jse3.exp(jd))),
+                               atol=1e-5)
+    assert int(out.it) == 1 and int(out.n_in) == int(n_new)
+    np.testing.assert_allclose(float(out.mean_err),
+                               np.abs(np.asarray(jr))[w > 0].mean(),
+                               rtol=1e-5)
+
+
+def jax_gn_stage(pts, q, n, w, state, S, max_iterations, cfg):
+    """One GN stage of one lane as the JAX package's while loop runs it
+    on fixed correspondences (``laser_slam_tpu/ops/icp.py``: the cond,
+    then the body after the trim): S steps, the differential checker,
+    the error and the inlier count."""
+    T, it, hist, done, err, n_in = state
+    if not (int(it) < max_iterations and not bool(done)):
+        return state
+    n_in = jnp.sum(w > 0).astype(jnp.int32)
+    enough = n_in >= ticp.MIN_INLIERS
+    for _ in range(S):
+        delta, r = jicp._gauss_newton_step(jse3.apply(T, pts), q, n, w)
+        step_on = enough & ~done & (it < max_iterations)
+        delta = jnp.where(step_on, delta, 0.0)
+        T = jse3.normalize(jse3.compose(jse3.exp(delta), T))
+        hist = jnp.where(step_on, jnp.roll(hist, shift=-1, axis=0).at[-1].set(
+            jnp.stack([jnp.linalg.norm(delta[:3]),
+                       jnp.linalg.norm(delta[3:])])), hist)
+        means = jnp.mean(hist, axis=0)
+        converged = ((it + 1 >= cfg.smooth_length)
+                     & (means[0] < cfg.min_diff_rot)
+                     & (means[1] < cfg.min_diff_trans))
+        err = jnp.where(step_on, jnp.sum(jnp.abs(r) * w)
+                        / jnp.maximum(n_in, 1), err)
+        it = it + step_on.astype(jnp.int32)
+        done = done | converged | ~enough
+    return (T, it, hist, done, err, n_in)
+
+
+GN_CASES = {
+    'lanes': dict(lanes=4, steps=1, few=(1,), done=(2,)),
+    'few-inliers': dict(lanes=None, steps=1, few=(0,), done=()),
+    'done-lane': dict(lanes=2, steps=1, few=(), done=(0,)),
+    'steps4': dict(lanes=3, steps=4, few=(), done=()),
+}
+
+
+@pytest.mark.parametrize('case', list(GN_CASES))
+def test_gn_stage_plain_matches_jax(rng, case):
+    """Five GN stages of the plain twin (``gn_stage`` on the CPU) against
+    the JAX package's loop body on the same fixed correspondences, lane
+    by lane: T within 1e-5, the differential checker's window within
+    1e-6, the error within rtol 1e-5, it, done and n_in equal.  Lanes in
+    ``done`` start done with a state of their own and keep it; lanes in
+    ``few`` keep 20 inliers (fewer than MIN_INLIERS) and end done
+    without a step."""
+    spec = GN_CASES[case]
+    B, S, N = spec['lanes'] or 1, spec['steps'], 512
+    cfg = IcpConfig(gn_steps_per_match=S)
+    smooth = cfg.smooth_length
+    p = rng.normal(size=(B, N, 3)).astype(np.float32) * 5
+    # Motions whose first step leaves the checker's window mean after
+    # four steps (a quarter of it) 25% above one threshold and far below
+    # the other: the translation's on even lanes, the rotation's on odd
+    # ones, so the step a lane converges at depends on each threshold.
+    u = rng.normal(size=(B, 2, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    size = np.array([[0.002, 0.05], [0.005, 0.01]])[np.arange(B) % 2]
+    xi = np.concatenate([u[:, 0] * size[:, :1], u[:, 1] * size[:, 1:]], 1)
+    q = np.stack([np.asarray(jse3.apply(jse3.exp(jnp.asarray(
+        x, jnp.float32)), jnp.asarray(pb))) for x, pb in zip(xi, p)])
+    q = (q + rng.normal(size=q.shape) * 0.005).astype(np.float32)
+    n = rng.normal(size=(B, N, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    inlier = rng.uniform(size=(B, N)) > 0.2
+    T = np.tile(np.array([1.0, 0, 0, 0, 0, 0, 0], np.float32), (B, 1))
+    it, n_in = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    hist = np.full((B, smooth, 2), np.inf, np.float32)
+    done, err = np.zeros(B, bool), np.full(B, np.inf, np.float32)
+    for b in spec['few']:
+        inlier[b] = False
+        inlier[b, rng.choice(N, 20, replace=False)] = True
+    for b in spec['done']:
+        T[b] = np.asarray(jse3.exp(jnp.asarray(
+            rng.normal(size=6) * 0.05, jnp.float32)))
+        it[b], done[b], err[b], n_in[b] = 3, True, 0.0123, 4321
+        hist[b] = rng.uniform(size=(smooth, 2)) * 1e-3
+    arrays = [p, q, n, inlier, T, it, hist, done, err, n_in]
+    if spec['lanes'] is None:
+        arrays = [a[0] for a in arrays]
+    pts, qt, nt, inl, *st = (torch.tensor(a) for a in arrays)
+    state = ticp.GnState(*st)
+    points, pairs, inliers = [pts], [(qt, nt)], [inl]
+    n_new = inl.sum(-1).to(torch.int32)
+    lanes = [tuple(jnp.asarray(a[b]) for a in (T, it, hist, done, err,
+                                                 n_in)) for b in range(B)]
+    w = inlier.astype(np.float32)
+    for stage in range(5):
+        state = ticp.gn_stage(points, pairs, inliers, n_new, state, 40, cfg,
+                              ticp.gn_fused_path(state.T, points))
+        lanes = [jax_gn_stage(jnp.asarray(p[b]), jnp.asarray(q[b]),
+                              jnp.asarray(n[b]), jnp.asarray(w[b]), lanes[b],
+                              S, 40, cfg) for b in range(B)]
+        got = [a.reshape((B,) + a.shape[len(a.shape) - len(
+            lanes[0][k].shape):]).numpy() for k, a in enumerate(state)]
+        for b, want in enumerate(lanes):
+            msg = f'lane {b} after stage {stage}'
+            np.testing.assert_allclose(got[0][b], np.asarray(want[0]),
+                                       atol=1e-5, err_msg=msg)
+            np.testing.assert_allclose(got[2][b], np.asarray(want[2]),
+                                       atol=1e-6, err_msg=msg)
+            np.testing.assert_allclose(got[4][b], np.asarray(want[4]),
+                                       rtol=1e-5, err_msg=msg)
+            for k in (1, 3, 5):
+                assert got[k][b] == np.asarray(want[k]), (
+                    ticp.GnState._fields[k], msg)
+    for b in spec['done']:
+        for k, a in enumerate(arrays[4:]):
+            np.testing.assert_array_equal(got[k][b], a[b])
+    for b in spec['few']:
+        assert got[3][b] and got[1][b] == 0
+    assert got[3].all()
 
 
 def test_config_fields_pass_through(rng):

@@ -11,7 +11,8 @@ its ICP loop, on the CPU, without JAX.
   ``icp.gn`` an executed iteration, in that order, under the root around
   it; ``fleet_icp_odometry`` and ``batched_icp`` are roots and return
   bit-identical results with recording on and off.  On the CPU the
-  pruned 1-NN runs its plain version, which counts nothing.
+  pruned 1-NN runs its plain version, which counts nothing, and the GN
+  stage its plain twin, whose steps count as steps, none of them fused.
 """
 
 import math
@@ -290,7 +291,10 @@ def test_fleet_odometry_is_one_root_and_unchanged_by_recording(matcher,
     assert len(names) == len(spans) - 1 and len(names) % 3 == 0
     assert names == list(STAGES) * (len(names) // 3)
     assert 2 <= len(names) // 3 <= 2 * cfg.max_iterations
-    assert bench.take_counters() == {}       # the plain path counts nothing
+    # The plain 1-NN counts nothing; the GN stage counts its steps, none
+    # of them taken by the kernels on the CPU.
+    assert bench.take_counters() == {'icp.gn.steps': len(names) // 3,
+                                     'icp.gn.steps_fused': 0}
 
 
 def test_batched_icp_is_one_root_and_unchanged_by_recording():
