@@ -24,6 +24,30 @@ plain reference.  What a run asks of it:
 
 Everything is made on the run's device, from ``torch.Generator``s seeded
 with the run's seed; the window only gathers rows of the pools.
+
+What ``run.py`` calls, in this order, so that a kind whose program keeps
+state from unit to unit (an online runner's map and window) can be
+written as a module alone:
+
+1. ``Kind(config, traffic, seed, device)``, then ``setup_program()``;
+2. the warm-up: ``run(unit(0))`` once, its output read back and dropped;
+3. the window: ``run(unit(k))`` for k = 0, 1, 2, ... until the window
+   closes, each output read back to the host and kept as ``outputs[k]``
+   (unit 0 so runs twice, after the warm-up's);
+4. with ``--trace 1``, the units of the seeded sample run again, each
+   as ``run(unit(k))`` in the sample's order, on the card: once under the
+   device-only profile (``tracing.profile_units``), the first of them
+   once more under the host's profile (``tracing.idle_gaps``), then all
+   twice with the program's spans kept (``stages.span_passes``); on the
+   CPU only once, with the spans kept;
+5. ``drop_program()``, then ``check(outputs, sample, walk)`` with the
+   window's outputs alone.
+
+So the reruns of step 4 find the program's state as the window left it
+and move it on, and nothing they return is compared: ``check`` works the
+sampled units out again from the units' inputs (``unit(j)``, j up to k
+where a unit depends on those before it), never from the program's
+state.
 """
 
 from __future__ import annotations

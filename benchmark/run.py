@@ -15,10 +15,12 @@ unit), then a closed loop of units of work for ``--seconds``: one client
 submits the next unit when the previous one's poses are on the host.
 Once the window has closed and the memory peak is read, a sample of the
 window's units is drawn from the seed; with ``--trace 1`` those units are
-run again under the profiler.  Then the plain reference (``reference.py``)
-works the sample out again, in one pass that also counts the pruned
-1-NN calls of the traced units for their bound, and the numbers of the
-cell's kind are compared with ``limits/<workload>.json``.
+run again under the profiler, then twice more with the program's spans
+and counters kept (``stages.span_passes``; on the CPU once).  Then the
+plain reference (``reference.py``) works the sample out again, in one
+pass that also counts the pruned 1-NN calls of the traced units for
+their bound, and the numbers of the cell's kind are compared with
+``limits/<workload>.json``.
 
 The last line of standard output is the result, a JSON object; the last
 lines of standard error give each compared number beside its limit.
@@ -85,7 +87,7 @@ def run_cell(reg: Registry, workload: str, seed: int, seconds: float,
     'traffic': {...}}``, for tests at small sizes); ``patch`` wraps the
     program's call of a unit (for tests that break it)."""
     import torch
-    from benchmark import generator, tracing
+    from benchmark import generator, stages, tracing
     cell = reg.workload(workload)
     config = dict(reg.config(cell['config']))
     traffic = dict(reg.traffic(cell['traffic']))
@@ -153,6 +155,11 @@ def run_cell(reg: Registry, workload: str, seed: int, seconds: float,
                      'idle_gaps': tracing.idle_gaps(gen, sample[0])}
     elif trace:
         ctx = tracing.context([], 0, 0, 0, issue_ms, 0.0)
+    if trace and sample:
+        passes = stages.span_passes(gen, sample)
+        if passes is not None:
+            ctx.spans, ctx.counters = passes['names'], passes['counters']
+            log(stages.stage_line(workload, passes))
 
     # The program's state goes before the reference runs.
     gen.drop_program()

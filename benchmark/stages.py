@@ -1,33 +1,39 @@
-"""Where a unit's host issue and device idle time go, stage by stage of
-the program's ICP, from the program's own spans and counters
+"""Where a unit's host issue and device idle time go, span by span of the
+program, from the program's own spans and counters
 (``laser_slam_tpu_torch/core/benchmarker.py``: ``record_spans``,
 ``take_spans``, ``take_counters``).
 
     python3 -m benchmark.stages --workload <name> --seed <n>
 
 on a machine with the card the cell asks for.  After the cell's set-up
-and one warm-up unit it runs two span passes over the units that a run
-of the cell checks (units 1 .. ``check_units``):
+and one warm-up unit it runs the two span passes of :func:`span_passes`
+over the units that a run of the cell checks (units 1 .. ``check_units``),
+the passes that ``run.py`` runs after a ``--trace 1`` run's window over
+its checked units for the per-layer readers (``TraceContext.spans`` and
+``.counters``):
 
-(a) span recording on, no profiler: each stage's host time a unit (the
-    summed durations of its spans) and the pruned 1-NN's counters, the
-    pairs its kernel scanned (``nn.<kind>.pairs_scanned``) against the
-    pairs of its calls (``nn.<kind>.pairs``);
+(a) span recording on, no profiler: each span name's host time a unit
+    (the summed durations of its spans) and each counter a unit, such as
+    the pairs the pruned 1-NN's kernel scanned
+    (``nn.<kind>.pairs_scanned``) against the pairs of its calls
+    (``nn.<kind>.pairs``);
 (b) span recording on, under the device-only profile of
-    ``tracing.profile_units``: each device record is matched by its
-    correlation id to the runtime's launch call on the host, and charged
-    to the innermost stage span that holds the launch's time, else to
-    ``other`` (inside a root span, outside a stage), else to ``outside``
-    (the benchmark's own gathers and copies).  Each device idle gap
-    between merged busy intervals goes to the label of the record that
-    ends it.
+    ``tracing.profile_units`` (on the card only): each device record is
+    matched by its correlation id to the runtime's launch call on the
+    host, and charged to the name of the innermost span that holds the
+    launch's time, to ``other`` where that span is a root (a root's self
+    time), else to ``outside`` (the benchmark's own gathers and copies).
+    Each device idle gap between merged busy intervals goes to the name
+    of the record that ends it; each name's device time is its records'
+    merged busy time.
 
-Before them, the cost of recording (:func:`recording_cost`); after
-them, the device records of the same units with recording off, in the
-profile that ``launches_per_scan`` reads.  The last line of
-standard output is a JSON object; standard error has one line a label
-(launches, issue ms and idle ms a unit).  The per-layer metrics named
-in :func:`metrics` read the passes; ``run.py`` does not run them.
+The tool also measures, before them, the cost of recording; after them,
+the device records of the same units with recording off, in the profile
+that ``launches_per_scan`` reads.  It prints ICP's view of the passes,
+the same charge with each span labelled by the ICP stage it lies in
+(``match``, ``trim``, ``gn``, else ``other`` or ``outside``): the last
+line of standard output is a JSON object; standard error has one line a
+label (launches, issue ms and idle ms a unit).
 """
 
 from __future__ import annotations
@@ -40,12 +46,14 @@ import statistics
 import sys
 import time
 import timeit
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
+
+from benchmark import yardstick as ys
 
 # The stage spans of ops/icp.py's loop, by the label they are charged to.
 STAGES = {'icp.match': 'match', 'icp.trim': 'trim', 'icp.gn': 'gn'}
-LABELS = ('match', 'trim', 'gn', 'other', 'outside')
-KINDS = ('k2', 'k2l')
+OTHER, OUTSIDE = 'other', 'outside'
+LABELS = ('match', 'trim', 'gn', OTHER, OUTSIDE)
 COST_ROUNDS = 20      # pairs of runs a unit, recording off and on
 
 
@@ -58,8 +66,8 @@ def program_spans():
 
 
 class SpanIndex:
-    """Finds the label of a host time among ``spans`` (the program's
-    ``Span`` records of one thread, parents as list indices)."""
+    """Finds the spans that hold a host time among ``spans`` (the
+    program's ``Span`` records of one thread, parents as list indices)."""
 
     def __init__(self, spans):
         self.spans = list(spans)
@@ -67,59 +75,109 @@ class SpanIndex:
                             key=lambda i: self.spans[i].start_ns)
         self.starts = [self.spans[i].start_ns for i in self.order]
 
-    def label(self, t: Optional[int]) -> str:
-        """The stage of the innermost stage span holding ``t``, else
-        'other' where a span holds it, else 'outside'.  The span opened
-        last before ``t`` lies inside every span that holds ``t``, so its
-        chain of parents meets them all."""
+    def chain(self, t: Optional[int]) -> list:
+        """The spans that hold ``t``, innermost first, a root last; empty
+        where none does.  The span opened last before ``t`` lies inside
+        every span that holds ``t``, so its chain of parents meets them
+        all."""
         if t is None:
-            return 'outside'
+            return []
         k = bisect.bisect_right(self.starts, t) - 1
         i = self.order[k] if k >= 0 else -1
-        held = False
+        out = []
         while i >= 0:
             s = self.spans[i]
             if s.start_ns <= t <= s.end_ns:
-                if s.name in STAGES:
-                    return STAGES[s.name]
-                held = True
+                out.append(s)
             i = s.parent
-        return 'other' if held else 'outside'
+        return out
 
 
-def attribute(records, launches: Dict[int, int], spans) -> Dict[str, dict]:
+def by_name(chain) -> str:
+    """The innermost span's name; ``other`` for a root's self time;
+    ``outside`` where no span holds the time."""
+    if not chain:
+        return OUTSIDE
+    return OTHER if chain[0].parent < 0 else chain[0].name
+
+
+def by_stage(chain) -> str:
+    """The ICP stage of the innermost stage span, else ``other`` inside a
+    root, else ``outside``."""
+    for s in chain:
+        if s.name in STAGES:
+            return STAGES[s.name]
+    return OTHER if chain else OUTSIDE
+
+
+def charge(records, launches: Dict[int, int], spans,
+           label: Callable[[list], str] = by_name
+           ) -> Tuple[Dict[str, dict], int]:
     """Device records ``(name, start ns, ns, correlation id)`` charged by
     the host time of their launch (``launches``: correlation id -> ns) to
-    a label of :data:`LABELS`: the records and the idle ns that each
-    label's records end.  A record whose launch is not found counts under
-    'outside' and in ``unmatched``."""
+    ``label`` of the spans holding it: by label, the records
+    (``launches``), the idle ns that its records end (``idle_ns``) and
+    their merged busy ns (``device_ns``); and the number of records whose
+    launch is not found, which count under ``outside``."""
     index = SpanIndex(spans)
-    table = {label: {'launches': 0, 'idle_ns': 0} for label in LABELS}
+    rows: Dict[str, dict] = {}
+    busy: Dict[str, list] = {}
     unmatched = 0
     end = None
     for _, start, dur, corr in sorted(records, key=lambda r: r[1]):
         t = launches.get(corr)
         unmatched += t is None
-        row = table[index.label(t)]
+        key = label(index.chain(t))
+        row = rows.setdefault(key, {'launches': 0, 'idle_ns': 0})
         row['launches'] += 1
         if end is not None and start > end:
             row['idle_ns'] += start - end
         end = start + dur if end is None else max(end, start + dur)
-    table['outside']['unmatched'] = unmatched
+        busy.setdefault(key, []).append((start, start + dur))
+    for key, row in rows.items():
+        row['device_ns'] = ys.busy_ns(busy[key])
+    return rows, unmatched
+
+
+def attribute(records, launches: Dict[int, int], spans) -> Dict[str, dict]:
+    """ICP's view of :func:`charge`: every label of :data:`LABELS` with
+    its records, idle ns and busy ns; ``outside`` also holds
+    ``unmatched``."""
+    rows, unmatched = charge(records, launches, spans, by_stage)
+    table = {label: rows.get(label, {'launches': 0, 'idle_ns': 0,
+                                     'device_ns': 0})
+             for label in LABELS}
+    table[OUTSIDE]['unmatched'] = unmatched
     return table
 
 
-def issue_ns(spans, wall_ns: int) -> Dict[str, int]:
-    """Host ns by label: each stage's summed span durations; 'other', the
-    root spans' time outside stages; 'outside', the rest of ``wall_ns``.
-    Stage spans do not nest in one another."""
-    out = dict.fromkeys(LABELS, 0)
+def issue_by_name(spans, wall_ns: int) -> Dict[str, int]:
+    """Host ns by span name, each the summed durations of its spans (the
+    spans nested in them included); ``other``, the roots' self time (their
+    durations less their children's); ``outside``, the rest of
+    ``wall_ns``."""
+    out: Dict[str, int] = {}
+    roots = children = 0
     for s in spans:
-        if s.name in STAGES:
-            out[STAGES[s.name]] += s.end_ns - s.start_ns
-    roots = sum(s.end_ns - s.start_ns for s in spans if s.parent < 0)
-    out['other'] = roots - sum(out[STAGES[n]] for n in STAGES)
-    out['outside'] = wall_ns - roots
+        ns = s.end_ns - s.start_ns
+        out[s.name] = out.get(s.name, 0) + ns
+        if s.parent < 0:
+            roots += ns
+        elif spans[s.parent].parent < 0:
+            children += ns
+    out[OTHER] = roots - children
+    out[OUTSIDE] = wall_ns - roots
+    return out
+
+
+def issue_ns(spans, wall_ns: int) -> Dict[str, int]:
+    """ICP's view of :func:`issue_by_name`: each stage's summed span
+    durations; ``other``, the roots' time outside stages; ``outside``, the
+    rest of ``wall_ns``.  Stage spans do not nest in one another."""
+    names = issue_by_name(spans, wall_ns)
+    out = {label: names.get(name, 0) for name, label in STAGES.items()}
+    out[OTHER] = wall_ns - names[OUTSIDE] - sum(out.values())
+    out[OUTSIDE] = names[OUTSIDE]
     return out
 
 
@@ -156,9 +214,18 @@ def _run_units(gen, units) -> int:
 
 
 def span_passes(gen, units: List[int]) -> Optional[dict]:
-    """Passes (a) and (b) over ``units`` (pass (b) on the card only):
-    per label, the launches of pass (b) and the issue and idle ms a unit;
-    the counters of pass (a); None where the program keeps no spans."""
+    """Passes (a) and (b) over ``units`` (pass (b) on the card only), or
+    None where the program keeps no spans:
+
+    * ``names``: by span name (and ``other``, ``outside``), a unit: the
+      host ``issue_ms`` of pass (a); on the card also the ``launches``,
+      ``idle_ms`` and ``device_ms`` that pass (b) charges to it;
+    * ``counters``: by name, pass (a)'s count a unit;
+    * ``labels``: ICP's view, by label: ``issue_ms`` a unit and, on the
+      card, pass (b)'s ``launches`` over all the units and ``idle_ms`` a
+      unit;
+    * ``records``, ``unmatched``: pass (b)'s device records and those
+      whose launch was not found (None and absent off the card)."""
     bench = program_spans()
     if bench is None or not units:
         return None
@@ -169,10 +236,13 @@ def span_passes(gen, units: List[int]) -> Optional[dict]:
     spans = bench.take_spans()
     counters = bench.take_counters()
     n = len(units)
-    table = {label: {'issue_ms': ns / 1e6 / n}
-             for label, ns in issue_ns(spans, wall).items()}
-    out = {'units': n, 'spans': len(spans), 'counters': counters,
-           'labels': table, 'records': None}
+    names = {name: {'issue_ms': ns / 1e6 / n}
+             for name, ns in issue_by_name(spans, wall).items()}
+    labels = {label: {'issue_ms': ns / 1e6 / n}
+              for label, ns in issue_ns(spans, wall).items()}
+    out = {'units': n, 'spans': len(spans),
+           'counters': {k: v / n for k, v in counters.items()},
+           'names': names, 'labels': labels, 'records': None}
     import torch
     if torch.device(gen.device).type != 'cuda':
         return out
@@ -184,38 +254,43 @@ def span_passes(gen, units: List[int]) -> Optional[dict]:
     spans = bench.take_spans()
     bench.take_counters()
     records = device_records(prof)
-    charged = attribute(records, launch_times(prof), spans)
-    for label, row in charged.items():
-        table[label]['launches'] = row['launches']
-        table[label]['idle_ms'] = row['idle_ns'] / 1e6 / n
+    launches = launch_times(prof)
+    rows, unmatched = charge(records, launches, spans)
+    zero = {'launches': 0, 'idle_ns': 0, 'device_ns': 0}
+    for name in {s.name for s in spans} | {OTHER, OUTSIDE}:
+        row = rows.get(name, zero)
+        names.setdefault(name, {}).update(
+            launches=row['launches'] / n, idle_ms=row['idle_ns'] / 1e6 / n,
+            device_ms=row['device_ns'] / 1e6 / n)
+    for label, row in attribute(records, launches, spans).items():
+        labels[label]['launches'] = row['launches']
+        labels[label]['idle_ms'] = row['idle_ns'] / 1e6 / n
     out['records'] = len(records)
-    out['unmatched'] = charged['outside']['unmatched']
+    out['unmatched'] = unmatched
     return out
 
 
 def scanned_pct(counters: dict, kind: str) -> Optional[float]:
+    """The share (%) of its calls' pairs that the pruned 1-NN of ``kind``
+    scanned, from ``counters``; None where it made no call."""
     pairs = counters.get(f'nn.{kind}.pairs')
     if not pairs:
         return None
     return 100.0 * counters.get(f'nn.{kind}.pairs_scanned', 0) / pairs
 
 
-def metrics(passes: Optional[dict]) -> Dict[str, float]:
-    """The per-layer numbers the passes give: ``<stage>_issue_ms`` and
-    ``<stage>_idle_ms`` a unit, ``<kind>_scanned_pct``; a number the
-    passes lack is left out."""
-    if passes is None:
-        return {}
+def metrics(reg, workload: str, passes: Optional[dict]) -> Dict[str, float]:
+    """The numbers that ``workload``'s per-layer readers find in a context
+    that holds the passes alone: those that read spans and counters."""
+    from benchmark import tracing
+    ctx = tracing.context([], 0, 0, 0, [], 0.0)
+    if passes is not None:
+        ctx.spans, ctx.counters = passes['names'], passes['counters']
     out = {}
-    for stage in ('match', 'trim', 'gn'):
-        row = passes['labels'][stage]
-        out[f'{stage}_issue_ms'] = row['issue_ms']
-        if 'idle_ms' in row:
-            out[f'{stage}_idle_ms'] = row['idle_ms']
-    for kind in KINDS:
-        pct = scanned_pct(passes['counters'], kind)
-        if pct is not None:
-            out[f'{kind}_scanned_pct'] = pct
+    for m in reg.per_layer(workload):
+        value = reg.reader(m['name'])(ctx)
+        if value is not None:
+            out[m['name']] = value
     return out
 
 
@@ -303,7 +378,7 @@ def main(argv=None) -> int:
     out['cost'] = recording_cost(gen, units, COST_ROUNDS)
     passes = span_passes(gen, units)
     out['passes'] = passes
-    out['metrics'] = metrics(passes)
+    out['metrics'] = metrics(reg, args.workload, passes)
     records, _ = tracing.profile_units(gen, units)
     out['records_off'] = len(records)
     out['scans_per_unit'] = gen.scans_per_unit

@@ -109,6 +109,42 @@ def test_a_new_cell_config_and_metric_are_new_files_and_entries(tmp_path):
     assert result['metrics']['window_units']['value'] >= 1
 
 
+def test_a_new_reader_reads_a_span_and_a_counter_by_name(tmp_path):
+    """Readers added as files alone, with their entries, read the
+    program's spans and counters by name in a traced run: the fleet's
+    root span, which no reader of the benchmark reads, and a counter."""
+    _copy_benchmark(tmp_path)
+    metrics = tmp_path / 'benchmark' / 'metrics'
+    (metrics / 'odometry_issue_ms.py').write_text(
+        'def read(ctx):\n'
+        '    return ctx.spans.get("fleet.icp_odometry", {}).get("issue_ms")\n')
+    (metrics / 'gn_steps_per_unit.py').write_text(
+        'def read(ctx):\n'
+        '    return ctx.counters.get("icp.gn.steps")\n')
+    spec = json.load(open(tmp_path / 'BENCHMARK.json'))
+    for name, unit, source in (('odometry_issue_ms', 'ms', 'program_span'),
+                               ('gn_steps_per_unit', 'steps',
+                                'program_counter')):
+        spec['per_layer'].append({'name': name, 'unit': unit,
+                                  'better': 'lower', 'source': source,
+                                  'layer': 'x', 'moves': 'scans_per_s',
+                                  'workloads': ['fleet-odom-outdoor']})
+    (tmp_path / 'BENCHMARK.json').write_text(json.dumps(spec))
+
+    reg = Registry(str(tmp_path))
+    over = small(reg, 'fleet-odom-outdoor')
+    result = run.run_cell(reg, 'fleet-odom-outdoor', 2 ** 31 + 3, 0.3, True,
+                          device='cpu', overrides=over)
+    assert result['correct'], result['checks']
+    got = {k: v['value'] for k, v in result['metrics'].items()}
+    # The root holds the three stages: its host time is at least theirs.
+    assert got['odometry_issue_ms'] >= (got['match_issue_ms']
+                                        + got['trim_issue_ms']
+                                        + got['gn_issue_ms']) > 0
+    assert got['gn_steps_per_unit'] >= 1
+    assert result['metrics']['gn_steps_per_unit']['unit'] == 'steps'
+
+
 def test_a_new_kind_of_traffic_is_a_new_module(tmp_path):
     """A kind of its own (here the fleet's generator under another name),
     with a configuration, a traffic mix and a cell of that kind, added as

@@ -11,7 +11,10 @@ window's; the idle share is therefore taken against the window's own
 median unit time (``device_idle_pct``).  The second adds the host's
 operators over one more unit, so that each idle gap of the device can
 be named by the host operator that issued the work ending it; it feeds
-the breakdown only, since the host's records slow the host.
+the breakdown only, since the host's records slow the host.  Then the
+program's own spans and counters over the same units
+(``stages.span_passes``), for the readers that read a span or a counter
+by name.
 """
 
 from __future__ import annotations
@@ -40,6 +43,13 @@ class TraceContext:
     # units, by kind ('k2': one shared reference, 'k2l': per lane).
     nn_bound_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     nn_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # The program's spans and counters over the traced units, a unit
+    # (``stages.span_passes``): by span name (and ``other``, ``outside``),
+    # ``issue_ms``, and on the card also ``launches``, ``idle_ms`` and
+    # ``device_ms``; by counter name, its count.
+    spans: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
+    counters: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def _device_records(prof) -> List[Tuple[str, int, int, int]]:
